@@ -1,0 +1,276 @@
+// K1-K4: the packed half-size real FFT (fourier/packed_fused.py).
+//
+// Replaces dsc_tpu/fourier/packed_fused.py:
+//   K1 _phase_a_packed_kernel        -> rfft_phase_a   (column pass)
+//   K2 _phase_b_t_packed_kernel      -> rfft_phase_b   (row pass + untangle)
+//   K3 _inv_phase_a_t_packed_kernel  -> irfft_phase_a  (entangle + row pass)
+//   K4 _inv_phase_b_zp_packed_kernel -> irfft_phase_b  (column pass)
+// An n-point real FFT is one nh = n/2-point complex FFT of
+// z[t] = x[2t] + i*x[2t+1], four-step over z viewed as (n1, m2), m2 = n2/2,
+// plus the hermitian untangle (packed_fused.py has the formulas). A float2
+// load of x IS z, so the TPU kernel's even/odd selection matmul has no
+// counterpart, and its bf16x3 DFT-matrix products become float32
+// butterflies (fft_core.cuh). The four-step twiddle W_nh^(k1*j2) and the
+// untangle twiddle W_n^k are as large as the data; each comes from two
+// float64-built tables of ~sqrt entries (fourier/plan.py Factored).
+//
+// Bound on the H100: device memory. At n = 2^24 a forward reads 64 MiB of x,
+// writes and reads the 64 MiB intermediate and writes the 64 MiB spectrum
+// (256 MiB), against ~5*nh*log2(nh) = 1 GFLOP: about 4 flops per byte.
+// Each pass therefore reads and writes every element once, and all the
+// work of a pass happens in shared memory between the two.
+//
+// Layout costs, the first things a faster version looks at:
+// - the column passes (K1, K4) read and write rows of `cols` consecutive
+//   complex values (32 B at cols = 4, one sector) at a stride of m2;
+// - the row passes (K2, K3) own P consecutive rows k1 and their mirrors
+//   n1-k1 and touch the natural spectrum X[k1 + n1*k2] in runs of P
+//   complex values at a stride of n1: P = 8 (64 B) at n = 2^21, P = 2
+//   (16 B, half a sector wasted) at n = 2^24;
+// - the in-place radix-2 stages bank-conflict in shared memory.
+//
+// The TPU phase B needs a boundary-row DFT and precomputed k1 = 0 rows
+// (packed_fused.py:856-883, :913-921) because its tile pairs cannot see
+// rows across 128-row tiles. Here the block that computes row k1 also
+// holds row n1-k1, where the untangle's mirror operand
+// Z[nh-k] = Z_T[n1-k1, m2-1-k2] lies (for k1 = 0 it is the same row shifted
+// by one column, Z_T[0, (m2-k2) mod m2]; one extra block takes row 0 and
+// the Nyquist bin X[nh] = Re Z[0] - Im Z[0]).
+
+#include "fft_core.cuh"
+
+using namespace dsc;
+
+namespace {
+
+constexpr int kThreads = 512;
+constexpr int kColumnPoints = 16384;  // column pass: n1 * cols <= 16384 (128 KB)
+constexpr int kRowPoints = 8192;      // row pass: 2 * P * m2 <= 8192 (64 KB)
+
+// ---------------------------------------------------------------------------
+// column passes (K1, K4): `cols` consecutive columns j0.. of an (n1, m2)
+// complex array per block; column c at smem + c * (n1 + 1) (the pad keeps
+// the column-to-column accesses on different banks)
+// ---------------------------------------------------------------------------
+
+template <bool INV>
+__global__ void __launch_bounds__(kThreads)
+column_pass_kernel(const float2* __restrict__ in, float2* __restrict__ out, int log2n1,
+                   int m2, int log2cols, const float2* __restrict__ w_n1,
+                   const float2* __restrict__ tw_lo, const float2* __restrict__ tw_hi,
+                   int tw_bits, float scale) {
+  extern __shared__ float2 smem[];
+  const int n1 = 1 << log2n1;
+  const int cols = 1 << log2cols;
+  const int stride = n1 + 1;
+  const int j0 = blockIdx.x * cols;
+  const int total = n1 * cols;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int c = i & (cols - 1);
+    const int j1 = i >> log2cols;
+    smem[c * stride + bitrev(j1, log2n1)] = in[(long)j1 * m2 + j0 + c];
+  }
+  __syncthreads();
+  fft_rows<INV>(smem, cols, stride, log2n1, w_n1);
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int c = i & (cols - 1);
+    const int k1 = i >> log2cols;
+    float2 v = smem[c * stride + k1];
+    if (INV) {
+      v = cscale(v, scale);  // K4: z[k1*m2 + j] = (1/nh) * column IDFT
+    } else {                 // K1: four-step twiddle W_nh^(k1*j2)
+      v = cmul(v, factored_twiddle(tw_lo, tw_hi, tw_bits, (unsigned)k1 * (unsigned)(j0 + c)));
+    }
+    out[(long)k1 * m2 + j0 + c] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// row passes (K2, K3): block b < npairs holds 2P rows, slot i < P is row
+// k = bP + 1 + i and slot P + i its mirror n1 - k; block npairs holds row 0
+// alone. Over all blocks every row appears once, except row n1/2, which the
+// last pair block holds twice (its own mirror) and writes once.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int slot_row(int b, int npairs, int P, int n1, int slot) {
+  if (b == npairs) return 0;
+  const int k = b * P + 1 + (slot < P ? slot : slot - P);
+  return slot < P ? k : n1 - k;
+}
+
+// thread index t of a block -> (slot, k2) so that neighbouring threads
+// touch neighbouring rows: runs of P ascending rows per k2
+__device__ __forceinline__ void slot_k2(int b, int npairs, int P, int log2P, int m2, int t,
+                                        int* slot, int* k2) {
+  if (b == npairs) {
+    *slot = 0;
+    *k2 = t;
+    return;
+  }
+  const int per_group = P * m2;
+  const int g = t >= per_group;  // 0: rows k, 1: mirrors n1 - k
+  const int u = t - g * per_group;
+  const int i = u & (P - 1);
+  *k2 = u >> log2P;
+  *slot = g ? P + (P - 1 - i) : i;
+}
+
+__device__ __forceinline__ bool duplicate_slot(int slot, int P, int row, int n1) {
+  return slot >= P && 2 * row == n1;
+}
+
+__global__ void __launch_bounds__(kThreads)
+rfft_phase_b_kernel(const float2* __restrict__ at, float2* __restrict__ spec, int n1,
+                    int log2m2, int P, int log2P, const float2* __restrict__ w_m2,
+                    const float2* __restrict__ un_lo, const float2* __restrict__ un_hi,
+                    int un_bits) {
+  extern __shared__ float2 smem[];
+  const int m2 = 1 << log2m2;
+  const int npairs = n1 / (2 * P);
+  const int b = blockIdx.x;
+  const int slots = b == npairs ? 1 : 2 * P;
+  for (int i = threadIdx.x; i < slots * m2; i += blockDim.x) {
+    const int s = i >> log2m2;
+    const int j = i & (m2 - 1);
+    smem[(s << log2m2) + bitrev(j, log2m2)] = at[(long)slot_row(b, npairs, P, n1, s) * m2 + j];
+  }
+  __syncthreads();
+  fft_rows<false>(smem, slots, m2, log2m2, w_m2);  // slot s, k2: Z[row + n1*k2]
+  for (int t = threadIdx.x; t < slots * m2; t += blockDim.x) {
+    int s, k2;
+    slot_k2(b, npairs, P, log2P, m2, t, &s, &k2);
+    const int row = slot_row(b, npairs, P, n1, s);
+    if (duplicate_slot(s, P, row, n1)) continue;
+    const float2 a = smem[(s << log2m2) + k2];
+    float2 mir;  // Z[(nh - k) mod nh]
+    if (row == 0) {
+      mir = smem[(m2 - k2) & (m2 - 1)];
+    } else {
+      const int ms = s < P ? s + P : s - P;
+      mir = smem[(ms << log2m2) + (m2 - 1 - k2)];
+    }
+    const float2 bc = conj2(mir);
+    const unsigned k = (unsigned)row + (unsigned)n1 * (unsigned)k2;
+    const float2 e = cscale(cadd(a, bc), 0.5f);
+    const float2 d = cmul(factored_twiddle(un_lo, un_hi, un_bits, k),
+                          cscale(csub(a, bc), 0.5f));
+    spec[k] = csub(e, times_i(d));  // X[k] = E - i*W^k*D
+    if (row == 0 && k2 == 0) {      // Nyquist X[nh] = Re Z[0] - Im Z[0]
+      spec[(long)n1 << log2m2] = make_float2(a.x - a.y, 0.f);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+irfft_phase_a_kernel(const float2* __restrict__ spec, float2* __restrict__ y, int n1,
+                     int log2m2, int P, int log2P, const float2* __restrict__ w_m2,
+                     const float2* __restrict__ un_lo, const float2* __restrict__ un_hi,
+                     int un_bits, const float2* __restrict__ tw_lo,
+                     const float2* __restrict__ tw_hi, int tw_bits) {
+  extern __shared__ float2 smem[];
+  const int m2 = 1 << log2m2;
+  const int npairs = n1 / (2 * P);
+  const int b = blockIdx.x;
+  const int slots = b == npairs ? 1 : 2 * P;
+  const unsigned nh = (unsigned)n1 << log2m2;
+  // entangle while loading: Z[k] = (A + B)/2 + i*W^-k*(A - B)/2 with
+  // A = X[k], B = conj X[nh - k]; the mirror rows are this block's own
+  for (int t = threadIdx.x; t < slots * m2; t += blockDim.x) {
+    int s, k2;
+    slot_k2(b, npairs, P, log2P, m2, t, &s, &k2);
+    const int row = slot_row(b, npairs, P, n1, s);
+    const unsigned k = (unsigned)row + (unsigned)n1 * (unsigned)k2;
+    const float2 a = spec[k];
+    const float2 bc = conj2(spec[nh - k]);
+    const float2 e = cscale(cadd(a, bc), 0.5f);
+    const float2 d = cmul(conj2(factored_twiddle(un_lo, un_hi, un_bits, k)),
+                          cscale(csub(a, bc), 0.5f));
+    smem[(s << log2m2) + bitrev(k2, log2m2)] = cadd(e, times_i(d));
+  }
+  __syncthreads();
+  fft_rows<true>(smem, slots, m2, log2m2, w_m2);
+  for (int i = threadIdx.x; i < slots * m2; i += blockDim.x) {
+    const int s = i >> log2m2;
+    const int j2 = i & (m2 - 1);
+    const int row = slot_row(b, npairs, P, n1, s);
+    if (duplicate_slot(s, P, row, n1)) continue;
+    const float2 tw = conj2(factored_twiddle(tw_lo, tw_hi, tw_bits, (unsigned)row * (unsigned)j2));
+    y[((long)row << log2m2) + j2] = cmul(smem[i], tw);
+  }
+}
+
+int set_smem(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
+template <bool INV>
+int launch_column_pass(const void* in, void* out, int n1, int m2, const void* w_n1,
+                       const void* tw_lo, const void* tw_hi, int tw_bits, float scale,
+                       void* stream) {
+  int cols = kColumnPoints / n1;
+  if (cols > 4) cols = 4;
+  if (cols > m2) cols = m2;
+  const size_t smem = (size_t)cols * (n1 + 1) * sizeof(float2);
+  const void* kernel = (const void*)column_pass_kernel<INV>;
+  int err = set_smem(kernel, smem);
+  if (err) return err;
+  column_pass_kernel<INV><<<m2 / cols, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float2*)in, (float2*)out, ilog2(n1), m2, ilog2(cols), (const float2*)w_n1,
+      (const float2*)tw_lo, (const float2*)tw_hi, tw_bits, scale);
+  return (int)cudaGetLastError();
+}
+
+// rows per block half: 2P rows of m2 points within kRowPoints
+int pairs_per_block(int m2) {
+  int P = kRowPoints / (2 * m2);
+  if (P > 8) P = 8;
+  return P < 1 ? 1 : P;
+}
+
+}  // namespace
+
+extern "C" {
+
+// x: (n1*m2*2,) float32 = z (n1, m2) complex64 -> at (n1, m2) complex64
+int dsc_rfft_phase_a(const void* x, void* at, int n1, int m2, const void* w_n1,
+                     const void* tw_lo, const void* tw_hi, int tw_bits, void* stream) {
+  return launch_column_pass<false>(x, at, n1, m2, w_n1, tw_lo, tw_hi, tw_bits, 1.f, stream);
+}
+
+// at (n1, m2) -> spec (n1*m2 + 1,) complex64, natural order
+int dsc_rfft_phase_b(const void* at, void* spec, int n1, int m2, const void* w_m2,
+                     const void* un_lo, const void* un_hi, int un_bits, void* stream) {
+  const int P = pairs_per_block(m2);
+  const size_t smem = (size_t)2 * P * m2 * sizeof(float2);
+  int err = set_smem((const void*)rfft_phase_b_kernel, smem);
+  if (err) return err;
+  rfft_phase_b_kernel<<<n1 / (2 * P) + 1, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float2*)at, (float2*)spec, n1, ilog2(m2), P, ilog2(P), (const float2*)w_m2,
+      (const float2*)un_lo, (const float2*)un_hi, un_bits);
+  return (int)cudaGetLastError();
+}
+
+// spec (n1*m2 + 1,) complex64 -> y (n1, m2) complex64
+int dsc_irfft_phase_a(const void* spec, void* y, int n1, int m2, const void* w_m2,
+                      const void* un_lo, const void* un_hi, int un_bits, const void* tw_lo,
+                      const void* tw_hi, int tw_bits, void* stream) {
+  const int P = pairs_per_block(m2);
+  const size_t smem = (size_t)2 * P * m2 * sizeof(float2);
+  int err = set_smem((const void*)irfft_phase_a_kernel, smem);
+  if (err) return err;
+  irfft_phase_a_kernel<<<n1 / (2 * P) + 1, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float2*)spec, (float2*)y, n1, ilog2(m2), P, ilog2(P), (const float2*)w_m2,
+      (const float2*)un_lo, (const float2*)un_hi, un_bits, (const float2*)tw_lo,
+      (const float2*)tw_hi, tw_bits);
+  return (int)cudaGetLastError();
+}
+
+// y (n1, m2) complex64 -> out (2*n1*m2,) float32 (even samples = real parts)
+int dsc_irfft_phase_b(const void* y, void* out, int n1, int m2, const void* w_n1,
+                      float scale, void* stream) {
+  return launch_column_pass<true>(y, out, n1, m2, w_n1, nullptr, nullptr, 0, scale, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,147 @@
+"""Public FFT API for dsc_tpu_torch (dsc_tpu/fourier/__init__.py).
+
+The reference FFT surface (dsc.h:384-424, dsc/src/dsc.cpp:1955-2340):
+
+- fft/ifft/rfft/irfft over any axis of a rank<=4 tensor
+- sizes rounded UP to the next power of two with pad/crop of the input
+  (dsc.cpp:2023-2028)
+- rfft shape rules: out_n = n/2 + 1 forward, 2*(n-1) inverse
+  (dsc.cpp:2188-2201)
+- fftfreq/rfftfreq generators matching np.fft incl. odd n
+  (dsc.cpp:2262-2340)
+- a bounded LRU plan cache warmed by plan_fft (dsc.cpp:182-267)
+
+Engines (config.py): single-vector float32 rfft/irfft of 2^20..2^26
+points run the packed real FFT (K1-K4, packed_fused.py); everything else
+ported runs the plain core (core.py) with K12 at complex64 base cases.
+The spectrum is a natural-order (n/2+1,) complex tensor.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import tracing
+from ..dtype import DTYPE_TO_NP, Dtype
+from ..interop import TORCH_DTYPE
+from ..tensor import Tensor, _finish, from_numpy
+from . import config, core, packed_fused, plan
+from .plan import next_pow2
+
+__all__ = ['fft', 'ifft', 'rfft', 'irfft', 'fftfreq', 'rfftfreq', 'plan_fft']
+
+
+def plan_fft(n: int, dtype: Dtype = Dtype.F64, fft_type: str = 'complex'):
+    """Warm the plan cache for an n-point transform (reference dsc_plan_fft)."""
+    cdtype = torch.complex128 if dtype in (Dtype.F64, Dtype.C64) else torch.complex64
+    plan.get_plan(next_pow2(n), fft_type, cdtype)
+
+
+def _resolve_axis(x: Tensor, axis: int) -> int:
+    ax = axis + x.n_dim if axis < 0 else axis
+    if ax < 0 or ax >= x.n_dim:
+        raise RuntimeError(f'axis {axis} is out of bounds for a {x.n_dim}-D tensor')
+    return ax
+
+
+def _batch(x: Tensor, ax: int) -> int:
+    return x.ne // x.shape[ax]
+
+
+def _out_shape(x: Tensor, ax: int, out_n: int):
+    return tuple(out_n if i == ax else d for i, d in enumerate(x.shape))
+
+
+def fft(x: Tensor, out: Optional[Tensor] = None, n: int = -1, axis: int = -1) -> Tensor:
+    return _fft_like(x, out, n, axis, inverse=False)
+
+
+def ifft(x: Tensor, out: Optional[Tensor] = None, n: int = -1, axis: int = -1) -> Tensor:
+    return _fft_like(x, out, n, axis, inverse=True)
+
+
+def _fft_like(x: Tensor, out, n: int, axis: int, inverse: bool) -> Tensor:
+    ax = _resolve_axis(x, axis)
+    nn = next_pow2(n) if n > 0 else next_pow2(x.shape[ax])
+    data = x.torch
+    config.fft_route(data.device.type, x.dtype, _batch(x, ax), nn, inverse)
+    cdt = TORCH_DTYPE[x.dtype.as_complex]
+    spec, tables = plan.get_plan(nn, 'complex', cdt)
+    with tracing.trace_op('ifft' if inverse else 'fft', 'op;fft',
+                          tracing.tensor_args(x=x)):
+        res = core.fft_nd(data, tables, spec, nn, ax, inverse, cdt)
+    return _finish(res, out)
+
+
+def rfft(x: Tensor, out: Optional[Tensor] = None, n: int = -1, axis: int = -1) -> Tensor:
+    if not x.dtype.is_real:
+        raise RuntimeError('RFFT input must be real')
+    ax = _resolve_axis(x, axis)
+    # fft_order = pow2(n or x_n) >> 1; out_n = fft_order + 1
+    # (reference dsc.cpp:2194-2197)
+    full_n = next_pow2(n) if n > 0 else next_pow2(x.shape[ax])
+    data = x.torch
+    route = config.rfft_route(data.device.type, x.dtype, _batch(x, ax), full_n)
+    with tracing.trace_op('rfft', 'op;fft', tracing.tensor_args(x=x)):
+        if route == 'packed':
+            _, tables = plan.get_plan(full_n, 'packed', torch.complex64)
+            sig = core._pad_crop(data.reshape(-1), full_n).contiguous()
+            res = packed_fused.rfft_packed(sig, tables).reshape(
+                _out_shape(x, ax, full_n // 2 + 1))
+        else:
+            spec, tables = plan.get_plan(full_n, 'real',
+                                         TORCH_DTYPE[x.dtype.as_complex])
+            res = core.rfft_nd(data, tables, spec, full_n, ax)
+    return _finish(res, out)
+
+
+def irfft(x: Tensor, out: Optional[Tensor] = None, n: int = -1, axis: int = -1) -> Tensor:
+    if not x.dtype.is_complex:
+        raise RuntimeError('IRFFT input must be complex')
+    ax = _resolve_axis(x, axis)
+    # fft_order = pow2(n-1 or x_n-1); out_n = 2 * fft_order
+    # (reference dsc.cpp:2198-2201)
+    full_n = 2 * (next_pow2(n - 1) if n > 0 else next_pow2(x.shape[ax] - 1))
+    data = x.torch
+    route = config.irfft_route(data.device.type, x.dtype, _batch(x, ax), full_n)
+    with tracing.trace_op('irfft', 'op;fft', tracing.tensor_args(x=x)):
+        if route == 'packed':
+            _, tables = plan.get_plan(full_n, 'packed', torch.complex64)
+            spec = core._pad_crop(data.reshape(-1), full_n // 2 + 1).contiguous()
+            res = packed_fused.irfft_packed(spec, tables).reshape(
+                _out_shape(x, ax, full_n))
+        else:
+            cdt = TORCH_DTYPE[x.dtype]
+            spec, tables = plan.get_plan(full_n, 'real', cdt)
+            res = core.irfft_nd(data, tables, spec, full_n, ax, cdt)
+    return _finish(res, out)
+
+
+def fftfreq(n: int, d: float = 1.0, dtype: Dtype = Dtype.F32) -> Tensor:
+    """np.fft.fftfreq-compatible (reference dsc.cpp:2262-2302)."""
+    if n <= 0:
+        raise RuntimeError('n must be > 0')
+    if dtype.is_complex:
+        raise RuntimeError('fftfreq dtype must be real')
+    factor = 1.0 / (n * d)
+    odd = n & 1
+    n2 = (n - 1) // 2 if odd else n // 2
+    head = np.arange(0, n2 + odd, dtype=np.float64)
+    tail = np.arange(-n2, 0, dtype=np.float64)
+    vals = (np.concatenate([head, tail]) * factor).astype(DTYPE_TO_NP[dtype])
+    return from_numpy(vals)
+
+
+def rfftfreq(n: int, d: float = 1.0, dtype: Dtype = Dtype.F32) -> Tensor:
+    """np.fft.rfftfreq-compatible (reference dsc.cpp:2304-2340)."""
+    if n <= 0:
+        raise RuntimeError('n must be > 0')
+    if dtype.is_complex:
+        raise RuntimeError('rfftfreq dtype must be real')
+    factor = 1.0 / (n * d)
+    n2 = ((n - 1) // 2 + 1) if (n & 1) else (n // 2 + 1)
+    vals = (np.arange(n2, dtype=np.float64) * factor).astype(DTYPE_TO_NP[dtype])
+    return from_numpy(vals)

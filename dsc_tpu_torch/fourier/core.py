@@ -1,0 +1,171 @@
+"""FFT compute core: Stockham autosort + Bailey four-step in plain PyTorch
+(dsc_tpu/fourier/core.py).
+
+This is the plain path of the port: every transform the routing
+(config.py) sends to 'core', and the numerics the kernels are held to.
+Complex values are torch complex tensors; the JAX package's planar (re, im)
+float pairs are a TPU workaround and are not carried over.
+
+- **Stockham autosort** (iterative radix-2, natural order in and out) for
+  base cases; complex64 base cases of 256..4096 points go to the base-case
+  kernel K12 instead (base_fft.py), whose wrapper runs Stockham itself on
+  CPU tensors;
+- **Bailey four-step** (n = n1*n2: column FFTs -> twiddle -> row FFTs ->
+  transpose) above 4096 points (plan.build_spec);
+- inverse transforms use ifft(x) = conj(fft(conj(x)))/n.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+
+from . import config
+
+
+def stockham_fft(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """DFT of each row of ``x`` (B, n), Stockham autosort radix-2 DIF.
+
+    ``w`` holds the stage twiddles w[p] = exp(-2i*pi*p/n), p < n/2 (pass
+    ``w.conj()`` for the unscaled inverse); the stage with current length
+    ``cur`` uses w[::n//cur][:cur//2]."""
+    b, n = x.shape
+    cur, s = n, 1
+    while cur > 1:
+        m = cur // 2
+        x3 = x.reshape(b, cur, s)
+        a, c = x3[:, :m], x3[:, m:]
+        wp = w[::s][:m].reshape(1, m, 1)
+        x = torch.stack([a + c, (a - c) * wp], dim=2).reshape(b, n)
+        cur, s = m, s * 2
+    return x
+
+
+def _base_fft(x: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tensor:
+    """Base-case n-point batched FFT: kernel K12 where the JAX package runs
+    its Pallas base kernel, Stockham elsewhere."""
+    cdt = np.complex64 if x.dtype == torch.complex64 else np.complex128
+    if config.use_base_kernel(cdt, n):
+        from . import base_fft
+
+        return base_fft.fft_base(x, w)
+    return stockham_fft(x, w)
+
+
+def fft_apply(x: torch.Tensor, spec: Tuple, tables: Any) -> torch.Tensor:
+    """Forward FFT of each row (B, n) following ``spec`` (plan.build_spec)."""
+    if spec[0] == 'base':
+        return _base_fft(x.contiguous(), tables, spec[1])
+    _, n1, n2, s1, s2 = spec
+    tt, t1, t2 = tables
+    b = x.shape[0]
+    # x[j] with j = n2*j1 + j2 -> columns (over j1) batched as rows
+    m = x.reshape(b, n1, n2).transpose(1, 2).reshape(b * n2, n1)
+    a = fft_apply(m, s1, t1).reshape(b, n2, n1)
+    # inter-stage twiddle T[j2, k1] = exp(-2i*pi*k1*j2/n), then row FFTs
+    a = (a * tt[None]).transpose(1, 2).reshape(b * n1, n2)
+    c = fft_apply(a, s2, t2)
+    # X[k1 + n1*k2] = C[k1, k2]
+    return c.reshape(b, n1, n2).transpose(1, 2).reshape(b, n1 * n2)
+
+
+def fft_batched(x: torch.Tensor, spec: Tuple, tables: Any,
+                inverse: bool) -> torch.Tensor:
+    """(B, n) -> (B, n), forward or inverse (1/n scaled)."""
+    if inverse:
+        n = x.shape[-1]
+        return torch.conj_physical(
+            fft_apply(torch.conj_physical(x), spec, tables)) / n
+    return fft_apply(x, spec, tables)
+
+
+def untangle(z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Real spectrum X (..., nh+1) from Z (..., nh), the FFT of the packed
+    z[t] = x[2t] + i*x[2t+1]: X[k] = (Z[k] + conj Z[nh-k])/2
+    - i*w[k]*(Z[k] - conj Z[nh-k])/2 with Z[nh] = Z[0], w[k] = W_n^k."""
+    ze = torch.cat([z, z[..., :1]], dim=-1)
+    zr = ze.flip(-1).conj()
+    return 0.5 * (ze + zr) - 0.5j * (w * (ze - zr))
+
+
+def entangle(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``untangle``: Z (..., nh) from X (..., nh+1), Z[k] =
+    (X[k] + conj X[nh-k])/2 + i*conj(w[k])*(X[k] - conj X[nh-k])/2, with
+    w[k] = W_n^k for k < nh."""
+    nh = x.shape[-1] - 1
+    f, g = x[..., :nh], x.flip(-1)[..., :nh].conj()
+    return 0.5 * (f + g) + 0.5j * (w.conj() * (f - g))
+
+
+def rfft_batched(x: torch.Tensor, spec: Tuple, tables: Any, n: int) -> torch.Tensor:
+    """(B, n) real -> (B, n/2+1) complex.
+
+    Up to plan.RFFT_PACK_MAX: half-size complex transform of the packed
+    z[t] = x[2t] + i*x[2t+1] plus the untangling pass (reference
+    dsc_real_fft, dsc_fft.h:178-238). Above: full-size transform of x."""
+    w_tables, wu = tables
+    nh = n // 2
+    if wu is None:
+        cdt = torch.complex64 if x.dtype == torch.float32 else torch.complex128
+        return fft_apply(x.to(cdt), spec, w_tables)[:, :nh + 1]
+    if nh == 0:
+        return x.to(wu.dtype)
+    b = x.shape[0]
+    z = torch.view_as_complex(x.contiguous().reshape(b, nh, 2))
+    return untangle(fft_apply(z, spec, w_tables), wu)
+
+
+def irfft_batched(x: torch.Tensor, spec: Tuple, tables: Any, n: int) -> torch.Tensor:
+    """(B, n/2+1) complex -> (B, n) real: full-spectrum reconstruction +
+    full-size inverse (large n), or the inverse untangle + half-size
+    inverse (small n)."""
+    w_tables, wu = tables
+    b = x.shape[0]
+    nh = n // 2
+    if wu is None:
+        full = torch.cat([x, x[:, 1:nh].flip(1).conj()], dim=1)
+        y = fft_apply(torch.conj_physical(full), spec, w_tables)
+        return y.real / n
+    z = entangle(x, wu[:nh])
+    y = torch.conj_physical(fft_apply(torch.conj_physical(z), spec, w_tables)) / nh
+    return torch.view_as_real(y.contiguous()).reshape(b, n)
+
+
+def _pad_crop(x: torch.Tensor, target: int) -> torch.Tensor:
+    """Crop or zero-pad the last axis to ``target`` (reference pad/crop to
+    pow2, dsc.cpp:2019-2032)."""
+    cur = x.shape[-1]
+    if cur == target:
+        return x
+    if cur > target:
+        return x[..., :target]
+    out = x.new_zeros(*x.shape[:-1], target)
+    out[..., :cur] = x
+    return out
+
+
+def _rows(x: torch.Tensor, axis: int, n: int):
+    """Move ``axis`` last, pad/crop it to ``n``; (B, n) rows + lead shape."""
+    x = _pad_crop(torch.movedim(x, axis, -1), n)
+    return x.reshape(-1, n), x.shape[:-1]
+
+
+def _unrows(y: torch.Tensor, lead, axis: int) -> torch.Tensor:
+    return torch.movedim(y.reshape(*lead, y.shape[-1]), -1, axis).contiguous()
+
+
+def fft_nd(x, tables, spec, n: int, axis: int, inverse: bool, cdtype) -> torch.Tensor:
+    xb, lead = _rows(x.to(cdtype), axis, n)
+    return _unrows(fft_batched(xb, spec, tables, inverse), lead, axis)
+
+
+def rfft_nd(x, tables, spec, n: int, axis: int) -> torch.Tensor:
+    xb, lead = _rows(x, axis, n)
+    return _unrows(rfft_batched(xb, spec, tables, n), lead, axis)
+
+
+def irfft_nd(x, tables, spec, n: int, axis: int, cdtype) -> torch.Tensor:
+    xb, lead = _rows(x.to(cdtype), axis, n // 2 + 1)
+    return _unrows(irfft_batched(xb, spec, tables, n), lead, axis)

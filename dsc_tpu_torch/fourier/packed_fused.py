@@ -1,0 +1,199 @@
+"""Packed half-size real FFT: kernels K1-K4 (dsc_tpu/fourier/packed_fused.py).
+
+rfft of n = n1*n2 real samples as ONE complex FFT of nh = n/2 points:
+z[t] = x[2t] + i*x[2t+1] (on the card a float2 load *is* this packing),
+a four-step FFT of z viewed as (n1, m2), m2 = n2/2, and the hermitian
+untangle
+
+    X[k] = (Z[k] + conj Z[nh-k])/2 - i*W_n^k*(Z[k] - conj Z[nh-k])/2,
+
+k = 0..nh (Z[nh] = Z[0]). The inverse entangles
+Z[k] = (X[k] + conj X[nh-k])/2 + i*W_n^-k*(X[k] - conj X[nh-k])/2, runs
+the inverse four-step, and its complex output read as floats is the real
+signal: even samples in the real parts, odd samples in the imaginary ones.
+
+Four kernels, each a pass over device memory (csrc/packed_rfft.cu):
+
+  K1 rfft_phase_a    column DFT_n1 of z + four-step twiddle W_nh^(k1*j2)
+                     -> At (n1, m2), row k1 contiguous
+  K2 rfft_phase_b    row DFT_m2 of At (Z[k1 + n1*k2] = Z_T[k1, k2]) +
+                     untangle -> natural (nh+1,) spectrum
+  K3 irfft_phase_a   entangle + inverse row DFT_m2 + twiddle W_nh^-(k1*j2)
+                     -> Y (n1, m2)
+  K4 irfft_phase_b   inverse column DFT_n1, 1/nh scale -> (n,) real
+
+The mirror operand of the untangle, Z[nh-k] = Z_T[n1-k1, m2-1-k2] (and
+Z_T[0, (m2-k2) mod m2] for k1 = 0), lies in row n1-k1, so the phase-B
+kernels give each block the rows k1 and n1-k1 together. The TPU engine's
+boundary-row DFT and k1 = 0 fix rows (packed_fused.py:856-883, :913-921)
+exist because a TPU tile pair cannot see rows across 128-row tiles; they
+have no counterpart here. The spectrum is in natural order, not the TPU's
+half-T layout.
+
+Each kernel has a plain PyTorch version (``*_plain``) with the same inputs
+and outputs. The wrappers launch the kernel for CUDA tensors and run the
+plain version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels import build
+from . import stream
+from .core import entangle, stockham_fft, untangle
+from .plan import Factored, PackedTables
+
+
+def supported(n1: int, n2: int) -> bool:
+    """The split the packed engine takes (dsc_tpu packed_fused.py:952-963):
+    the inner (n1, n2/2) split is streaming-legal, n1 a multiple of 512
+    and n2/2 of 256."""
+    m2 = n2 // 2
+    return (stream.supported(n1, m2, np.complex64)
+            and n1 % (4 * stream.LANES) == 0
+            and m2 % (2 * stream.LANES) == 0)
+
+
+def _twiddle(e: torch.Tensor, f: Factored) -> torch.Tensor:
+    """W^e from a factored table (plan.Factored), as the kernels form it."""
+    return f.hi[e >> f.bits] * f.lo[e & ((1 << f.bits) - 1)]
+
+
+def _sizes(t: PackedTables):
+    n1, m2 = 2 * t.w_n1.shape[0], 2 * t.w_m2.shape[0]
+    return n1, m2, n1 * m2
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def rfft_phase_a_plain(x: torch.Tensor, t: PackedTables) -> torch.Tensor:
+    """K1: (n,) f32 -> At (n1, m2) c64, At[k1, j2] =
+    W_nh^(k1*j2) * sum_j1 z[j1*m2 + j2] W_n1^(j1*k1)."""
+    n1, m2, _ = _sizes(t)
+    z = torch.view_as_complex(x.reshape(n1, m2, 2))
+    a = stockham_fft(z.transpose(0, 1).contiguous(), t.w_n1)   # (m2, n1)
+    dev = x.device
+    e = torch.arange(m2, device=dev)[:, None] * torch.arange(n1, device=dev)[None, :]
+    return (a * _twiddle(e, t.twiddle)).transpose(0, 1).contiguous()
+
+
+def rfft_phase_b_plain(at: torch.Tensor, t: PackedTables) -> torch.Tensor:
+    """K2: At (n1, m2) -> the natural (nh+1,) c64 rfft spectrum."""
+    _, _, nh = _sizes(t)
+    z = stockham_fft(at, t.w_m2).transpose(0, 1).reshape(-1)  # Z[k1 + n1*k2]
+    return untangle(z, _twiddle(torch.arange(nh + 1, device=at.device), t.untangle))
+
+
+def irfft_phase_a_plain(spec: torch.Tensor, t: PackedTables) -> torch.Tensor:
+    """K3: natural (nh+1,) c64 spectrum -> Y (n1, m2) c64."""
+    n1, m2, nh = _sizes(t)
+    dev = spec.device
+    z = entangle(spec, _twiddle(torch.arange(nh, device=dev), t.untangle))
+    zt = z.reshape(m2, n1).transpose(0, 1).contiguous()         # Z_T[k1, k2]
+    y = stockham_fft(zt, t.w_m2.conj())
+    e = torch.arange(n1, device=dev)[:, None] * torch.arange(m2, device=dev)[None, :]
+    return y * _twiddle(e, t.twiddle).conj()
+
+
+def irfft_phase_b_plain(y: torch.Tensor, t: PackedTables) -> torch.Tensor:
+    """K4: Y (n1, m2) c64 -> (n,) f32, x[2t] + i*x[2t+1] = z[t] =
+    (1/nh) * sum_k1 Y[k1, t % m2] W_n1^-(k1 * (t // m2))."""
+    _, _, nh = _sizes(t)
+    c = stockham_fft(y.transpose(0, 1).contiguous(), t.w_n1.conj())  # (m2, n1)
+    z = c.transpose(0, 1).contiguous() * (1.0 / nh)
+    return torch.view_as_real(z).reshape(-1)
+
+
+def rfft_packed_plain(x: torch.Tensor, t: PackedTables) -> torch.Tensor:
+    """Plain version of K1+K2: (n,) f32 -> (n/2+1,) c64."""
+    return rfft_phase_b_plain(rfft_phase_a_plain(x, t), t)
+
+
+def irfft_packed_plain(spec: torch.Tensor, t: PackedTables) -> torch.Tensor:
+    """Plain version of K3+K4: (n/2+1,) c64 -> (n,) f32."""
+    return irfft_phase_b_plain(irfft_phase_a_plain(spec, t), t)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_tables(t: PackedTables) -> None:
+    for name, tab in (('w_n1', t.w_n1), ('w_m2', t.w_m2),
+                      ('twiddle.lo', t.twiddle.lo), ('twiddle.hi', t.twiddle.hi),
+                      ('untangle.lo', t.untangle.lo),
+                      ('untangle.hi', t.untangle.hi)):
+        build.check(tab, torch.complex64, tab.shape, name)
+
+
+def rfft_phase_a(x: torch.Tensor, t: PackedTables) -> torch.Tensor:
+    """K1 on a CUDA tensor, its plain version on a CPU tensor."""
+    if x.device.type == 'cpu':
+        return rfft_phase_a_plain(x, t)
+    n1, m2, nh = _sizes(t)
+    build.check(x, torch.float32, (2 * nh,), 'x')
+    _check_tables(t)
+    at = torch.empty((n1, m2), dtype=torch.complex64, device=x.device)
+    build.launch('rfft_phase_a', x.data_ptr(), at.data_ptr(), n1, m2,
+                 t.w_n1.data_ptr(), t.twiddle.lo.data_ptr(),
+                 t.twiddle.hi.data_ptr(), t.twiddle.bits)
+    return at
+
+
+def rfft_phase_b(at: torch.Tensor, t: PackedTables) -> torch.Tensor:
+    """K2 on a CUDA tensor, its plain version on a CPU tensor."""
+    if at.device.type == 'cpu':
+        return rfft_phase_b_plain(at, t)
+    n1, m2, nh = _sizes(t)
+    build.check(at, torch.complex64, (n1, m2), 'at')
+    _check_tables(t)
+    spec = torch.empty(nh + 1, dtype=torch.complex64, device=at.device)
+    build.launch('rfft_phase_b', at.data_ptr(), spec.data_ptr(), n1, m2,
+                 t.w_m2.data_ptr(), t.untangle.lo.data_ptr(),
+                 t.untangle.hi.data_ptr(), t.untangle.bits)
+    return spec
+
+
+def irfft_phase_a(spec: torch.Tensor, t: PackedTables) -> torch.Tensor:
+    """K3 on a CUDA tensor, its plain version on a CPU tensor."""
+    if spec.device.type == 'cpu':
+        return irfft_phase_a_plain(spec, t)
+    n1, m2, nh = _sizes(t)
+    build.check(spec, torch.complex64, (nh + 1,), 'spec')
+    _check_tables(t)
+    y = torch.empty((n1, m2), dtype=torch.complex64, device=spec.device)
+    build.launch('irfft_phase_a', spec.data_ptr(), y.data_ptr(), n1, m2,
+                 t.w_m2.data_ptr(), t.untangle.lo.data_ptr(),
+                 t.untangle.hi.data_ptr(), t.untangle.bits,
+                 t.twiddle.lo.data_ptr(), t.twiddle.hi.data_ptr(),
+                 t.twiddle.bits)
+    return y
+
+
+def irfft_phase_b(y: torch.Tensor, t: PackedTables) -> torch.Tensor:
+    """K4 on a CUDA tensor, its plain version on a CPU tensor."""
+    if y.device.type == 'cpu':
+        return irfft_phase_b_plain(y, t)
+    n1, m2, nh = _sizes(t)
+    build.check(y, torch.complex64, (n1, m2), 'y')
+    _check_tables(t)
+    out = torch.empty(2 * nh, dtype=torch.float32, device=y.device)
+    build.launch('irfft_phase_b', y.data_ptr(), out.data_ptr(), n1, m2,
+                 t.w_n1.data_ptr(), 1.0 / nh)
+    return out
+
+
+def rfft_packed(x: torch.Tensor, t: PackedTables) -> torch.Tensor:
+    """(n,) f32 -> (n/2+1,) c64 through K1 and K2."""
+    return rfft_phase_b(rfft_phase_a(x, t), t)
+
+
+def irfft_packed(spec: torch.Tensor, t: PackedTables) -> torch.Tensor:
+    """(n/2+1,) c64 -> (n,) f32 through K3 and K4."""
+    return irfft_phase_b(irfft_phase_a(spec, t), t)

@@ -1,0 +1,139 @@
+"""Build, load and launch the hand-written CUDA kernels (csrc/).
+
+The sources are compiled with nvcc for Hopper (sm_90a) into one shared
+library with a plain C interface, ``build/kernels/libdsc_tpu_torch_kernels.so``
+under the repository root, the first time a kernel is launched (again
+whenever a source is newer than the library). The library is loaded with
+ctypes; every entry point takes raw device pointers and PyTorch's current
+CUDA stream, launches without synchronising, and returns
+``cudaGetLastError()``, which ``launch`` turns into an exception.
+
+``launches`` counts, per kernel, the launches made since the last
+``reset_launches()``: a run can show which kernels its path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, Optional, Sequence
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / 'csrc'
+BUILD_DIR = PACKAGE_DIR.parent / 'build' / 'kernels'
+LIB_PATH = BUILD_DIR / 'libdsc_tpu_torch_kernels.so'
+SOURCES = ('base_fft.cu', 'packed_rfft.cu')
+HEADERS = ('fft_core.cuh',)
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC')
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# kernel -> (C entry point, argument types before the trailing stream)
+KERNELS = {
+    'base_fft': ('dsc_base_fft', (_P, _P, _I, _I, _P)),
+    'rfft_phase_a': ('dsc_rfft_phase_a', (_P, _P, _I, _I, _P, _P, _P, _I)),
+    'rfft_phase_b': ('dsc_rfft_phase_b', (_P, _P, _I, _I, _P, _P, _P, _I)),
+    'irfft_phase_a': ('dsc_irfft_phase_a',
+                      (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I)),
+    'irfft_phase_b': ('dsc_irfft_phase_b', (_P, _P, _I, _I, _P, _F)),
+}
+
+launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+    cand = os.path.join(cuda_home, 'bin', 'nvcc')
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which('nvcc')
+    if found is None:
+        raise RuntimeError('nvcc not found (set CUDA_HOME or put nvcc on PATH): '
+                           'the CUDA kernels are built from source at first use')
+    return found
+
+
+def _stale() -> bool:
+    if not LIB_PATH.exists():
+        return True
+    built = LIB_PATH.stat().st_mtime
+    return any((CSRC_DIR / f).stat().st_mtime > built
+               for f in SOURCES + HEADERS)
+
+
+def build(extra_flags: Sequence[str] = ()) -> str:
+    """Compile csrc/ into LIB_PATH; returns nvcc's output. The library is
+    written under a temporary name and renamed, so a concurrent loader
+    never sees a partial file."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, '-o', tmp,
+           *(str(CSRC_DIR / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f'nvcc failed ({" ".join(cmd)}):\n'
+                           f'{proc.stdout}{proc.stderr}')
+    os.replace(tmp, LIB_PATH)
+    return proc.stdout + proc.stderr
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built first if missing or stale."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            if _stale():
+                build()
+            lib = ctypes.CDLL(str(LIB_PATH))
+            for entry, argtypes in KERNELS.values():
+                fn = getattr(lib, entry)
+                fn.argtypes = [*argtypes, _P]
+                fn.restype = _I
+            lib.dsc_error_string.argtypes = [_I]
+            lib.dsc_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def check(t: torch.Tensor, dtype: torch.dtype, shape, name: str) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype``/``shape``
+    whose data is 16-byte aligned."""
+    if not t.is_cuda:
+        raise RuntimeError(f'{name}: expected a CUDA tensor, got {t.device}')
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise RuntimeError(f'{name}: expected {dtype} {tuple(shape)}, '
+                           f'got {t.dtype} {tuple(t.shape)}')
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise RuntimeError(f'{name}: expected contiguous, 16-byte aligned data')
+
+
+def launch(kernel: str, *args) -> None:
+    """Launch ``kernel`` on the current stream with ``args``; raise if the
+    launch was refused."""
+    lib = load()
+    entry = KERNELS[kernel][0]
+    err = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        msg = lib.dsc_error_string(err).decode()
+        raise RuntimeError(f'{entry} failed: CUDA error {err} ({msg})')
+    launches[kernel] += 1

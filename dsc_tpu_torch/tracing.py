@@ -1,0 +1,104 @@
+"""Tracing engine for dsc_tpu_torch (dsc_tpu/tracing.py).
+
+The reference (dsc/include/dsc_tracing.h, dsc/src/dsc_tracing.cpp) records
+Begin/End events in a preallocated ring and dumps Chrome trace-event JSON
+for Perfetto. Here tracing is gated at runtime by a flag checked on the op
+path; events carry the op name, category, shapes, dtypes, devices, byte
+sizes, microsecond timestamps and pid/tid.
+
+CUDA launches are asynchronous, so while recording each traced op waits
+for the device (``torch.cuda.synchronize()``) before its End event: the
+event then spans the device work, as the reference's does by
+timestamping inside the op.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from contextlib import contextmanager
+from typing import Any, Dict, List, Optional
+
+import torch
+
+# DSC_MAX_TRACES equivalent (reference dsc.cpp:25-27, default 1000)
+MAX_TRACES = int(os.environ.get('DSC_MAX_TRACES', '1000'))
+
+_record = False
+_events: List[Dict[str, Any]] = []
+_lock = threading.Lock()
+
+
+def _now_us() -> int:
+    return time.monotonic_ns() // 1000
+
+
+def set_recording(record: bool) -> None:
+    """dsc_traces_record equivalent (reference dsc.cpp:327-329)."""
+    global _record
+    _record = bool(record)
+
+
+def clear_traces() -> None:
+    """dsc_clear_traces equivalent (reference dsc.cpp:335-337)."""
+    with _lock:
+        _events.clear()
+
+
+def _append(ev: Dict[str, Any]) -> None:
+    with _lock:
+        if len(_events) >= MAX_TRACES:
+            # preallocated-ring semantics: drop new events past capacity
+            return
+        _events.append(ev)
+
+
+@contextmanager
+def trace_op(name: str, cat: str, args: Optional[Dict[str, Any]] = None):
+    """RAII-equivalent of dsc_trace_tracker (dsc_tracing.h:328-426):
+    records a Begin event on entry and an End event on exit."""
+    if not _record:
+        yield
+        return
+    pid = os.getpid()
+    tid = threading.get_ident() % 2**31
+    begin = {'name': name, 'cat': cat, 'ph': 'B', 'ts': _now_us(),
+             'pid': pid, 'tid': tid}
+    if args:
+        begin['args'] = args
+    _append(begin)
+    try:
+        yield
+    finally:
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        _append({'name': name, 'cat': cat, 'ph': 'E', 'ts': _now_us(),
+                 'pid': pid, 'tid': tid})
+
+
+def tensor_args(**tensors) -> Dict[str, Any]:
+    """Shapes, dtypes, device and byte size of each Tensor argument (the
+    reference's per-op arg structs, dsc_tracing.h:20-163)."""
+    if not _record:
+        return {}
+    out: Dict[str, Any] = {}
+    for key, t in tensors.items():
+        if t is None:
+            continue
+        data = t.torch
+        out[f'{key}_shape'] = list(t.shape)
+        out[f'{key}_dtype'] = str(t.dtype)
+        out[f'{key}_backend'] = data.device.type
+        out[f'{key}_nbytes'] = data.numel() * data.element_size()
+    return out
+
+
+def dump_traces(path: str) -> None:
+    """dsc_dump_traces equivalent: Chrome trace-event JSON consumable by
+    Perfetto (reference dsc_tracing.cpp:260-280)."""
+    with _lock:
+        events = list(_events)
+    with open(path, 'w') as f:
+        json.dump({'traceEvents': events, 'displayTimeUnit': 'ms'}, f)
