@@ -1,23 +1,37 @@
-"""On-GPU smoke test of the dsc_tpu_torch port: the filterFFT main path
-(rfft -> spectrum multiply -> irfft) on one CUDA card.
+"""On-GPU smoke test of the dsc_tpu_torch port on one CUDA card: the
+filterFFT main path (rfft -> spectrum multiply -> irfft) and the eager
+elementwise tier.
 
     python3 chip_smoke.py
 
 Phases, each raising on failure (exit code 0 means all passed):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the CUDA kernels from dsc_tpu_torch/csrc (nvcc, sm_90a) and
-   init the port on the card;
+2. build the CUDA kernels from dsc_tpu_torch/csrc (nvcc, sm_90a, one
+   process per source), init the port on the card and measure the 256 MiB
+   device-to-device copy rate, the ceiling the kernels' bytes are held to;
 3. each kernel against its plain PyTorch version on the same inputs on
    the card (K12 base FFT; packed rfft K1, K2 and irfft K3, K4 phase by
-   phase at 2^21 and 2^24), and the rfft against np.fft in float64;
-4. the public API at full size: the README quick start (2^20 samples,
-   255 taps, n = 2^21) and the 4097-tap shape, against np.convolve in
-   float64, a 2^24 rfft -> irfft round trip and an n = 4096 rfft/irfft
-   pair; every kernel's launch count must rise in this phase, and the
-   quick start runs once under dsc.profile;
-5. CUDA-event timings (median of 25 runs after warm-up) of each kernel and
-   its plain version, and of the whole filterFFT step.
+   phase at 2^21 and 2^24; K5 streaming map: every float32 body at 2^26,
+   scalars on each side, a 1-element tensor, a broadcast row, clip with one
+   and two bounds, a ragged count, the complex bodies at 2^23 + 1), and the
+   rfft against np.fft in float64;
+4. the public API at full size, as two paths, each with every launch count
+   set to 0 just before it and read just after:
+   a. the README quick start (2^20 samples, 255 taps, n = 2^21) and the
+      4097-tap shape against np.convolve in float64, a 2^24 rfft -> irfft
+      round trip and an n = 4096 rfft/irfft pair (K1-K4, K12); the quick
+      start runs once more under dsc.profile;
+   b. bench.py's fma and sin rows (dsc.add and dsc.sin of 2^26 float32)
+      against NumPy in float64, a sweep of add/mul/exp/sum/max over sizes
+      and dtypes in which K5 must launch exactly where the routing rule
+      says, and the filterFFT at n = 2^24 (2^23 samples, 4097 taps) against
+      a float64 FFT convolution (K5, K1-K4);
+5. CUDA-event timings of each kernel, its plain version and the one
+   PyTorch call that computes the same function (a yardstick the port never
+   calls), each as device time per call over 50 calls back to back, the
+   kernel also as the median of 25 single launches; and the filterFFT step
+   at n = 2^21 and 2^24 (median of 25).
 
 The last lines are the kernels' JSON record, the card line and the result
 line. Without a CUDA device the script exits non-zero before any of them.
@@ -25,17 +39,17 @@ line. Without a CUDA device the script exits non-zero before any of them.
     python3 chip_smoke.py --profile
 
 runs phases 1-2 and then, in place of the checks, measures where the
-filterFFT step's time goes: the device-to-device copy rate (the ceiling the
-kernels' bytes are held to), the step on CUDA events and on the host clock
-over five repeats in one process, K1 timed one launch at a time and 200
-launches back to back, and torch.profiler's device time per kernel and the
-device's busy share of the step.
+filterFFT step's time goes: the step at n = 2^21 on CUDA events and on the
+host clock over five repeats in one process, K1 timed one launch at a time
+and 200 launches back to back, and torch.profiler's device time per kernel
+and the device's busy share of the step at n = 2^21 and at n = 2^24.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -47,9 +61,16 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 REL_BOUND = 3e-5        # kernel vs plain version, relative to max |plain|
 NUMPY_BOUND = 1e-4      # vs np.fft / np.convolve in float64 (BASELINE.md)
+ORACLE = 1e-5           # elementwise vs NumPy, atol = rtol (tests/conftest.py)
 RUNS = 25
 WARMUP_S = 0.25
 STEP_N = 2**21          # the README quick start: 2^20 samples, n = 2^21
+BIG_N = 2**24           # bench.py's headline size
+MAP_N = 2**26           # bench.py's fma and sin rows: 256 MiB of float32
+# H100 SXM data sheet: device memory rate and
+# float32 rate outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
 
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     'rfft_phase_a': ('dsc_tpu_torch/csrc/packed_rfft.cu',
@@ -62,7 +83,24 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                       'dsc_tpu/fourier/packed_fused.py:721'),
     'base_fft': ('dsc_tpu_torch/csrc/base_fft.cu',
                  'dsc_tpu/fourier/pallas_kernels.py:55'),
+    'stream_map': ('dsc_tpu_torch/csrc/stream_map.cu',
+                   'dsc_tpu/ops/pallas_map.py:83'),
 }
+FFT_PATH = ('rfft_phase_a', 'rfft_phase_b', 'irfft_phase_a', 'irfft_phase_b', 'base_fft')
+MAP_PATH = ('stream_map', 'rfft_phase_a', 'rfft_phase_b', 'irfft_phase_a', 'irfft_phase_b')
+
+# K5 float32 bodies: operations per element (arithmetic of the fast sin/cos
+# polynomial; for the libm bodies an estimate of their instruction count)
+MAP_OPS = {'add': 1, 'sub': 1, 'mul': 1, 'div': 1, 'sin': 17, 'cos': 18,
+           'exp': 8, 'logn': 8, 'log2': 8, 'log10': 9, 'sqrt': 1, 'sinc': 20,
+           'clip': 2}
+# the complex bodies: float operations per complex value
+CMAP_OPS = {'add': 2, 'sub': 2, 'mul': 6, 'div': 11}
+# the one PyTorch call computing each body (a yardstick only)
+LIBRARY = {'add': torch.add, 'sub': torch.sub, 'mul': torch.mul, 'div': torch.div,
+           'sin': torch.sin, 'cos': torch.cos, 'exp': torch.exp, 'logn': torch.log,
+           'log2': torch.log2, 'log10': torch.log10, 'sqrt': torch.sqrt,
+           'sinc': torch.sinc, 'clip': torch.clamp}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -134,10 +172,25 @@ def back_to_back_ms(fn, runs: int = 200) -> float:
     return start.elapsed_time(end) / runs
 
 
-def filter_fft(dsc, sig, taps, n_taps: int):
+def copy_ceiling(card: str) -> float:
+    """Read+write bytes per ms of a 256 MiB device-to-device copy."""
+    src = torch.empty(MAP_N, dtype=torch.float32, device='cuda')
+    dst = torch.empty_like(src)
+    ms = cuda_ms(lambda: dst.copy_(src))
+    rate = 2 * src.numel() * 4 / ms
+    print(f'copy 256 MiB device to device: {ms:.4f} ms, {rate / 1e6:.1f} GB/s '
+          f'read+write [{card}]')
+    return rate
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
+
+
+def filter_fft(dsc, sig, taps, n_taps: int, n: int = STEP_N):
     """The README quick start through the public API: full convolution of
-    ``sig`` with ``taps`` by rfft -> spectrum multiply -> irfft at STEP_N."""
-    spec = dsc.rfft(sig, n=STEP_N) * dsc.rfft(taps, n=STEP_N)
+    ``sig`` with ``taps`` by rfft -> spectrum multiply -> irfft at ``n``."""
+    spec = dsc.rfft(sig, n=n) * dsc.rfft(taps, n=n)
     return dsc.irfft(spec)[: sig.shape[0] + n_taps - 1]
 
 
@@ -149,13 +202,6 @@ def profile_step(dsc, card: str) -> None:
     from dsc_tpu_torch.fourier import packed_fused as pf, plan
 
     gen = np.random.default_rng(0)
-    src = torch.empty(2**26, dtype=torch.float32, device='cuda')
-    dst = torch.empty_like(src)
-    ms = cuda_ms(lambda: dst.copy_(src))
-    print(f'copy 256 MiB device to device: {ms:.4f} ms, '
-          f'{2 * 2**28 / ms / 1e6:.1f} GB/s read+write [{card}]')
-    del src, dst
-
     sig = dsc.from_numpy(gen.standard_normal(2**20).astype(np.float32))
     taps = dsc.from_numpy(np.blackman(255).astype(np.float32))
 
@@ -174,25 +220,37 @@ def profile_step(dsc, card: str) -> None:
               f'synchronize {host_ms(step):.4f} ms; K1 one launch {cuda_ms(k1):.4f} ms, '
               f'back to back {back_to_back_ms(k1):.4f} ms [{card}]')
 
-    steps = 20
-    wall = host_ms(step)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-    rows = sorted(((e.self_device_time_total / steps / 1e3, e.count // steps, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                  reverse=True)
-    print(f'torch.profiler, {steps} steps, device time per step [{card}]:')
-    for dev_ms, count, key in rows:
-        print(f'  {dev_ms:9.4f} ms  x{count:<3d} {key[:100]}')
-    busy = sum(r[0] for r in rows)
-    if busy:
-        print(f'  all device work {busy:.4f} ms of a {wall:.4f} ms step (host clock + '
-              f'synchronize): busy share {busy / wall:.3f} [{card}]')
-    else:
-        print('  torch.profiler recorded no device time: busy share not measured')
+    big_sig = dsc.from_numpy(gen.standard_normal(BIG_N // 2).astype(np.float32))
+    big_taps = dsc.from_numpy(np.blackman(4097).astype(np.float32))
+    for what, fn in (('2^20 x 255 taps, n=2^21', step),
+                     ('2^23 x 4097 taps, n=2^24',
+                      lambda: filter_fft(dsc, big_sig, big_taps, 4097, BIG_N))):
+        steps = 20
+        wall = host_ms(fn)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+        rows = sorted(((e.self_device_time_total / steps / 1e3, e.count // steps, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                      reverse=True)
+        print(f'torch.profiler, filterFFT step {what}, {steps} steps, device time per '
+              f'step [{card}]:')
+        for dev_ms, count, key in rows:
+            print(f'  {dev_ms:9.4f} ms  x{count:<3d} {key[:100]}')
+        busy = sum(r[0] for r in rows)
+        if busy:
+            print(f'  all device work {busy:.4f} ms of a {wall:.4f} ms step (host clock + '
+                  f'synchronize): busy share {busy / wall:.3f} [{card}]')
+        else:
+            print('  torch.profiler recorded no device time: busy share not measured')
+
+
+def fft_ops(n: int, points: int) -> float:
+    """Flops of complex FFTs of ``points`` points over ``n`` values in all
+    (5 N log2 N each)."""
+    return 5.0 * n * math.log2(points)
 
 
 def main() -> int:
@@ -209,21 +267,27 @@ def main() -> int:
     from dsc_tpu_torch.fourier import base_fft, packed_fused as pf, plan
     from dsc_tpu_torch.fourier.stream import factors
     from dsc_tpu_torch.kernels import build
+    from dsc_tpu_torch.ops import kernels as ops_kernels
+    from dsc_tpu_torch.ops import stream_map as sm
 
     # -- 1. the card -------------------------------------------------------
     card = card_line()
     print(f'card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, '
           f'{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}')
 
-    # -- 2. build + init ---------------------------------------------------
+    # -- 2. build + init + copy ceiling ------------------------------------
     t0 = time.time()
     log = build.build(extra_flags=('-Xptxas', '-v'))
     build.load()
     print(f'build: {time.time() - t0:.1f} s ({build.LIB_PATH})')
-    for line in log.splitlines():
-        if 'registers' in line or 'spill' in line:
-            print(f'  ptxas: {line.strip()}')
+    regs = [int(w) for line in log.splitlines() if 'registers' in line
+            for w, nxt in zip(line.split(), line.split()[1:]) if nxt == 'registers,']
+    spills = [line.strip() for line in log.splitlines()
+              if 'spill' in line and ' 0 bytes spill stores, 0 bytes spill loads' not in line]
+    print(f'  ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers a thread, '
+          f'{len(spills)} with spills {spills}')
     dsc.init(2**34, device='cuda')
+    ceiling = copy_ceiling(card)
     if args.profile:
         profile_step(dsc, card)
         return 0
@@ -237,17 +301,30 @@ def main() -> int:
         print(f'  {name:14s} {what}: rel err {e:.3e}')
         require(e <= REL_BOUND, f'{name} {what}: {e} > {REL_BOUND}')
 
+    def normal(shape, dtype=np.float32):
+        return torch.from_numpy(gen.standard_normal(shape).astype(dtype)).to(dev)
+
+    def cnormal(n):
+        z = gen.standard_normal(n) + 1j * gen.standard_normal(n)
+        return torch.from_numpy(z.astype(np.complex64)).to(dev)
+
+    def map_operands(body, n):
+        xs = [normal(n) for _ in range(sm.REAL_BODIES[body])]
+        if body in ('logn', 'log2', 'log10', 'sqrt'):
+            xs = [x.abs() + 1e-3 for x in xs]
+        if body == 'clip':
+            xs[1:] = [-0.5, 0.75]
+        return xs
+
     # -- 3. kernels vs plain versions --------------------------------------
     print('phase 3: kernels vs plain versions')
     for n in (256, 512, 2048, 4096):
         w = plan.get_plan(n, 'complex', torch.complex64)[1]
         for batch in (1, 128, 1000):
-            x = torch.from_numpy(
-                (gen.standard_normal((batch, n)) + 1j * gen.standard_normal((batch, n)))
-                .astype(np.complex64)).to(dev)
+            x = cnormal((batch, n))
             compare('base_fft', base_fft.fft_base(x, w),
                     base_fft.fft_base_plain(x, w), f'n={n} batch={batch}')
-    for n in (2**21, 2**24):
+    for n in (STEP_N, BIG_N):
         t = plan.get_plan(n, 'packed', torch.complex64)[1]
         x_np = gen.standard_normal(n).astype(np.float32)
         x = torch.from_numpy(x_np).to(dev)
@@ -269,10 +346,41 @@ def main() -> int:
         e = float((back - x).abs().max())
         print(f'  irfft(rfft(x)) - x, max abs: {e:.3e}')
         require(e <= 2e-4, f'round trip {e}')
+    for body in sm.REAL_BODIES:
+        xs = map_operands(body, MAP_N)
+        compare('stream_map', sm.stream_map(body, *xs), sm.stream_map_plain(body, *xs),
+                f'{body} 2^26')
+    x, one = normal(MAP_N), torch.tensor([1.75], device=dev)
+    for body in ('add', 'sub', 'mul', 'div'):
+        for ops, what in (((x, 2.5), 'tensor, 2.5'), ((2.5, x), '2.5, tensor'),
+                          ((x, one), 'tensor, 1-element tensor'),
+                          ((one, x), '1-element tensor, tensor')):
+            compare('stream_map', sm.stream_map(body, *ops), sm.stream_map_plain(body, *ops),
+                    f'{body} 2^26 {what}')
+    rows, row = normal((4096, 16384)), normal(16384)
+    compare('stream_map', sm.stream_map('add', rows, row), sm.stream_map_plain('add', rows, row),
+            'add (4096, 16384) + row (16384,)')
+    compare('stream_map', sm.stream_map('mul', row, rows), sm.stream_map_plain('mul', row, rows),
+            'mul row (16384,) * (4096, 16384)')
+    for lo, hi in ((-0.5, 0.75), (-math.inf, 0.25), (-0.25, math.inf)):
+        compare('stream_map', sm.stream_map('clip', x, lo, hi),
+                sm.stream_map_plain('clip', x, lo, hi), f'clip 2^26 [{lo}, {hi}]')
+    ragged = 2**21 + 4 * 1000 + 3
+    for body in ('add', 'sin'):
+        xs = map_operands(body, ragged)
+        compare('stream_map', sm.stream_map(body, *xs), sm.stream_map_plain(body, *xs),
+                f'{body} {ragged} (ragged)')
+    a, b = cnormal(BIG_N // 2 + 1), cnormal(BIG_N // 2 + 1)
+    for body in sm.COMPLEX_BODIES:
+        for ops, what in (((a, b), 'tensors'), ((a, 0.5 - 2j), 'complex scalar right'),
+                          ((1.5 + 1j, b), 'complex scalar left')):
+            compare('stream_map', sm.stream_map(body, *ops), sm.stream_map_plain(body, *ops),
+                    f'complex {body} 2^23+1 {what}')
+    del x, rows, row, a, b
     torch.cuda.synchronize()
 
-    # -- 4. the public path at full size -----------------------------------
-    print('phase 4: public API, full size')
+    # -- 4a. the public filterFFT path at full size ------------------------
+    print('phase 4a: public API, the filterFFT path at n = 2^21, 2^24 round trip, n = 4096')
     sig_np = gen.standard_normal(2**20).astype(np.float32)
     build.reset_launches()
     sig = dsc.from_numpy(sig_np)
@@ -287,10 +395,10 @@ def main() -> int:
         e = float(np.abs(out - ref).max() / np.abs(ref).max())
         print(f'  filterFFT 2^20 x {n_taps} taps vs np.convolve float64: {e:.3e}')
         require(e <= NUMPY_BOUND, f'filterFFT {n_taps} taps: {e}')
-    big_np = gen.standard_normal(2**24).astype(np.float32)
+    big_np = gen.standard_normal(BIG_N).astype(np.float32)
     big = dsc.from_numpy(big_np)
     spec = dsc.rfft(big)
-    require(spec.shape == (2**23 + 1,), f'rfft shape {spec.shape}')
+    require(spec.shape == (BIG_N // 2 + 1,), f'rfft shape {spec.shape}')
     ref = np.fft.rfft(big_np.astype(np.float64))
     e = float(np.abs(spec.numpy() - ref).max() / np.abs(ref).max())
     print(f'  dsc.rfft 2^24 vs np.fft float64: {e:.3e}')
@@ -307,10 +415,11 @@ def main() -> int:
     print(f'  rfft/irfft n=4096 (K12 base cases): {e:.3e}, round trip {e2:.3e}')
     require(e <= NUMPY_BOUND and e2 <= 1e-5, 'n=4096 pair')
     torch.cuda.synchronize()
-    launches = dict(build.launches)
-    print(f'  launches on the public path: {launches}')
-    for name in KERNELS:
-        require(launches[name] > 0, f'kernel {name} was not launched on the public path')
+    fft_launches = dict(build.launches)
+    print(f'  launches on the filterFFT path: {fft_launches}')
+    for name in FFT_PATH:
+        require(fft_launches[name] > 0, f'kernel {name} was not launched on the filterFFT path')
+    del big, spec, back
 
     trace = os.path.join(REPO, 'build', 'chip_smoke_traces.json')
     os.makedirs(os.path.dirname(trace), exist_ok=True)
@@ -321,51 +430,189 @@ def main() -> int:
     print(f'  trace events: {sorted(names)}')
     require({'rfft', 'mul', 'irfft', 'get'} <= names, f'trace events {names}')
 
+    # -- 4b. the public elementwise path at full size ----------------------
+    print('phase 4b: public API, bench.py fma/sin rows, elementwise sweep, '
+          'filterFFT at n = 2^24')
+    build.reset_launches()
+    a_np = gen.standard_normal(MAP_N).astype(np.float32)
+    b_np = gen.standard_normal(MAP_N).astype(np.float32)
+    fa, fb = dsc.from_numpy(a_np), dsc.from_numpy(b_np)
+    a64, b64 = a_np.astype(np.float64), b_np.astype(np.float64)
+
+    def oracle(what, got, ref):
+        require(got.shape == ref.shape, f'{what}: shape {got.shape} != {ref.shape}')
+        ok = bool(np.isfinite(got).all()) and np.allclose(got, ref, atol=ORACLE, rtol=ORACLE)
+        e = float(np.abs(got - ref).max())
+        print(f'  {what}: max abs err vs NumPy float64 {e:.3e}')
+        require(ok, f'{what}: not within atol = rtol = {ORACLE} of NumPy')
+
+    def launched(fn, expect, what):
+        before = build.launches['stream_map']
+        res = fn()
+        torch.cuda.synchronize()
+        n = build.launches['stream_map'] - before
+        require(n == int(expect), f'{what}: K5 launched {n} times, routing rule says {expect}')
+        return res
+
+    got = launched(lambda: dsc.add(fa, fb), True, 'fma')
+    oracle('dsc.add 2^26 f32 (bench fma)', got.numpy(), a64 + b64)
+    got = launched(lambda: dsc.sin(fa), True, 'sin')
+    oracle('dsc.sin 2^26 f32 (bench sin)', got.numpy(), np.sin(a64))
+    del got
+    sweep = [(np.float32, e) for e in (8, 16, 21, 26)] + [(np.float64, 21), (np.complex64, 21)]
+    for dtype, e in sweep:
+        n = 2**e
+        x_np, y_np = a_np[:n], b_np[:n]
+        if dtype == np.complex64:
+            x_np, y_np = x_np + 1j * b_np[-n:], y_np + 1j * a_np[-n:]
+        x_np, y_np = x_np.astype(dtype), y_np.astype(dtype)
+        wide = np.complex128 if dtype == np.complex64 else np.float64
+        x64, y64 = x_np.astype(wide), y_np.astype(wide)
+        tx, ty = dsc.from_numpy(x_np), dsc.from_numpy(y_np)
+        what = f'{np.dtype(dtype).name} 2^{e}'
+        for name, fn, ref in (('add', dsc.add, np.add), ('mul', dsc.mul, np.multiply)):
+            got = launched(lambda: fn(tx, ty), ops_kernels.streams(name, tx.torch, ty.torch),
+                           f'{name} {what}')
+            oracle(f'{name} {what}', got.numpy(), ref(x64, y64))
+        got = launched(lambda: dsc.exp(tx),
+                       dtype == np.float32 and sm.eligible([tx.shape], [tx.torch.dtype]),
+                       f'exp {what}')
+        oracle(f'exp {what}', got.numpy(), np.exp(x64))
+        got = launched(lambda: dsc.sum(tx), False, f'sum {what}')
+        oracle(f'sum {what}', got.numpy(), np.sum(x64, keepdims=True))
+        got = launched(lambda: dsc.max(tx), False, f'max {what}')
+        ref = (x64[np.lexsort((x64.imag, x64.real))[-1:]] if dtype == np.complex64
+               else np.max(x64, keepdims=True))
+        oracle(f'max {what}', got.numpy(), ref)
+    m_np, r_np = a_np[:4096 * 512].reshape(4096, 512), b_np[:512]
+    tm, tr = dsc.from_numpy(m_np), dsc.from_numpy(r_np)
+    got = launched(lambda: dsc.add(tm, tr),
+                   sm.eligible([tm.shape, tr.shape], [torch.float32] * 2),
+                   'add (4096, 512) + (512,)')
+    oracle('add (4096, 512) + row (512,) f32', got.numpy(),
+           m_np.astype(np.float64) + r_np.astype(np.float64))
+    c_np, d_np = a_np[:2048].reshape(2048, 1), b_np[:2048].reshape(1, 2048)
+    got = launched(lambda: dsc.mul(dsc.from_numpy(c_np), dsc.from_numpy(d_np)), False,
+                   'mul (2048, 1) * (1, 2048)')
+    oracle('mul (2048, 1) * (1, 2048) f32 (outer, plain)', got.numpy(),
+           c_np.astype(np.float64) * d_np.astype(np.float64))
+    del fa, fb, a64, b64, got
+
+    long_np = gen.standard_normal(BIG_N // 2).astype(np.float32)
+    taps_np = np.blackman(4097).astype(np.float32)
+    long_sig, long_taps = dsc.from_numpy(long_np), dsc.from_numpy(taps_np)
+    got = launched(lambda: filter_fft(dsc, long_sig, long_taps, 4097, BIG_N), True,
+                   'filterFFT 2^24')
+    spec64 = (np.fft.rfft(long_np.astype(np.float64), BIG_N)
+              * np.fft.rfft(taps_np.astype(np.float64), BIG_N))
+    ref = np.fft.irfft(spec64, BIG_N)[: BIG_N // 2 + 4096]
+    out = got.numpy()
+    require(out.shape == ref.shape and out.dtype == np.float32 and np.isfinite(out).all(),
+            f'filterFFT 2^24 shape {out.shape} dtype {out.dtype}')
+    e = float(np.abs(out - ref).max() / np.abs(ref).max())
+    print(f'  filterFFT 2^23 x 4097 taps, n=2^24, vs float64 FFT convolution: {e:.3e}')
+    require(e <= NUMPY_BOUND, f'filterFFT 2^24: {e}')
+    torch.cuda.synchronize()
+    map_launches = dict(build.launches)
+    print(f'  launches on the elementwise path: {map_launches}')
+    for name in MAP_PATH:
+        require(map_launches[name] > 0, f'kernel {name} was not launched on the elementwise path')
+    launches = {**fft_launches, 'stream_map': map_launches['stream_map']}
+
     # -- 5. timings --------------------------------------------------------
-    print(f'phase 5: timings, CUDA events, median of {RUNS} [{card}]')
-    timings = {}
+    print(f'phase 5: timings, CUDA events [{card}]')
+    cases = {name: [] for name in KERNELS}
 
-    def time_pair(name, kernel_fn, plain_fn, what):
-        ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
-        print(f'  {name:14s} {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]')
-        return ms, plain_ms
+    def timed(name, what, kernel_fn, plain_fn, library_fn, n_bytes, n_ops):
+        """Time the kernel, its plain version and the library call, each
+        as device time per call over 50 calls back to back (host dispatch
+        hidden behind the previous call), and the kernel also one launch at
+        a time (host dispatch included); the bounds from this run's bytes
+        and operations."""
+        ms, single_ms = back_to_back_ms(kernel_fn, 50), cuda_ms(kernel_fn)
+        plain_ms, library_ms = back_to_back_ms(plain_fn, 50), back_to_back_ms(library_fn, 50)
+        t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_S * 1e3
+        row = {'what': what, 'ms': ms, 'single_ms': single_ms, 'plain_ms': plain_ms,
+               'bound_ms': max(t_bytes, t_ops),
+               'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
+               'copy_bound_ms': n_bytes / ceiling, 'library_ms': library_ms}
+        cases[name].append(row)
+        print(f'  {name:14s} {what}: kernel {ms:.4f} ms (one launch {single_ms:.4f}), '
+              f'plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound '
+              f'{row["bound_ms"]:.4f} ms ({row["bound_by"]}), copy-ceiling bound '
+              f'{row["copy_bound_ms"]:.4f} ms [{card}]')
+        return row
 
-    for n in (2**21, 2**24):
+    for n in (STEP_N, BIG_N):
         t = plan.get_plan(n, 'packed', torch.complex64)[1]
-        x = torch.from_numpy(gen.standard_normal(n).astype(np.float32)).to(dev)
+        tables = nbytes(t.w_n1, t.w_m2, t.twiddle.lo, t.twiddle.hi, t.untangle.lo,
+                        t.untangle.hi)
+        n1, n2 = factors(n)
+        nh = n // 2
+        x = normal(n)
         at = pf.rfft_phase_a(x, t)
         spec = pf.rfft_phase_b(at, t)
         y = pf.irfft_phase_a(spec, t)
         what = f'n=2^{n.bit_length() - 1} {factors(n)}'
-        res = {
-            'rfft_phase_a': time_pair('rfft_phase_a', lambda: pf.rfft_phase_a(x, t),
-                                      lambda: pf.rfft_phase_a_plain(x, t), what),
-            'rfft_phase_b': time_pair('rfft_phase_b', lambda: pf.rfft_phase_b(at, t),
-                                      lambda: pf.rfft_phase_b_plain(at, t), what),
-            'irfft_phase_a': time_pair('irfft_phase_a', lambda: pf.irfft_phase_a(spec, t),
-                                       lambda: pf.irfft_phase_a_plain(spec, t), what),
-            'irfft_phase_b': time_pair('irfft_phase_b', lambda: pf.irfft_phase_b(y, t),
-                                       lambda: pf.irfft_phase_b_plain(y, t), what),
-        }
-        if n == 2**21:
-            timings.update(res)
+        # library: torch.fft.rfft / irfft, the whole K1+K2 / K3+K4 function
+        # flops: 5 N log2 N of each pass's DFTs plus ~6-10 per value of twiddle
+        # or (un)tangle arithmetic
+        timed('rfft_phase_a', what, lambda: pf.rfft_phase_a(x, t),
+              lambda: pf.rfft_phase_a_plain(x, t), lambda: torch.fft.rfft(x),
+              nbytes(x, at) + tables, fft_ops(nh, n1) + 6 * nh)
+        timed('rfft_phase_b', what, lambda: pf.rfft_phase_b(at, t),
+              lambda: pf.rfft_phase_b_plain(at, t), lambda: torch.fft.rfft(x),
+              nbytes(at, spec) + tables, fft_ops(nh, n2 // 2) + 10 * nh)
+        timed('irfft_phase_a', what, lambda: pf.irfft_phase_a(spec, t),
+              lambda: pf.irfft_phase_a_plain(spec, t), lambda: torch.fft.irfft(spec, n),
+              nbytes(spec, y) + tables, fft_ops(nh, n2 // 2) + 16 * nh)
+        timed('irfft_phase_b', what, lambda: pf.irfft_phase_b(y, t),
+              lambda: pf.irfft_phase_b_plain(y, t), lambda: torch.fft.irfft(spec, n),
+              nbytes(y, x) + tables, fft_ops(nh, n1) + 2 * n)
     for n, batch in ((2048, 1), (4096, 1000)):
         w = plan.get_plan(n, 'complex', torch.complex64)[1]
-        x = torch.from_numpy(
-            (gen.standard_normal((batch, n)) + 1j * gen.standard_normal((batch, n)))
-            .astype(np.complex64)).to(dev)
-        res = time_pair('base_fft', lambda: base_fft.fft_base(x, w),
-                        lambda: base_fft.fft_base_plain(x, w), f'n={n} batch={batch}')
-        if batch == 1:
-            timings['base_fft'] = res
+        x = cnormal((batch, n))
+        timed('base_fft', f'n={n} batch={batch}', lambda: base_fft.fft_base(x, w),
+              lambda: base_fft.fft_base_plain(x, w), lambda: torch.fft.fft(x),
+              2 * nbytes(x) + nbytes(w), fft_ops(n * batch, n))
+    for body in sm.REAL_BODIES:
+        xs = map_operands(body, MAP_N)
+        timed('stream_map', f'{body} 2^26 f32', lambda: sm.stream_map(body, *xs),
+              lambda: sm.stream_map_plain(body, *xs), lambda: LIBRARY[body](*xs),
+              nbytes(*xs) + 4 * MAP_N, MAP_OPS[body] * MAP_N)
+    rows, row = normal((4096, 16384)), normal(16384)
+    timed('stream_map', 'add (4096, 16384) + row (16384,) f32',
+          lambda: sm.stream_map('add', rows, row), lambda: sm.stream_map_plain('add', rows, row),
+          lambda: torch.add(rows, row), 2 * nbytes(rows) + nbytes(row), rows.numel())
+    del rows, row
+    x = normal(MAP_N)
+    timed('stream_map', 'mul 2^26 f32 by 2.5', lambda: sm.stream_map('mul', x, 2.5),
+          lambda: sm.stream_map_plain('mul', x, 2.5), lambda: torch.mul(x, 2.5),
+          2 * nbytes(x), MAP_N)
+    del x
+    a, b = cnormal(BIG_N // 2 + 1), cnormal(BIG_N // 2 + 1)
+    for body in sm.COMPLEX_BODIES:
+        timed('stream_map', f'complex {body} 2^23+1 c64', lambda: sm.stream_map(body, a, b),
+              lambda: sm.stream_map_plain(body, a, b), lambda: LIBRARY[body](a, b),
+              3 * nbytes(a), CMAP_OPS[body] * a.numel())
+    del a, b
     taps = dsc.from_numpy(np.blackman(255).astype(np.float32))
     step_ms = cuda_ms(lambda: filter_fft(dsc, sig, taps, 255))
     print(f'  filterFFT step (2^20 x 255 taps, n=2^21, public API): {step_ms:.4f} ms [{card}]')
+    big_ms = cuda_ms(lambda: filter_fft(dsc, long_sig, long_taps, 4097, BIG_N))
+    print(f'  filterFFT step (2^23 x 4097 taps, n=2^24, public API): {big_ms:.4f} ms [{card}]')
 
+    # the main path's shape of each kernel: the filterFFT at n = 2^21 for the
+    # packed passes, the n = 4096 pair's 2048 x 1 for K12, bench's fma for K5
+    main_case = {name: rows_[0] for name, rows_ in cases.items()}
+    main_case['stream_map'] = next(r for r in cases['stream_map'] if r['what'].startswith('add 2^26'))
     record = {'kernels': [
         {'name': name, 'route': 'cuda', 'source': src, 'replaces': rep,
          'launches': launches[name], 'max_abs_err': errs[name],
-         'ms': timings[name][0], 'plain_ms': timings[name][1]}
+         'ms': main_case[name]['ms'], 'plain_ms': main_case[name]['plain_ms'],
+         'bound_ms': main_case[name]['bound_ms'], 'bound_by': main_case[name]['bound_by'],
+         'library_ms': main_case[name]['library_ms'], 'shape': main_case[name]['what'],
+         'cases': cases[name]}
         for name, (src, rep) in KERNELS.items()]}
     print(json.dumps(record))
     print(card)

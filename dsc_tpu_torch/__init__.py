@@ -6,10 +6,12 @@ kernel written for sm_90a (csrc/), built at first use (kernels/build.py).
 The device is explicit: ``init(main_mem, device='cuda')``, or
 ``device='cpu'`` to run every kernel's plain PyTorch version instead.
 
-Ported so far: the context, dtypes, tracing, a Tensor subset (creation,
-reshape, basic slicing, add/sub/mul/true_div) and the FFT family, whose
+Ported so far: the context, dtypes, tracing, the Tensor with the whole
+eager op set of dsc_tpu (elementwise, clip, pow, reductions, creation,
+layout, indexing with write-through views) and the FFT family, whose
 filterFFT path (rfft -> spectrum multiply -> irfft) runs on the card
-through kernels K1-K4 and K12. ROADMAP.md lists what remains.
+through kernels K1-K4 and K12. Large float32 and complex64 elementwise ops
+run kernel K5 (ops/stream_map.py). ROADMAP.md lists what remains.
 """
 
 from . import models
@@ -18,7 +20,49 @@ from .dtype import Dtype
 from .fourier import fft, fftfreq, ifft, irfft, plan_fft, rfft, rfftfreq
 from .interop import from_half_t
 from .profiler import profile, start_recording, stop_recording
-from .tensor import Tensor, add, from_numpy, mul, randn, reshape, sub, true_div
+from .tensor import (
+    Tensor,
+    absolute,
+    add,
+    angle,
+    arange,
+    cast,
+    clip,
+    concat,
+    conj,
+    cos,
+    empty,
+    empty_like,
+    exp,
+    from_numpy,
+    full,
+    full_like,
+    i0,
+    imag,
+    log2,
+    log10,
+    logn,
+    max,
+    mean,
+    min,
+    mul,
+    ones,
+    ones_like,
+    power,
+    randn,
+    real,
+    reshape,
+    sin,
+    sinc,
+    sqrt,
+    sub,
+    sum,
+    transpose,
+    true_div,
+    view,
+    zeros,
+    zeros_like,
+)
 
 __version__ = '0.1.0'
 
@@ -34,11 +78,44 @@ __all__ = [
     'from_numpy',
     'from_half_t',
     'reshape',
+    'concat',
+    'transpose',
+    'view',
+    'cast',
+    'arange',
     'randn',
+    'cos',
+    'sin',
+    'sinc',
+    'logn',
+    'log2',
+    'log10',
+    'exp',
+    'sqrt',
+    'absolute',
+    'angle',
+    'conj',
+    'real',
+    'imag',
     'add',
     'sub',
     'mul',
     'true_div',
+    'sum',
+    'mean',
+    'max',
+    'min',
+    'clip',
+    'power',
+    'i0',
+    'ones',
+    'ones_like',
+    'zeros',
+    'zeros_like',
+    'full',
+    'full_like',
+    'empty',
+    'empty_like',
     'plan_fft',
     'fft',
     'ifft',

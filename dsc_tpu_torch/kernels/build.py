@@ -1,9 +1,10 @@
 """Build, load and launch the hand-written CUDA kernels (csrc/).
 
-The sources are compiled with nvcc for Hopper (sm_90a) into one shared
-library with a plain C interface, ``build/kernels/libdsc_tpu_torch_kernels.so``
-under the repository root, the first time a kernel is launched (again
-whenever a source is newer than the library). The library is loaded with
+The sources are compiled with nvcc for Hopper (sm_90a), one nvcc process
+per source, all started together, and linked into one shared library with
+a plain C interface, ``build/kernels/libdsc_tpu_torch_kernels.so`` under the
+repository root, the first time a kernel is launched (again whenever a
+source is newer than the library). The library is loaded with
 ctypes; every entry point takes raw device pointers and PyTorch's current
 CUDA stream, launches without synchronising, and returns
 ``cudaGetLastError()``, which ``launch`` turns into an exception.
@@ -29,14 +30,15 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / 'csrc'
 BUILD_DIR = PACKAGE_DIR.parent / 'build' / 'kernels'
 LIB_PATH = BUILD_DIR / 'libdsc_tpu_torch_kernels.so'
-SOURCES = ('base_fft.cu', 'packed_rfft.cu')
+SOURCES = ('base_fft.cu', 'packed_rfft.cu', 'stream_map.cu')
 HEADERS = ('fft_core.cuh',)
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC')
+ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
+COMPILE_FLAGS = (*ARCH_FLAGS, '-std=c++17', '-O3', '-Xcompiler', '-fPIC')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # kernel -> (C entry point, argument types before the trailing stream)
 KERNELS = {
@@ -46,6 +48,8 @@ KERNELS = {
     'irfft_phase_a': ('dsc_irfft_phase_a',
                       (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I)),
     'irfft_phase_b': ('dsc_irfft_phase_b', (_P, _P, _I, _I, _P, _F)),
+    # op code; (pointer, re, im, kind, brow length) for three operands; out, n
+    'stream_map': ('dsc_stream_map', (_I, *(_P, _F, _F, _I, _I) * 3, _P, _L)),
 }
 
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -79,22 +83,33 @@ def _stale() -> bool:
                for f in SOURCES + HEADERS)
 
 
+def _run_all(cmds) -> str:
+    """Run the commands side by side; raise with the output of the first
+    that fails, else return their output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f'nvcc failed ({" ".join(cmd)}):\n{out}')
+    return ''.join(outs)
+
+
 def build(extra_flags: Sequence[str] = ()) -> str:
-    """Compile csrc/ into LIB_PATH; returns nvcc's output. The library is
-    written under a temporary name and renamed, so a concurrent loader
-    never sees a partial file."""
+    """Compile csrc/ into LIB_PATH; returns nvcc's output. Each source
+    compiles in its own nvcc process, all at once; the objects are linked
+    under a temporary name and renamed, so a concurrent loader never sees a
+    partial file."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, '-o', tmp,
-           *(str(CSRC_DIR / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f'nvcc failed ({" ".join(cmd)}):\n'
-                           f'{proc.stdout}{proc.stderr}')
-    os.replace(tmp, LIB_PATH)
-    return proc.stdout + proc.stderr
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objs = [os.path.join(tmp_dir, Path(s).stem + '.o') for s in SOURCES]
+        log = _run_all([[nvcc, *COMPILE_FLAGS, *extra_flags, '-c', '-o', obj,
+                         str(CSRC_DIR / src)] for src, obj in zip(SOURCES, objs)])
+        tmp = os.path.join(tmp_dir, LIB_PATH.name)
+        log += _run_all([[nvcc, *ARCH_FLAGS, '-shared', '-o', tmp, *objs]])
+        os.replace(tmp, LIB_PATH)
+    return log
 
 
 def load() -> ctypes.CDLL:

@@ -13,6 +13,7 @@ import dsc_tpu_torch as dt  # noqa: E402
 from dsc_tpu_torch.fourier import base_fft, plan  # noqa: E402
 from dsc_tpu_torch.fourier import packed_fused as pf  # noqa: E402
 from dsc_tpu_torch.kernels import build  # noqa: E402
+from dsc_tpu_torch.ops import stream_map as sm  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -79,7 +80,10 @@ def test_public_path_launches_every_kernel():
     spec = dt.rfft(dt.from_numpy(sig), n=2**21) * dt.rfft(dt.from_numpy(taps), n=2**21)
     y = dt.irfft(spec)[: 2**20 + 254].numpy()
     small = dt.irfft(dt.rfft(dt.from_numpy(sig[:4096]))).numpy()
-    assert all(v > 0 for v in build.launches.values()), build.launches
+    fft_kernels = ('base_fft', 'rfft_phase_a', 'rfft_phase_b', 'irfft_phase_a',
+                   'irfft_phase_b')
+    assert all(build.launches[k] > 0 for k in fft_kernels), build.launches
+    assert build.launches['stream_map'] == 0  # the 2^20+1 spectra multiply in plain torch
     ref = np.convolve(sig.astype(np.float64), taps.astype(np.float64))
     assert y.shape == ref.shape
     assert np.abs(y - ref).max() / np.abs(ref).max() < 1e-4
@@ -89,6 +93,63 @@ def test_public_path_launches_every_kernel():
 def test_unported_routes_raise():
     with pytest.raises(NotImplementedError, match='K6/K8'):
         dt.rfft(dt.from_numpy(np.ones(2**18, np.float32)))
-    big = dt.from_numpy(np.ones(2**21, np.float32))
-    with pytest.raises(NotImplementedError, match='K5'):
-        big * big
+    # an elementwise op of 2^21 elements now launches K5
+    x = np.random.default_rng(2).standard_normal(2**21).astype(np.float32)
+    big = dt.from_numpy(x)
+    before = build.launches['stream_map']
+    got = (big * big).torch
+    assert build.launches['stream_map'] == before + 1
+    assert _rel(got, sm.stream_map_plain('mul', big.torch, big.torch)) < REL
+    before = build.launches['stream_map']
+    wide = dt.from_numpy(x.astype(np.float64))
+    np.testing.assert_allclose((wide + wide).numpy(), 2 * x.astype(np.float64))
+    outer = dt.from_numpy(x[:2048].reshape(2048, 1)) * dt.from_numpy(x[:2048].reshape(1, 2048))
+    assert outer.shape == (2048, 2048)
+    assert build.launches['stream_map'] == before   # plain PyTorch, as XLA there
+
+
+def _k5_operands(body, ne, seed):
+    rng = np.random.default_rng(seed)
+    xs = [torch.from_numpy(rng.standard_normal(ne).astype(np.float32)).cuda()
+          for _ in range(sm.REAL_BODIES[body])]
+    if body in ('logn', 'log2', 'log10', 'sqrt'):
+        xs = [x.abs() + 1e-3 for x in xs]
+    if body == 'clip':
+        xs[1:] = [-0.5, 0.75]
+    return xs
+
+
+@pytest.mark.parametrize('ne', [2**21, 2**21 + 4 * 1000 + 3, 5])
+@pytest.mark.parametrize('body', list(sm.REAL_BODIES))
+def test_stream_map_real_bodies(body, ne):
+    xs = _k5_operands(body, ne, ne)
+    before = build.launches['stream_map']
+    got = sm.stream_map(body, *xs)
+    assert build.launches['stream_map'] == before + 1
+    assert _rel(got, sm.stream_map_plain(body, *xs)) < REL
+
+
+@pytest.mark.parametrize('body', ['add', 'sub', 'mul', 'div'])
+def test_stream_map_scalars_and_rows(body):
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((512, 4096)).astype(np.float32)).cuda()
+    row = torch.from_numpy(rng.standard_normal(4096).astype(np.float32)).cuda()
+    one = torch.tensor([1.75], device='cuda')
+    for ops in ((x, 2.5), (2.5, x), (x, one), (one, x), (x, row), (row, x)):
+        assert _rel(sm.stream_map(body, *ops), sm.stream_map_plain(body, *ops)) < REL
+
+
+@pytest.mark.parametrize('ne', [2**23 + 1, 2**21, 3])
+@pytest.mark.parametrize('body', sm.COMPLEX_BODIES)
+def test_stream_map_complex_bodies(body, ne):
+    rng = np.random.default_rng(ne)
+    a, b = (torch.from_numpy((rng.standard_normal(ne) + 1j * rng.standard_normal(ne))
+                             .astype(np.complex64)).cuda() for _ in range(2))
+    for ops in ((a, b), (a, 0.5 - 2j), (1.5 + 1j, b), (a, 3.0)):
+        assert _rel(sm.stream_map(body, *ops), sm.stream_map_plain(body, *ops)) < REL
+
+
+def test_stream_map_refuses_misaligned_data():
+    x = torch.zeros(2**21 + 1, device='cuda')[1:]
+    with pytest.raises(RuntimeError, match='aligned'):
+        sm.stream_map('sin', x)

@@ -19,6 +19,7 @@ import dsc_tpu_torch as dt  # noqa: E402
 from dsc_tpu_torch.dtype import Dtype  # noqa: E402
 from dsc_tpu_torch.fourier import config  # noqa: E402
 from dsc_tpu_torch.ops import kernels as ops_kernels  # noqa: E402
+from dsc_tpu_torch.ops import stream_map  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIG_LEN, TAPS, FFT_N = 2**19 - 254, 255, 2**20
@@ -129,10 +130,15 @@ def test_route_other_unported_kernels_raise_on_cuda():
         config.fft_route('cuda', Dtype.C32, 1, 2**21, inverse=True)
     with pytest.raises(NotImplementedError, match='K11'):
         config.irfft_route('cuda', Dtype.C64, 1, 2**18)
-    with pytest.raises(NotImplementedError, match='K5'):
-        ops_kernels.check_map_route('cuda', 'mul', 2**21)
-    ops_kernels.check_map_route('cuda', 'mul', 2**20 + 1)  # the 2^21 spectra
-    ops_kernels.check_map_route('cpu', 'mul', 2**24)
+    # elementwise routes are device-independent: K5 where the JAX package
+    # streams, plain PyTorch (never a raise) where it runs XLA
+    f32 = torch.empty(2**21)
+    c64 = torch.empty(2**20 + 1, dtype=torch.complex64)  # the 2^21 spectra
+    assert ops_kernels.streams('mul', f32, f32)
+    assert not ops_kernels.streams('add', f32.double(), f32.double())
+    assert not ops_kernels.streams('mul', c64, c64)
+    assert ops_kernels.streams('mul', torch.empty(2**23 + 1, dtype=torch.complex64), 2.0)
+    assert not stream_map.eligible([(2048, 1), (1, 2048)], [torch.float32] * 2)
     assert config.fft_route('cuda', Dtype.C64, 1, 2**21, inverse=False) == 'core'
     assert config.irfft_route('cuda', Dtype.C32, 1, 2**16) == 'core'
 
