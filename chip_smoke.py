@@ -1,6 +1,6 @@
 """On-GPU smoke test of the dsc_tpu_torch port on one CUDA card: the
-filterFFT main path (rfft -> spectrum multiply -> irfft) and the eager
-elementwise tier.
+filterFFT main path (rfft -> spectrum multiply -> irfft), the eager
+elementwise tier and the batched FFT suite.
 
     python3 chip_smoke.py
 
@@ -14,8 +14,10 @@ Phases, each raising on failure (exit code 0 means all passed):
    the card (K12 base FFT; packed rfft K1, K2 and irfft K3, K4 phase by
    phase at 2^21 and 2^24; K5 streaming map: every float32 body at 2^26,
    scalars on each side, a 1-element tensor, a broadcast row, clip with one
-   and two bounds, a ragged count, the complex bodies at 2^23 + 1), and the
-   rfft against np.fft in float64;
+   and two bounds, a ragged count, the complex bodies at 2^23 + 1; the
+   streaming four-step K6, K7 in every variant at the batched suite's
+   shapes and a single 2^24 vector; the Hermitian reconstruction K11 at
+   2^18, 2^19 and 2^24, exactly), and the rfft against np.fft in float64;
 4. the public API at full size, as two paths, each with every launch count
    set to 0 just before it and read just after:
    a. the README quick start (2^20 samples, 255 taps, n = 2^21) and the
@@ -27,11 +29,21 @@ Phases, each raising on failure (exit code 0 means all passed):
       and dtypes in which K5 must launch exactly where the routing rule
       says, and the filterFFT at n = 2^24 (2^23 samples, 4097 taps) against
       a float64 FFT convolution (K5, K1-K4);
+   c. BASELINE config 3, the batched FFT suite (benchmarks/bench_fft.py):
+      fft and ifft of 256 x 2^16, 64 x 2^18, 16 x 2^20 and 4 x 2^22
+      complex64, rfft -> irfft of 16 x 2^20 float32, rfft over axis 0 of
+      (2^18, 64), fft2 and rfft2 -> irfft2 of (256, 2^16), the irfft of
+      dense single spectra at 2^18 and 2^19, irfft(x, out=o) at 2^24 and
+      the ifft of one 2^24 vector, each against np.fft in float64, with the
+      launches of every kernel held to the routing table (K6, K7, K11,
+      K12); then the plan cache under 22 distinct plans, which must end at
+      16;
 5. CUDA-event timings of each kernel, its plain version and the one
    PyTorch call that computes the same function (a yardstick the port never
    calls), each as device time per call over 50 calls back to back, the
-   kernel also as the median of 25 single launches; and the filterFFT step
-   at n = 2^21 and 2^24 (median of 25).
+   kernel also as the median of 25 single launches; the filterFFT step
+   at n = 2^21 and 2^24 (median of 25); and each batched-suite row through
+   the public API beside the torch.fft call on the same shape.
 
 The last lines are the kernels' JSON record, the card line and the result
 line. Without a CUDA device the script exits non-zero before any of them.
@@ -42,7 +54,9 @@ runs phases 1-2 and then, in place of the checks, measures where the
 filterFFT step's time goes: the step at n = 2^21 on CUDA events and on the
 host clock over five repeats in one process, K1 timed one launch at a time
 and 200 launches back to back, and torch.profiler's device time per kernel
-and the device's busy share of the step at n = 2^21 and at n = 2^24.
+and the device's busy share of the step at n = 2^21 and at n = 2^24; and
+the same breakdown for rows of the batched FFT suite (fft, rfft and irfft
+of 16 x 2^20, rfft over axis 0 of (2^18, 64), fft2 of (256, 2^16)).
 """
 
 from __future__ import annotations
@@ -85,9 +99,21 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                  'dsc_tpu/fourier/pallas_kernels.py:55'),
     'stream_map': ('dsc_tpu_torch/csrc/stream_map.cu',
                    'dsc_tpu/ops/pallas_map.py:83'),
+    'stream_phase_a': ('dsc_tpu_torch/csrc/fourstep_stream.cu',
+                       'dsc_tpu/fourier/pallas_stream.py:352'),
+    'stream_phase_b': ('dsc_tpu_torch/csrc/fourstep_stream.cu',
+                       'dsc_tpu/fourier/pallas_stream.py:519'),
+    'reconstruct': ('dsc_tpu_torch/csrc/reconstruct.cu',
+                    'dsc_tpu/fourier/pallas_reconstruct.py:95'),
 }
 FFT_PATH = ('rfft_phase_a', 'rfft_phase_b', 'irfft_phase_a', 'irfft_phase_b', 'base_fft')
 MAP_PATH = ('stream_map', 'rfft_phase_a', 'rfft_phase_b', 'irfft_phase_a', 'irfft_phase_b')
+# BASELINE config 3's batched rows: (batch, n), 2^24 complex64 values each
+SUITE = ((256, 2**16), (64, 2**18), (16, 2**20), (4, 2**22))
+# the launches the batched path must make (fourier/config.py): one K6+K7
+# pair per 1-D transform (18), K11 for each single-row irfft off the packed
+# route (3), K12 for the 256-point axis of fft2, rfft2 and irfft2 (3)
+SUITE_LAUNCHES = {'stream_phase_a': 18, 'stream_phase_b': 18, 'reconstruct': 3, 'base_fft': 3}
 
 # K5 float32 bodies: operations per element (arithmetic of the fast sin/cos
 # polynomial; for the libm bodies an estimate of their instruction count)
@@ -222,9 +248,22 @@ def profile_step(dsc, card: str) -> None:
 
     big_sig = dsc.from_numpy(gen.standard_normal(BIG_N // 2).astype(np.float32))
     big_taps = dsc.from_numpy(np.blackman(4097).astype(np.float32))
-    for what, fn in (('2^20 x 255 taps, n=2^21', step),
-                     ('2^23 x 4097 taps, n=2^24',
-                      lambda: filter_fft(dsc, big_sig, big_taps, 4097, BIG_N))):
+
+    def c64(shape):
+        return (gen.standard_normal(shape) + 1j * gen.standard_normal(shape)).astype(np.complex64)
+
+    r = dsc.from_numpy(gen.standard_normal((16, 2**20)).astype(np.float32))
+    spec = dsc.rfft(r)
+    c, f = dsc.from_numpy(c64((16, 2**20))), dsc.from_numpy(c64((256, 2**16)))
+    a = dsc.from_numpy(gen.standard_normal((2**18, 64)).astype(np.float32))
+    for what, fn in (('filterFFT step 2^20 x 255 taps, n=2^21', step),
+                     ('filterFFT step 2^23 x 4097 taps, n=2^24',
+                      lambda: filter_fft(dsc, big_sig, big_taps, 4097, BIG_N)),
+                     ('batched fft 16 x 2^20', lambda: dsc.fft(c)),
+                     ('batched rfft 16 x 2^20', lambda: dsc.rfft(r)),
+                     ('batched irfft 16 x 2^20', lambda: dsc.irfft(spec)),
+                     ('rfft over axis 0 of (2^18, 64)', lambda: dsc.rfft(a, axis=0)),
+                     ('fft2 (256, 2^16)', lambda: dsc.fft2(f))):
         steps = 20
         wall = host_ms(fn)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -235,13 +274,12 @@ def profile_step(dsc, card: str) -> None:
                        for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                       reverse=True)
-        print(f'torch.profiler, filterFFT step {what}, {steps} steps, device time per '
-              f'step [{card}]:')
+        print(f'torch.profiler, {what}, {steps} calls, device time per call [{card}]:')
         for dev_ms, count, key in rows:
             print(f'  {dev_ms:9.4f} ms  x{count:<3d} {key[:100]}')
         busy = sum(r[0] for r in rows)
         if busy:
-            print(f'  all device work {busy:.4f} ms of a {wall:.4f} ms step (host clock + '
+            print(f'  all device work {busy:.4f} ms of a {wall:.4f} ms call (host clock + '
                   f'synchronize): busy share {busy / wall:.3f} [{card}]')
         else:
             print('  torch.profiler recorded no device time: busy share not measured')
@@ -264,7 +302,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     import dsc_tpu_torch as dsc
-    from dsc_tpu_torch.fourier import base_fft, packed_fused as pf, plan
+    from dsc_tpu_torch.fourier import base_fft, packed_fused as pf, plan, reconstruct, stream
     from dsc_tpu_torch.fourier.stream import factors
     from dsc_tpu_torch.kernels import build
     from dsc_tpu_torch.ops import kernels as ops_kernels
@@ -377,6 +415,30 @@ def main() -> int:
             compare('stream_map', sm.stream_map(body, *ops), sm.stream_map_plain(body, *ops),
                     f'complex {body} 2^23+1 {what}')
     del x, rows, row, a, b
+    for batch, n in SUITE + ((1, BIG_N),):
+        t = plan.get_plan(n, 'stream', torch.complex64)[1]
+        shape = f'{batch} x 2^{n.bit_length() - 1}'
+        for inverse in (False, True):
+            for x in (cnormal((batch, n)), normal((batch, n))):
+                kind = 'complex' if x.is_complex() else 'real'
+                z = stream.phase_a(x, t, inverse)
+                compare('stream_phase_a', z, stream.phase_a_plain(x, t, inverse),
+                        f'{shape} {kind} {"inverse" if inverse else "forward"}')
+            for real_output in (False, True):
+                compare('stream_phase_b', stream.phase_b(z, t, inverse, real_output),
+                        stream.phase_b_plain(z, t, inverse, real_output),
+                        f'{shape} {"inverse" if inverse else "forward"}'
+                        f'{" real output" if real_output else ""}')
+        del x, z
+    for e in (18, 19, 24):
+        n = 2**e
+        spec = cnormal((1, n // 2 + 1))
+        spec.imag[0, -1] = 0  # a valid spectrum's Nyquist bin is real
+        got, ref = reconstruct.reconstruct_spectrum(spec, n), reconstruct.reconstruct_plain(spec, n)
+        require(got.shape == ref.shape and torch.equal(got, ref), f'reconstruct n=2^{e} differs')
+        errs['reconstruct'] = max(errs['reconstruct'], float((got - ref).abs().max()))
+        print(f'  {"reconstruct":14s} n=2^{e}: equal to the plain version')
+    del spec, got, ref
     torch.cuda.synchronize()
 
     # -- 4a. the public filterFFT path at full size ------------------------
@@ -517,7 +579,88 @@ def main() -> int:
     print(f'  launches on the elementwise path: {map_launches}')
     for name in MAP_PATH:
         require(map_launches[name] > 0, f'kernel {name} was not launched on the elementwise path')
-    launches = {**fft_launches, 'stream_map': map_launches['stream_map']}
+
+    # -- 4c. the batched FFT suite at full size ----------------------------
+    print('phase 4c: public API, BASELINE config 3 (the batched FFT suite) at full size')
+
+    def against_numpy(what, got, ref):
+        out = got.numpy()
+        require(out.shape == ref.shape and bool(np.isfinite(out).all()),
+                f'{what}: shape {out.shape} (want {ref.shape}) or not finite')
+        e = float(np.abs(out - ref).max() / np.abs(ref).max())
+        print(f'  {what}: {e:.3e} vs np.fft float64')
+        require(e <= NUMPY_BOUND, f'{what}: {e} > {NUMPY_BOUND}')
+
+    def cnp(shape):
+        return (gen.standard_normal(shape) + 1j * gen.standard_normal(shape)).astype(np.complex64)
+
+    build.reset_launches()
+    for batch, n in SUITE:
+        x_np = cnp((batch, n))
+        x, x64 = dsc.from_numpy(x_np), x_np.astype(np.complex128)
+        shape = f'{batch} x 2^{n.bit_length() - 1}'
+        against_numpy(f'fft {shape}', dsc.fft(x), np.fft.fft(x64))
+        against_numpy(f'ifft {shape}', dsc.ifft(x), np.fft.ifft(x64))
+    del x, x_np, x64
+    r_np = gen.standard_normal((16, 2**20)).astype(np.float32)
+    spec = dsc.rfft(dsc.from_numpy(r_np))
+    against_numpy('rfft 16 x 2^20', spec, np.fft.rfft(r_np.astype(np.float64)))
+    against_numpy('irfft 16 x 2^20', dsc.irfft(spec), np.fft.irfft(spec.numpy().astype(np.complex128)))
+    a_np = gen.standard_normal((2**18, 64)).astype(np.float32)
+    against_numpy('rfft axis 0 of (2^18, 64)', dsc.rfft(dsc.from_numpy(a_np), axis=0),
+                  np.fft.rfft(a_np.astype(np.float64), axis=0))
+    f_np = cnp((256, 2**16))
+    against_numpy('fft2 (256, 2^16)', dsc.fft2(dsc.from_numpy(f_np)),
+                  np.fft.fft2(f_np.astype(np.complex128)))
+    g_np = gen.standard_normal((256, 2**16)).astype(np.float32)
+    spec2 = dsc.rfft2(dsc.from_numpy(g_np))
+    against_numpy('rfft2 (256, 2^16)', spec2, np.fft.rfft2(g_np.astype(np.float64)))
+    against_numpy('irfft2 (256, 2^15+1)', dsc.irfft2(spec2),
+                  np.fft.irfft2(spec2.numpy().astype(np.complex128)))
+    del spec, spec2, r_np, a_np, f_np, g_np
+    for e in (18, 19):
+        sp = np.fft.rfft(gen.standard_normal(2**e)).astype(np.complex64)
+        against_numpy(f'irfft of a dense 2^{e} spectrum', dsc.irfft(dsc.from_numpy(sp)),
+                      np.fft.irfft(sp.astype(np.complex128)))
+    sp = np.fft.rfft(gen.standard_normal(BIG_N)).astype(np.complex64)
+    o = dsc.from_numpy(np.zeros(BIG_N, np.float32))
+    dsc.irfft(dsc.from_numpy(sp), out=o)
+    against_numpy('irfft(x, out=o) 2^24', o, np.fft.irfft(sp.astype(np.complex128)))
+    v_np = cnp(BIG_N)
+    against_numpy('ifft single 2^24', dsc.ifft(dsc.from_numpy(v_np)),
+                  np.fft.ifft(v_np.astype(np.complex128)))
+    del sp, o, v_np
+    torch.cuda.synchronize()
+    suite_launches = dict(build.launches)
+    print(f'  launches on the batched path: {suite_launches}')
+    want = {name: SUITE_LAUNCHES.get(name, 0) for name in KERNELS}
+    require(suite_launches == want, f'batched path launches {suite_launches}, routing says {want}')
+
+    dsc.clear()
+    n_plans = 0
+    for e in range(6, 16):
+        c_np, r_np = cnp(2**e), gen.standard_normal(2**e).astype(np.float32)
+        against_numpy(f'plan stress: fft 2^{e}', dsc.fft(dsc.from_numpy(c_np)),
+                      np.fft.fft(c_np.astype(np.complex128)))
+        against_numpy(f'plan stress: rfft 2^{e}', dsc.rfft(dsc.from_numpy(r_np)),
+                      np.fft.rfft(r_np.astype(np.float64)))
+        n_plans += 2
+    c_np = cnp((4, 2**18))
+    against_numpy('plan stress: fft 4 x 2^18 (stream plan)', dsc.fft(dsc.from_numpy(c_np)),
+                  np.fft.fft(c_np.astype(np.complex128)))
+    r_np = gen.standard_normal(2**20).astype(np.float32)
+    against_numpy('plan stress: rfft 2^20 (packed plan)', dsc.rfft(dsc.from_numpy(r_np)),
+                  np.fft.rfft(r_np.astype(np.float64)))
+    n_plans += 2
+    print(f'  plan cache after {n_plans} distinct plans: {plan.num_plans()} '
+          f'(DSC_MAX_FFT_PLANS = {plan.MAX_FFT_PLANS})')
+    require(plan.num_plans() == plan.MAX_FFT_PLANS == 16, 'plan cache did not end at 16')
+    del c_np, r_np
+    launches = {**fft_launches, 'stream_map': map_launches['stream_map'],
+                **{k: suite_launches[k] for k in ('stream_phase_a', 'stream_phase_b',
+                                                  'reconstruct')}}
+    by_path = {name: {'filterfft': fft_launches[name], 'elementwise': map_launches[name],
+                      'batched': suite_launches[name]} for name in KERNELS}
 
     # -- 5. timings --------------------------------------------------------
     print(f'phase 5: timings, CUDA events [{card}]')
@@ -530,15 +673,17 @@ def main() -> int:
         a time (host dispatch included); the bounds from this run's bytes
         and operations."""
         ms, single_ms = back_to_back_ms(kernel_fn, 50), cuda_ms(kernel_fn)
-        plain_ms, library_ms = back_to_back_ms(plain_fn, 50), back_to_back_ms(library_fn, 50)
+        plain_ms = back_to_back_ms(plain_fn, 50)
+        library_ms = None if library_fn is None else back_to_back_ms(library_fn, 50)
         t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_S * 1e3
         row = {'what': what, 'ms': ms, 'single_ms': single_ms, 'plain_ms': plain_ms,
                'bound_ms': max(t_bytes, t_ops),
                'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
                'copy_bound_ms': n_bytes / ceiling, 'library_ms': library_ms}
         cases[name].append(row)
+        library = 'none' if library_ms is None else f'{library_ms:.4f} ms'
         print(f'  {name:14s} {what}: kernel {ms:.4f} ms (one launch {single_ms:.4f}), '
-              f'plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound '
+              f'plain {plain_ms:.4f} ms, library {library}, bound '
               f'{row["bound_ms"]:.4f} ms ({row["bound_by"]}), copy-ceiling bound '
               f'{row["copy_bound_ms"]:.4f} ms [{card}]')
         return row
@@ -596,6 +741,67 @@ def main() -> int:
               lambda: sm.stream_map_plain(body, a, b), lambda: LIBRARY[body](a, b),
               3 * nbytes(a), CMAP_OPS[body] * a.numel())
     del a, b
+    # K6/K7 at the suite's shapes; library: the torch.fft call computing the
+    # whole K6+K7 function; flops: 5 N log2 N of each pass's DFTs plus ~6
+    # per value of twiddle arithmetic in K6
+    for batch, n in SUITE:
+        n1, n2 = factors(n)
+        t = plan.get_plan(n, 'stream', torch.complex64)[1]
+        tables = nbytes(t.w_n1, t.w_n2, t.twiddle.lo, t.twiddle.hi)
+        x = cnormal((batch, n))
+        z = stream.phase_a(x, t, False)
+        what = f'{batch} x 2^{n.bit_length() - 1} {(n1, n2)}'
+        timed('stream_phase_a', what, lambda: stream.phase_a(x, t, False),
+              lambda: stream.phase_a_plain(x, t, False), lambda: torch.fft.fft(x),
+              nbytes(x, z) + tables, fft_ops(batch * n, n1) + 6 * batch * n)
+        timed('stream_phase_b', what, lambda: stream.phase_b(z, t, False),
+              lambda: stream.phase_b_plain(z, t, False), lambda: torch.fft.fft(x),
+              2 * nbytes(z) + tables, fft_ops(batch * n, n2))
+    # the rfft -> irfft row: real-input K6, real-output inverse K7
+    t = plan.get_plan(2**20, 'stream', torch.complex64)[1]
+    tables = nbytes(t.w_n1, t.w_n2, t.twiddle.lo, t.twiddle.hi)
+    r = normal((16, 2**20))
+    z = stream.phase_a(r, t, False)
+    spec = torch.fft.rfft(r)
+    timed('stream_phase_a', '16 x 2^20 real input', lambda: stream.phase_a(r, t, False),
+          lambda: stream.phase_a_plain(r, t, False), lambda: torch.fft.rfft(r),
+          nbytes(r, z) + tables, fft_ops(16 * 2**20, 1024) / 2 + 6 * 16 * 2**20)
+    timed('stream_phase_b', '16 x 2^20 inverse real output',
+          lambda: stream.phase_b(z, t, True, True), lambda: stream.phase_b_plain(z, t, True, True),
+          lambda: torch.fft.irfft(spec, 2**20), nbytes(z, r) + tables, fft_ops(16 * 2**20, 1024))
+    del x, z, r, spec
+    for e in (19, 24):
+        n = 2**e
+        spec = cnormal((1, n // 2 + 1))
+        full = reconstruct.reconstruct_spectrum(spec, n)
+        timed('reconstruct', f'n=2^{e} c64', lambda: reconstruct.reconstruct_spectrum(spec, n),
+              lambda: reconstruct.reconstruct_plain(spec, n), None, nbytes(spec, full), 0)
+    del spec, full
+    # the suite's rows through the public API, beside the torch.fft call on
+    # the same shape; the rest of a row's time over its K6+K7 launches is the
+    # reconstruction, the movedim copies and the host
+    print(f'  batched suite, public API, device time per call, 20 calls back to back [{card}]:')
+    suite_rows = []
+    for batch, n in SUITE:
+        x = dsc.from_numpy(cnp((batch, n)))
+        suite_rows.append((f'fft {batch} x 2^{n.bit_length() - 1}', lambda x=x: dsc.fft(x),
+                           lambda x=x: torch.fft.fft(x.torch)))
+        suite_rows.append((f'ifft {batch} x 2^{n.bit_length() - 1}', lambda x=x: dsc.ifft(x),
+                           lambda x=x: torch.fft.ifft(x.torch)))
+    r = dsc.from_numpy(gen.standard_normal((16, 2**20)).astype(np.float32))
+    spec = dsc.rfft(r)
+    a = dsc.from_numpy(gen.standard_normal((2**18, 64)).astype(np.float32))
+    f = dsc.from_numpy(cnp((256, 2**16)))
+    suite_rows += [('rfft 16 x 2^20', lambda: dsc.rfft(r), lambda: torch.fft.rfft(r.torch)),
+                   ('irfft 16 x 2^20', lambda: dsc.irfft(spec),
+                    lambda: torch.fft.irfft(spec.torch, 2**20)),
+                   ('rfft axis 0 (2^18, 64)', lambda: dsc.rfft(a, axis=0),
+                    lambda: torch.fft.rfft(a.torch, dim=0)),
+                   ('fft2 (256, 2^16)', lambda: dsc.fft2(f), lambda: torch.fft.fft2(f.torch))]
+    for what, fn, lib in suite_rows:
+        ms, lib_ms = back_to_back_ms(fn, 20), back_to_back_ms(lib, 20)
+        print(f'    {what}: {ms:.4f} ms, torch.fft {lib_ms:.4f} ms ({ms / lib_ms:.2f}x) [{card}]')
+    del suite_rows, x, r, spec, a, f
     taps = dsc.from_numpy(np.blackman(255).astype(np.float32))
     step_ms = cuda_ms(lambda: filter_fft(dsc, sig, taps, 255))
     print(f'  filterFFT step (2^20 x 255 taps, n=2^21, public API): {step_ms:.4f} ms [{card}]')
@@ -603,7 +809,8 @@ def main() -> int:
     print(f'  filterFFT step (2^23 x 4097 taps, n=2^24, public API): {big_ms:.4f} ms [{card}]')
 
     # the main path's shape of each kernel: the filterFFT at n = 2^21 for the
-    # packed passes, the n = 4096 pair's 2048 x 1 for K12, bench's fma for K5
+    # packed passes, the n = 4096 pair's 2048 x 1 for K12, bench's fma for K5,
+    # the suite's 256 x 2^16 for K6/K7, the 2^19 irfft for K11
     main_case = {name: rows_[0] for name, rows_ in cases.items()}
     main_case['stream_map'] = next(r for r in cases['stream_map'] if r['what'].startswith('add 2^26'))
     record = {'kernels': [
@@ -612,7 +819,7 @@ def main() -> int:
          'ms': main_case[name]['ms'], 'plain_ms': main_case[name]['plain_ms'],
          'bound_ms': main_case[name]['bound_ms'], 'bound_by': main_case[name]['bound_by'],
          'library_ms': main_case[name]['library_ms'], 'shape': main_case[name]['what'],
-         'cases': cases[name]}
+         'launches_by_path': by_path[name], 'cases': cases[name]}
         for name, (src, rep) in KERNELS.items()]}
     print(json.dumps(record))
     print(card)

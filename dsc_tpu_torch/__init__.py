@@ -10,14 +10,17 @@ Ported so far: the context, dtypes, tracing, the Tensor with the whole
 eager op set of dsc_tpu (elementwise, clip, pow, reductions, creation,
 layout, indexing with write-through views) and the FFT family, whose
 filterFFT path (rfft -> spectrum multiply -> irfft) runs on the card
-through kernels K1-K4 and K12. Large float32 and complex64 elementwise ops
-run kernel K5 (ops/stream_map.py). ROADMAP.md lists what remains.
+through kernels K1-K4 and K12, and whose batched, non-last-axis and fft2
+transforms run the streaming four-step K6/K7 with the Hermitian
+reconstruction K11. Large float32 and complex64 elementwise ops run kernel
+K5 (ops/stream_map.py). ROADMAP.md lists what remains.
 """
 
 from . import models
 from .context import clear, init, manual_seed, print_mem_usage, shutdown, used_mem
 from .dtype import Dtype
-from .fourier import fft, fftfreq, ifft, irfft, plan_fft, rfft, rfftfreq
+from .fourier import (fft, fft2, fftfreq, ifft, ifft2, irfft, irfft2, plan_fft, rfft, rfft2,
+                      rfftfreq)
 from .interop import from_half_t
 from .profiler import profile, start_recording, stop_recording
 from .tensor import (
@@ -121,6 +124,10 @@ __all__ = [
     'ifft',
     'rfft',
     'irfft',
+    'fft2',
+    'ifft2',
+    'rfft2',
+    'irfft2',
     'fftfreq',
     'rfftfreq',
     'profile',

@@ -10,11 +10,17 @@ The reference FFT surface (dsc.h:384-424, dsc/src/dsc.cpp:1955-2340):
 - fftfreq/rfftfreq generators matching np.fft incl. odd n
   (dsc.cpp:2262-2340)
 - a bounded LRU plan cache warmed by plan_fft (dsc.cpp:182-267)
+- fft2/ifft2/rfft2/irfft2 composed from the 1-D calls, as in the JAX
+  package
 
 Engines (config.py): single-vector float32 rfft/irfft of 2^20..2^26
-points run the packed real FFT (K1-K4, packed_fused.py); everything else
-ported runs the plain core (core.py) with K12 at complex64 base cases.
-The spectrum is a natural-order (n/2+1,) complex tensor.
+points run the packed real FFT (K1-K4, packed_fused.py); float32/complex64
+transforms in the streaming range run the natural two-pass four-step
+(K6+K7, stream.py): batches over any axis, single-vector ifft, the irfft
+of a single spectrum at 2^18 and 2^19 after the Hermitian reconstruction
+(K11, reconstruct.py), and every such call with ``out=``. Everything else
+runs the plain core (core.py) with K12 at complex64 base cases. The
+spectrum is a natural-order (n/2+1,) complex tensor.
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ from ..tensor import Tensor, _finish, from_numpy
 from . import config, core, packed_fused, plan
 from .plan import next_pow2
 
-__all__ = ['fft', 'ifft', 'rfft', 'irfft', 'fftfreq', 'rfftfreq', 'plan_fft']
+__all__ = ['fft', 'ifft', 'rfft', 'irfft', 'fft2', 'ifft2', 'rfft2', 'irfft2', 'fftfreq',
+           'rfftfreq', 'plan_fft']
 
 
 def plan_fft(n: int, dtype: Dtype = Dtype.F64, fft_type: str = 'complex'):
@@ -55,6 +62,12 @@ def _out_shape(x: Tensor, ax: int, out_n: int):
     return tuple(out_n if i == ax else d for i, d in enumerate(x.shape))
 
 
+def _core_plan(route: str, n: int, fft_type: str, cdtype):
+    """The plain core's (spec, tables) on the 'core' route; a streaming
+    route needs none (K6+K7 take the 'stream' plan)."""
+    return plan.get_plan(n, fft_type, cdtype) if route == 'core' else (None, None)
+
+
 def fft(x: Tensor, out: Optional[Tensor] = None, n: int = -1, axis: int = -1) -> Tensor:
     return _fft_like(x, out, n, axis, inverse=False)
 
@@ -67,12 +80,13 @@ def _fft_like(x: Tensor, out, n: int, axis: int, inverse: bool) -> Tensor:
     ax = _resolve_axis(x, axis)
     nn = next_pow2(n) if n > 0 else next_pow2(x.shape[ax])
     data = x.torch
-    config.fft_route(data.device.type, x.dtype, _batch(x, ax), nn, inverse)
-    cdt = TORCH_DTYPE[x.dtype.as_complex]
-    spec, tables = plan.get_plan(nn, 'complex', cdt)
+    route = config.fft_route(data.device.type, x.dtype, _batch(x, ax), nn, inverse,
+                             out is not None)
     with tracing.trace_op('ifft' if inverse else 'fft', 'op;fft',
                           tracing.tensor_args(x=x)):
-        res = core.fft_nd(data, tables, spec, nn, ax, inverse, cdt)
+        cdt = TORCH_DTYPE[x.dtype.as_complex]
+        spec, tables = _core_plan(route, nn, 'complex', cdt)
+        res = core.fft_nd(data, tables, spec, nn, ax, inverse, cdt, route != 'core')
     return _finish(res, out)
 
 
@@ -84,7 +98,8 @@ def rfft(x: Tensor, out: Optional[Tensor] = None, n: int = -1, axis: int = -1) -
     # (reference dsc.cpp:2194-2197)
     full_n = next_pow2(n) if n > 0 else next_pow2(x.shape[ax])
     data = x.torch
-    route = config.rfft_route(data.device.type, x.dtype, _batch(x, ax), full_n)
+    route = config.rfft_route(data.device.type, x.dtype, _batch(x, ax), full_n,
+                              out is not None)
     with tracing.trace_op('rfft', 'op;fft', tracing.tensor_args(x=x)):
         if route == 'packed':
             _, tables = plan.get_plan(full_n, 'packed', torch.complex64)
@@ -92,9 +107,8 @@ def rfft(x: Tensor, out: Optional[Tensor] = None, n: int = -1, axis: int = -1) -
             res = packed_fused.rfft_packed(sig, tables).reshape(
                 _out_shape(x, ax, full_n // 2 + 1))
         else:
-            spec, tables = plan.get_plan(full_n, 'real',
-                                         TORCH_DTYPE[x.dtype.as_complex])
-            res = core.rfft_nd(data, tables, spec, full_n, ax)
+            spec, tables = _core_plan(route, full_n, 'real', TORCH_DTYPE[x.dtype.as_complex])
+            res = core.rfft_nd(data, tables, spec, full_n, ax, route != 'core')
     return _finish(res, out)
 
 
@@ -106,7 +120,8 @@ def irfft(x: Tensor, out: Optional[Tensor] = None, n: int = -1, axis: int = -1) 
     # (reference dsc.cpp:2198-2201)
     full_n = 2 * (next_pow2(n - 1) if n > 0 else next_pow2(x.shape[ax] - 1))
     data = x.torch
-    route = config.irfft_route(data.device.type, x.dtype, _batch(x, ax), full_n)
+    route = config.irfft_route(data.device.type, x.dtype, _batch(x, ax), full_n,
+                               out is not None)
     with tracing.trace_op('irfft', 'op;fft', tracing.tensor_args(x=x)):
         if route == 'packed':
             _, tables = plan.get_plan(full_n, 'packed', torch.complex64)
@@ -115,8 +130,8 @@ def irfft(x: Tensor, out: Optional[Tensor] = None, n: int = -1, axis: int = -1) 
                 _out_shape(x, ax, full_n))
         else:
             cdt = TORCH_DTYPE[x.dtype]
-            spec, tables = plan.get_plan(full_n, 'real', cdt)
-            res = core.irfft_nd(data, tables, spec, full_n, ax, cdt)
+            spec, tables = _core_plan(route, full_n, 'real', cdt)
+            res = core.irfft_nd(data, tables, spec, full_n, ax, cdt, route != 'core')
     return _finish(res, out)
 
 
@@ -145,3 +160,37 @@ def rfftfreq(n: int, d: float = 1.0, dtype: Dtype = Dtype.F32) -> Tensor:
     n2 = ((n - 1) // 2 + 1) if (n & 1) else (n // 2 + 1)
     vals = (np.arange(n2, dtype=np.float64) * factor).astype(DTYPE_TO_NP[dtype])
     return from_numpy(vals)
+
+
+def _axes2(x: Tensor, axes) -> tuple:
+    a0, a1 = (_resolve_axis(x, a) for a in axes)
+    if a0 == a1:
+        raise RuntimeError(f'fft2 axes must be distinct, got {axes}')
+    return a0, a1
+
+
+def fft2(x: Tensor, s=(-1, -1), axes=(-2, -1)) -> Tensor:
+    """2-D complex FFT: the 1-D fft over each axis, the last one first
+    (np.fft.fft2 semantics, each size rounded up to a power of two)."""
+    a0, a1 = _axes2(x, axes)
+    return fft(fft(x, n=s[1], axis=a1), n=s[0], axis=a0)
+
+
+def ifft2(x: Tensor, s=(-1, -1), axes=(-2, -1)) -> Tensor:
+    """2-D inverse complex FFT (np.fft.ifft2 semantics + pow2 rule)."""
+    a0, a1 = _axes2(x, axes)
+    return ifft(ifft(x, n=s[1], axis=a1), n=s[0], axis=a0)
+
+
+def rfft2(x: Tensor, s=(-1, -1), axes=(-2, -1)) -> Tensor:
+    """2-D real FFT: rfft over the last transform axis, complex fft over
+    the other (np.fft.rfft2 semantics + pow2 rule)."""
+    a0, a1 = _axes2(x, axes)
+    return fft(rfft(x, n=s[1], axis=a1), n=s[0], axis=a0)
+
+
+def irfft2(x: Tensor, s=(-1, -1), axes=(-2, -1)) -> Tensor:
+    """2-D inverse real FFT (np.fft.irfft2 semantics + pow2 rule): inverse
+    complex over the first axis, Hermitian inverse over the last."""
+    a0, a1 = _axes2(x, axes)
+    return irfft(ifft(x, n=s[0], axis=a0), n=s[1], axis=a1)

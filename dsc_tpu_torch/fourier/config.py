@@ -2,13 +2,28 @@
 fourier/__init__.py and core.py).
 
 Which engine serves a transform is the same function of (size, dtype,
-batch, axis) as in the JAX package on the TPU. The device enters only
-where the JAX package would reach a TPU kernel that is not ported yet:
-on a CUDA tensor that route raises ``NotImplementedError`` naming the
-kernel, and on a CPU tensor it takes the plain core path, as the JAX
-package does off the TPU. Routes whose kernels are ported (K1-K4, K12)
-are taken on both devices; their wrappers pick the kernel or its plain
-version by the tensor's device. The JAX package's DSC_FFT_* knobs are TPU
+batch, ``out``) as in the JAX package on the TPU; the axis enters only
+through the batch (a non-last axis streams as a batch). The public
+functions take their streaming branches only without ``out=``; with it
+they go through the core (core.fft_nd and its kin), which streams by size
+alone (``core_streams``), as the JAX core does. Routes:
+
+- 'packed'  single-vector float32 rfft / complex64 irfft, K1+K2 / K3+K4;
+- 'stream'  K6+K7 through the core (an irfft reconstructs its spectrum
+            plainly first);
+- 'reconstruct+stream'  a single complex64 irfft row: K11, then K6+K7;
+- 'core'    the plain core (core.py) with no streaming, which runs K12 at
+            complex64 base cases.
+
+The public functions pass the route to the core, which streams on
+'stream' and 'reconstruct+stream' and nowhere else; a direct call to the
+core decides by ``core_streams``.
+
+The device enters only where the JAX package would reach a TPU kernel that
+is not ported yet (K8): on a CUDA tensor that route raises
+``NotImplementedError`` naming it, and on a CPU tensor it takes the plain
+core path. Ported kernels' wrappers pick the kernel or its plain version
+by the tensor's device. The JAX package's DSC_FFT_* knobs are TPU
 experiment switches and are not carried over.
 """
 
@@ -27,10 +42,6 @@ BASE_KERNEL_MAX_N = 4096
 # largest batch*n the streaming kernels take (dsc_tpu config.py:92)
 STREAM_MAX_ELEMS = 2**27
 
-# Hermitian reconstruction kernel K11 serves single rows with
-# n/2 a multiple of two 2^16-element chunks (pallas_reconstruct.py:205)
-RECONSTRUCT_CHUNK = 2**16
-
 
 def use_base_kernel(dtype, n: int) -> bool:
     """K12 serves complex64 base cases of 256..4096 points
@@ -48,6 +59,14 @@ def use_stream(batch: int, n: int) -> bool:
     return stream.supported(n1, n2, np.complex64, batch)
 
 
+def core_streams(batch: int, n: int, real: bool = False) -> bool:
+    """The core's own stream rule for float32/complex64 rows (dsc_tpu
+    core._stream_ok): the streaming size range, where a real transform's
+    'real' plan keeps its half-size path up to RFFT_PACK_MAX. core.py
+    applies it to direct calls; the route functions apply it with ``out=``."""
+    return use_stream(batch, n) and not (real and n <= RFFT_PACK_MAX)
+
+
 def use_packed(n: int) -> bool:
     """The packed half-size real FFT (K1-K4) takes this single-vector
     size (dsc_tpu config.packed_impl == 'fused')."""
@@ -56,45 +75,53 @@ def use_packed(n: int) -> bool:
     return use_stream(1, n) and packed_fused.supported(*stream.factors(n))
 
 
-def _unported(device_type: str, kernels: str, what: str) -> str:
+def _unported(device_type: str, what: str) -> str:
     if device_type == 'cuda':
         raise NotImplementedError(
-            f'{what} on CUDA runs TPU kernel {kernels} in the JAX package, '
-            'which is not ported yet (ROADMAP.md, queue 2)')
+            f'{what} on CUDA runs TPU kernels K6/K8 in the JAX package; K8 (phase B '
+            'into the T layout) is not ported yet (ROADMAP.md, queue 2)')
     return 'core'
 
 
-def rfft_route(device_type: str, dtype: Dtype, batch: int, n: int) -> str:
-    """'packed' (K1+K2) or 'core' for an n-point rfft over ``batch`` rows."""
-    if dtype == Dtype.F32 and use_stream(batch, n):
-        if batch == 1:
-            if use_packed(n):
-                return 'packed'
-            return _unported(device_type, 'K6/K8', f'single-vector rfft n={n}')
-        return _unported(device_type, 'K6/K7', f'batched rfft n={n}')
-    return 'core'
-
-
-def irfft_route(device_type: str, dtype: Dtype, batch: int, n: int) -> str:
-    """'packed' (K3+K4) or 'core' for an n-point irfft over ``batch`` rows."""
-    if dtype == Dtype.C32 and use_stream(batch, n):
-        if batch == 1:
-            if use_packed(n):
-                return 'packed'
-            return _unported(device_type, 'K9/K10', f'single-vector irfft n={n}')
-        return _unported(device_type, 'K6/K7', f'batched irfft n={n}')
-    nh = n // 2
-    if (n > RFFT_PACK_MAX and batch == 1 and nh % RECONSTRUCT_CHUNK == 0
-            and nh // RECONSTRUCT_CHUNK >= 2):
-        return _unported(device_type, 'K11', f'irfft n={n} ({dtype})')
-    return 'core'
-
-
-def fft_route(device_type: str, dtype: Dtype, batch: int, n: int,
-              inverse: bool) -> str:
-    """'core' for an n-point fft/ifft over ``batch`` rows, or raise."""
+def fft_route(device_type: str, dtype: Dtype, batch: int, n: int, inverse: bool,
+              out: bool = False) -> str:
+    """'stream' or 'core' for an n-point fft/ifft over ``batch`` rows;
+    ``out``: the call has ``out=``."""
     if dtype in (Dtype.F32, Dtype.C32) and use_stream(batch, n):
-        kernels = 'K6/K8' if batch == 1 and not inverse else 'K6/K7'
-        name = 'ifft' if inverse else 'fft'
-        return _unported(device_type, kernels, f'{name} n={n} batch={batch}')
+        if batch == 1 and not inverse and not out:
+            return _unported(device_type, f'single-vector fft n={n}')
+        return 'stream'
     return 'core'
+
+
+def rfft_route(device_type: str, dtype: Dtype, batch: int, n: int,
+               out: bool = False) -> str:
+    """'packed', 'stream' or 'core' for an n-point rfft over ``batch``
+    rows. With ``out=`` the core's rule decides (dsc_tpu
+    core.rfft_batched_p)."""
+    if dtype != Dtype.F32 or not use_stream(batch, n):
+        return 'core'
+    if out:
+        return 'stream' if core_streams(batch, n, real=True) else 'core'
+    if batch > 1:
+        return 'stream'
+    if use_packed(n):
+        return 'packed'
+    return _unported(device_type, f'single-vector rfft n={n}')
+
+
+def irfft_route(device_type: str, dtype: Dtype, batch: int, n: int,
+                out: bool = False) -> str:
+    """'packed', 'stream', 'reconstruct+stream' or 'core' for an n-point
+    irfft over ``batch`` rows. A single row off the packed route is a
+    dense spectrum to the JAX package (dsc_tpu core.irfft_batched_p): K11,
+    then K6+K7. With ``out=`` the core's rule decides."""
+    if dtype != Dtype.C32 or not use_stream(batch, n):
+        return 'core'
+    if out and not core_streams(batch, n, real=True):
+        return 'core'
+    if batch > 1:
+        return 'stream'
+    if use_packed(n) and not out:
+        return 'packed'
+    return 'reconstruct+stream'

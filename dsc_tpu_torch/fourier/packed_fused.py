@@ -43,7 +43,7 @@ import torch
 from ..kernels import build
 from . import stream
 from .core import entangle, stockham_fft, untangle
-from .plan import Factored, PackedTables
+from .plan import PackedTables
 
 
 def supported(n1: int, n2: int) -> bool:
@@ -54,11 +54,6 @@ def supported(n1: int, n2: int) -> bool:
     return (stream.supported(n1, m2, np.complex64)
             and n1 % (4 * stream.LANES) == 0
             and m2 % (2 * stream.LANES) == 0)
-
-
-def _twiddle(e: torch.Tensor, f: Factored) -> torch.Tensor:
-    """W^e from a factored table (plan.Factored), as the kernels form it."""
-    return f.hi[e >> f.bits] * f.lo[e & ((1 << f.bits) - 1)]
 
 
 def _sizes(t: PackedTables):
@@ -79,25 +74,25 @@ def rfft_phase_a_plain(x: torch.Tensor, t: PackedTables) -> torch.Tensor:
     a = stockham_fft(z.transpose(0, 1).contiguous(), t.w_n1)   # (m2, n1)
     dev = x.device
     e = torch.arange(m2, device=dev)[:, None] * torch.arange(n1, device=dev)[None, :]
-    return (a * _twiddle(e, t.twiddle)).transpose(0, 1).contiguous()
+    return (a * t.twiddle.at(e)).transpose(0, 1).contiguous()
 
 
 def rfft_phase_b_plain(at: torch.Tensor, t: PackedTables) -> torch.Tensor:
     """K2: At (n1, m2) -> the natural (nh+1,) c64 rfft spectrum."""
     _, _, nh = _sizes(t)
     z = stockham_fft(at, t.w_m2).transpose(0, 1).reshape(-1)  # Z[k1 + n1*k2]
-    return untangle(z, _twiddle(torch.arange(nh + 1, device=at.device), t.untangle))
+    return untangle(z, t.untangle.at(torch.arange(nh + 1, device=at.device)))
 
 
 def irfft_phase_a_plain(spec: torch.Tensor, t: PackedTables) -> torch.Tensor:
     """K3: natural (nh+1,) c64 spectrum -> Y (n1, m2) c64."""
     n1, m2, nh = _sizes(t)
     dev = spec.device
-    z = entangle(spec, _twiddle(torch.arange(nh, device=dev), t.untangle))
+    z = entangle(spec, t.untangle.at(torch.arange(nh, device=dev)))
     zt = z.reshape(m2, n1).transpose(0, 1).contiguous()         # Z_T[k1, k2]
     y = stockham_fft(zt, t.w_m2.conj())
     e = torch.arange(n1, device=dev)[:, None] * torch.arange(m2, device=dev)[None, :]
-    return y * _twiddle(e, t.twiddle).conj()
+    return y * t.twiddle.at(e).conj()
 
 
 def irfft_phase_b_plain(y: torch.Tensor, t: PackedTables) -> torch.Tensor:

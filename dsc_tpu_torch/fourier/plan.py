@@ -11,7 +11,9 @@ to the working precision, which keeps 2^24-point float32 transforms within
 Besides the reference's 'complex' and 'real' plans, a 'packed' plan holds
 the tables of the packed half-size real FFT (packed_fused.py): the
 column and row DFT tables and the two twiddles that are as large as the
-data, each factored into two short tables (``Factored``).
+data, each factored into two short tables (``Factored``). A 'stream' plan
+holds those of the natural streaming four-step (stream.py): the DFT
+tables of both factors and the four-step twiddle W_n^(k1*j2), factored.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Any, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from .stream import factors
+from . import stream
 
 MAX_FFT_PLANS = int(os.environ.get('DSC_MAX_FFT_PLANS', '16'))
 
@@ -104,12 +106,23 @@ class Factored(NamedTuple):
     hi: torch.Tensor
     bits: int
 
+    def at(self, e: torch.Tensor) -> torch.Tensor:
+        """W_period^e for the integer exponents ``e``, formed as the kernels
+        form it."""
+        return self.hi[e >> self.bits] * self.lo[e & ((1 << self.bits) - 1)]
+
 
 class PackedTables(NamedTuple):
     w_n1: torch.Tensor      # column DFT stage twiddles, n1/2 entries
     w_m2: torch.Tensor      # row DFT stage twiddles, m2/2 entries
     twiddle: Factored       # four-step twiddle W_{n/2}^(k1*j2)
     untangle: Factored      # real-FFT untangle twiddle W_n^k
+
+
+class StreamTables(NamedTuple):
+    w_n1: torch.Tensor      # column DFT_n1 stage twiddles, n1/2 entries
+    w_n2: torch.Tensor      # row DFT_n2 stage twiddles, n2/2 entries
+    twiddle: Factored       # four-step twiddle W_n^(k1*j2)
 
 
 def _factored(period: int, dtype, device) -> Factored:
@@ -135,6 +148,13 @@ def packed_tables(n1: int, n2: int, dtype, device) -> PackedTables:
     )
 
 
+def stream_tables(n1: int, n2: int, dtype, device) -> StreamTables:
+    """Tables of the natural streaming four-step of n = n1*n2 points."""
+    return StreamTables(_dev(_w_table(n1), dtype, device),
+                        _dev(_w_table(n2), dtype, device),
+                        _factored(n1 * n2, dtype, device))
+
+
 def _build_tables(spec: Tuple, dtype, device) -> Any:
     if spec[0] == 'base':
         return _dev(_w_table(spec[1]), dtype, device)
@@ -147,10 +167,11 @@ def _build_tables(spec: Tuple, dtype, device) -> Any:
 
 
 def _build_plan(n: int, fft_type: str, dtype, device) -> Tuple[Tuple, Any]:
-    if fft_type == 'packed':
-        n1, n2 = factors(n)
-        spec = ('packed', n1, n2)
-        tables = packed_tables(n1, n2, dtype, device)
+    if fft_type in ('packed', 'stream'):
+        n1, n2 = stream.factors(n)
+        spec = (fft_type, n1, n2)
+        build = packed_tables if fft_type == 'packed' else stream_tables
+        tables = build(n1, n2, dtype, device)
     elif fft_type == 'real':
         if n > RFFT_PACK_MAX:
             # large real transforms run the full-size complex engine
@@ -169,7 +190,8 @@ def _build_plan(n: int, fft_type: str, dtype, device) -> Tuple[Tuple, Any]:
 def get_plan(n: int, fft_type: str, dtype: torch.dtype, device=None) -> Tuple[Tuple, Any]:
     """Probe-or-build a plan for an n-point transform (n = power of 2).
 
-    fft_type: 'complex', 'real' (reference dsc_fft_type) or 'packed'.
+    fft_type: 'complex', 'real' (reference dsc_fft_type), 'packed' or
+    'stream'.
     ``dtype`` is the complex working dtype. Returns (spec, tables).
     """
     if device is None:

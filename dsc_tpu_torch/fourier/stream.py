@@ -1,9 +1,31 @@
-"""Size rules of the streaming two-pass FFT (dsc_tpu/fourier/pallas_stream.py).
+"""The natural streaming four-step FFT: kernels K6 and K7
+(dsc_tpu/fourier/pallas_stream.py).
 
-Only the split and the legality test are ported: they decide, as on the
-TPU, which transforms the two-pass kernels take (config.py). The natural-
-layout kernel bodies (K6 ``_phase_a_kernel``, K7 ``_phase_b_kernel``) are
-not ported yet.
+An n-point transform of each row of x (B, n), n = n1*n2, in two passes
+over device memory (csrc/fourstep_stream.cu), with s = -1 forward and +1
+inverse:
+
+  K6 stream_phase_a  column DFT_n1 of x viewed as (n1, n2), four-step
+                     twiddle, transposed store:
+                     Z[b*n2 + j2, k1] = W_n^(s*k1*j2)
+                                        * sum_j1 x[b, n2*j1 + j2] W_n1^(s*j1*k1)
+  K7 stream_phase_b  column DFT_n2 of Z, 1/n on the inverse:
+                     X[b*n2 + k2, k1] = scale * sum_j2 Z[b*n2 + j2, k1] W_n2^(s*j2*k2),
+                     which is X[b, k1 + n1*k2], the natural order
+
+K6 reads float32 (real input, the rfft) or complex64; K7 writes complex64
+or, with ``real_output``, the float32 real part (the irfft tail). The
+inverse flips the sign of the tables in the kernels: no conjugation pass.
+The tables come from the 'stream' plan (plan.StreamTables).
+
+Here also live the size rules that decide, as on the TPU, which transforms
+take the two kernels (config.py): the split ``factors`` and ``supported``
+with the batch grouping ``_group``. The grouping only sizes the TPU's
+copies; the kernels need none, but the rule stays the JAX package's.
+
+Each kernel has a plain PyTorch version (``*_plain``) with the same inputs
+and outputs; the wrappers launch the kernel for CUDA tensors and run the
+plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -11,6 +33,10 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
+
+from ..kernels import build
+from . import core, plan
 
 LANES = 128
 FACTOR_MIN = 512
@@ -42,3 +68,105 @@ def supported(n1: int, n2: int, dtype, batch: int = 1) -> bool:
         if _group(batch, f) * f < FACTOR_MIN:
             return False
     return n1 % LANES == 0 and n2 % LANES == 0
+
+
+def _sizes(t: plan.StreamTables):
+    n1, n2 = 2 * t.w_n1.shape[0], 2 * t.w_n2.shape[0]
+    return n1, n2, n1 * n2
+
+
+def _table(w: torch.Tensor, inverse: bool) -> torch.Tensor:
+    return w.conj() if inverse else w
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def phase_a_plain(x: torch.Tensor, t: plan.StreamTables, inverse: bool) -> torch.Tensor:
+    """K6: x (B, n) f32 or c64 -> Z (B*n2, n1) c64."""
+    n1, n2, n = _sizes(t)
+    b = x.shape[0]
+    cols = x.reshape(b, n1, n2).transpose(1, 2).reshape(b * n2, n1)
+    a = core.stockham_fft(cols.to(torch.complex64), _table(t.w_n1, inverse))
+    dev = x.device
+    e = torch.arange(n2, device=dev)[:, None] * torch.arange(n1, device=dev)[None, :]
+    tw = _table(t.twiddle.at(e), inverse)
+    return (a.reshape(b, n2, n1) * tw).reshape(b * n2, n1)
+
+
+def phase_b_plain(z: torch.Tensor, t: plan.StreamTables, inverse: bool,
+                  real_output: bool = False) -> torch.Tensor:
+    """K7: Z (B*n2, n1) c64 -> X (B, n), c64 or (``real_output``) f32."""
+    n1, n2, n = _sizes(t)
+    b = z.shape[0] // n2
+    cols = z.reshape(b, n2, n1).transpose(1, 2).reshape(b * n1, n2)
+    c = core.stockham_fft(cols, _table(t.w_n2, inverse))          # [b*n1 + k1, k2]
+    y = c.reshape(b, n1, n2).transpose(1, 2).reshape(b, n)
+    if inverse:
+        y = y * (1.0 / n)
+    return y.real.contiguous() if real_output else y
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_tables(t: plan.StreamTables) -> None:
+    for name, tab in (('w_n1', t.w_n1), ('w_n2', t.w_n2),
+                      ('twiddle.lo', t.twiddle.lo), ('twiddle.hi', t.twiddle.hi)):
+        build.check(tab, torch.complex64, tab.shape, name)
+
+
+def phase_a(x: torch.Tensor, t: plan.StreamTables, inverse: bool) -> torch.Tensor:
+    """K6 on a CUDA tensor, its plain version on a CPU tensor."""
+    if x.device.type == 'cpu':
+        return phase_a_plain(x, t, inverse)
+    n1, n2, n = _sizes(t)
+    b = x.shape[0]
+    if x.dtype not in (torch.float32, torch.complex64):
+        raise RuntimeError(f'stream_phase_a: x must be float32 or complex64, got {x.dtype}')
+    build.check(x, x.dtype, (b, n), 'x')
+    _check_tables(t)
+    z = torch.empty((b * n2, n1), dtype=torch.complex64, device=x.device)
+    if b:  # a grid of no blocks is refused at launch
+        build.launch('stream_phase_a', x.data_ptr(), z.data_ptr(), b, n1, n2,
+                     int(x.dtype == torch.float32), int(inverse), t.w_n1.data_ptr(),
+                     t.twiddle.lo.data_ptr(), t.twiddle.hi.data_ptr(), t.twiddle.bits)
+    return z
+
+
+def phase_b(z: torch.Tensor, t: plan.StreamTables, inverse: bool,
+            real_output: bool = False) -> torch.Tensor:
+    """K7 on a CUDA tensor, its plain version on a CPU tensor."""
+    if z.device.type == 'cpu':
+        return phase_b_plain(z, t, inverse, real_output)
+    n1, n2, n = _sizes(t)
+    b = z.shape[0] // n2
+    build.check(z, torch.complex64, (b * n2, n1), 'z')
+    _check_tables(t)
+    out = torch.empty((b, n), dtype=torch.float32 if real_output else torch.complex64,
+                      device=z.device)
+    if b:
+        build.launch('stream_phase_b', z.data_ptr(), out.data_ptr(), b, n1, n2,
+                     int(inverse), int(real_output), t.w_n2.data_ptr(),
+                     (1.0 / n) if inverse else 1.0)
+    return out
+
+
+def fourstep_stream(x: torch.Tensor, n1: int, n2: int, inverse: bool,
+                    real_output: bool = False) -> torch.Tensor:
+    """n-point FFT of each row of x, (B, n) or (n,), float32 (real input)
+    or complex64, through K6 and K7 (pallas_stream.py:636
+    ``fourstep_stream_p``). Returns complex64 of x's shape, or float32 when
+    ``real_output`` is set; the inverse is scaled by 1/n."""
+    n = n1 * n2
+    if (n1, n2) != factors(n):
+        raise ValueError(f'fourstep_stream: split {(n1, n2)} is not factors({n}) = '
+                         f'{factors(n)}')
+    _, t = plan.get_plan(n, 'stream', torch.complex64)
+    lead = x.shape[:-1]
+    z = phase_a(build.aligned(x.reshape(-1, n)), t, inverse)
+    return phase_b(z, t, inverse, real_output).reshape(*lead, n)

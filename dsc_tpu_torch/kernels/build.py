@@ -30,7 +30,8 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / 'csrc'
 BUILD_DIR = PACKAGE_DIR.parent / 'build' / 'kernels'
 LIB_PATH = BUILD_DIR / 'libdsc_tpu_torch_kernels.so'
-SOURCES = ('base_fft.cu', 'packed_rfft.cu', 'stream_map.cu')
+SOURCES = ('base_fft.cu', 'packed_rfft.cu', 'stream_map.cu', 'fourstep_stream.cu',
+           'reconstruct.cu')
 HEADERS = ('fft_core.cuh',)
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 COMPILE_FLAGS = (*ARCH_FLAGS, '-std=c++17', '-O3', '-Xcompiler', '-fPIC')
@@ -50,6 +51,11 @@ KERNELS = {
     'irfft_phase_b': ('dsc_irfft_phase_b', (_P, _P, _I, _I, _P, _F)),
     # op code; (pointer, re, im, kind, brow length) for three operands; out, n
     'stream_map': ('dsc_stream_map', (_I, *(_P, _F, _F, _I, _I) * 3, _P, _L)),
+    # x, z, batch, n1, n2, real input, inverse, w_n1, twiddle lo, hi, bits
+    'stream_phase_a': ('dsc_stream_phase_a', (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I)),
+    # z, out, batch, n1, n2, inverse, real output, w_n2, scale
+    'stream_phase_b': ('dsc_stream_phase_b', (_P, _P, _I, _I, _I, _I, _I, _P, _F)),
+    'reconstruct': ('dsc_reconstruct', (_P, _P, _L)),
 }
 
 launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -140,6 +146,14 @@ def check(t: torch.Tensor, dtype: torch.dtype, shape, name: str) -> None:
                            f'got {t.dtype} {tuple(t.shape)}')
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise RuntimeError(f'{name}: expected contiguous, 16-byte aligned data')
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if it is contiguous with 16-byte aligned data, else a copy
+    that is."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def launch(kernel: str, *args) -> None:

@@ -1,0 +1,178 @@
+"""Plain versions of K6/K7 (dsc_tpu_torch/fourier/stream.py) and K11
+(fourier/reconstruct.py) against the JAX package's kernels on the same
+inputs: ``fourstep_stream_p`` (dsc_tpu/fourier/pallas_stream.py) and
+``reconstruct_spectrum`` (pallas_reconstruct.py), run in interpret mode on
+the CPU as tests/test_pallas_fft.py runs them (the reconstruction with
+CHUNK patched to 1024). The JAX results are computed once per module.
+
+Bounds, relative to max |reference|: 3e-5 against the JAX kernels, whose
+bf16x3 DFT stages are good to about 1e-5, and 1e-5 against np.fft in
+float64. The reconstruction is a copy: exact."""
+
+import gc
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip('torch')
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import dsc_tpu_torch as dt  # noqa: E402
+from dsc_tpu.fourier import pallas_reconstruct as jpr  # noqa: E402
+from dsc_tpu.fourier import pallas_stream as jps  # noqa: E402
+from dsc_tpu_torch.fourier import plan, reconstruct, stream  # noqa: E402
+
+JAX_BOUND = 3e-5
+NUMPY_BOUND = 1e-5
+
+# (n1, n2, batch): the square split, odd log2 n (n1 = 2*n2), the grouped
+# 256 x 256 case
+SHAPES = [(512, 512, 1), (512, 256, 2), (256, 256, 6)]
+# complex forward, complex inverse, real-input forward, real-output inverse
+VARIANTS = ['forward', 'inverse', 'real_input', 'real_output']
+
+
+@pytest.fixture(scope='module', autouse=True)
+def port_ctx():
+    dt.init(2**32, device='cpu')
+    yield
+    dt.shutdown()
+
+
+def _inputs(n1, n2, batch):
+    rng = np.random.default_rng(n1 + n2 + batch)
+    re, im = (rng.standard_normal((batch, n1 * n2)).astype(np.float32) for _ in range(2))
+    return re, im
+
+
+def _call(variant, re, im):
+    """(input of the port's fourstep_stream, inverse, real_output)."""
+    if variant == 'real_input':
+        return re, False, False
+    z = (re + 1j * im).astype(np.complex64)
+    return z, variant != 'forward', variant == 'real_output'
+
+
+@pytest.fixture(scope='module')
+def jax_results():
+    """The JAX kernel's output for every shape and variant (interpret mode)."""
+    out = {}
+    for n1, n2, batch in SHAPES:
+        re, im = _inputs(n1, n2, batch)
+
+        def run(r, i, n1=n1, n2=n2):
+            fwd = jps.fourstep_stream_p(r, i, n1, n2, False)
+            inv = jps.fourstep_stream_p(r, i, n1, n2, True)
+            rin = jps.fourstep_stream_p(r, None, n1, n2, False)
+            rout, _ = jps.fourstep_stream_p(r, i, n1, n2, True, True)
+            return fwd, inv, rin, rout
+
+        fwd, inv, rin, rout = jax.jit(run)(re, im)
+        for variant, (yr, yi) in zip(VARIANTS[:3], (fwd, inv, rin)):
+            out[(n1, n2, batch, variant)] = np.asarray(yr) + 1j * np.asarray(yi)
+        out[(n1, n2, batch, 'real_output')] = np.asarray(rout)
+    # the compiles leave a large heap that the gc.collect() after every test
+    # (tests/conftest.py) would otherwise rescan each time
+    gc.freeze()
+    yield out
+    gc.unfreeze()
+
+
+def _rel(got, ref):
+    return np.abs(got - ref).max() / np.abs(ref).max()
+
+
+@pytest.mark.parametrize('variant', VARIANTS)
+@pytest.mark.parametrize('n1,n2,batch', SHAPES)
+def test_fourstep_stream_matches_jax_and_numpy(n1, n2, batch, variant, jax_results):
+    re, im = _inputs(n1, n2, batch)
+    x, inverse, real_output = _call(variant, re, im)
+    got = stream.fourstep_stream(torch.from_numpy(x), n1, n2, inverse, real_output).numpy()
+    ref = jax_results[(n1, n2, batch, variant)].astype(got.dtype)
+    assert got.shape == ref.shape == (batch, n1 * n2)
+    assert got.dtype == (np.float32 if real_output else np.complex64)
+    assert _rel(got, ref) < JAX_BOUND
+    x64 = x.astype(np.complex128)
+    exact = np.fft.ifft(x64, axis=-1) if inverse else np.fft.fft(x64, axis=-1)
+    assert _rel(got, exact.real if real_output else exact) < NUMPY_BOUND
+
+
+@pytest.mark.parametrize('inverse', [False, True])
+@pytest.mark.parametrize('real', [False, True])
+@pytest.mark.parametrize('n1,n2,batch', SHAPES)
+def test_phase_a_z_layout(n1, n2, batch, real, inverse):
+    """Z[b*n2 + j2, k1] = W_n^(s*k1*j2) * sum_j1 x[b, n2*j1 + j2] W_n1^(s*j1*k1),
+    the layout contract of K6 and K7; the CPU wrappers run the plain
+    versions exactly."""
+    n = n1 * n2
+    re, im = _inputs(n1, n2, batch)
+    x = re if real else (re + 1j * im).astype(np.complex64)
+    t = plan.get_plan(n, 'stream', torch.complex64)[1]
+    z = stream.phase_a(torch.from_numpy(x), t, inverse)
+    assert z.shape == (batch * n2, n1) and z.dtype == torch.complex64
+    assert torch.equal(z, stream.phase_a_plain(torch.from_numpy(x), t, inverse))
+    s = 1 if inverse else -1
+    cols = np.fft.ifft(x.reshape(batch, n1, n2), axis=1) * n1 if inverse else \
+        np.fft.fft(x.reshape(batch, n1, n2), axis=1)
+    k1, j2 = np.arange(n1)[:, None], np.arange(n2)[None, :]
+    ref = (cols * np.exp(s * 2j * np.pi * k1 * j2 / n)).transpose(0, 2, 1).reshape(-1, n1)
+    assert _rel(z.numpy(), ref) < NUMPY_BOUND
+    y = stream.phase_b(z, t, inverse, real_output=real)
+    assert torch.equal(y, stream.phase_b_plain(z, t, inverse, real_output=real))
+
+
+def test_fourstep_stream_takes_only_the_plan_split():
+    with pytest.raises(ValueError, match='factors'):
+        stream.fourstep_stream(torch.zeros(2**18), 1024, 256, False)
+
+
+@pytest.fixture(scope='module')
+def spectrum():
+    n = 8192
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((1, n // 2 + 1))
+         + 1j * rng.standard_normal((1, n // 2 + 1))).astype(np.complex64)
+    x[0, n // 2] = x[0, n // 2].real  # a valid spectrum's Nyquist bin is real
+    return x, n
+
+
+def test_reconstruct_matches_jax_kernel_exactly(spectrum, monkeypatch):
+    x, n = spectrum
+    monkeypatch.setattr(jpr, 'CHUNK', 1024)
+    ref = np.asarray(jax.jit(lambda v: jpr.reconstruct_spectrum(v, n))(jnp.asarray(x)))
+    got = reconstruct.reconstruct_spectrum(torch.from_numpy(x), n).numpy()
+    assert got.shape == ref.shape == (1, n) and got.dtype == ref.dtype
+    assert np.array_equal(got, ref)
+
+
+@pytest.mark.parametrize('dtype', [np.complex64, np.complex128])
+@pytest.mark.parametrize('batch,e', [(1, 8), (3, 12), (1, 18)])
+def test_reconstruct_plain_matches_the_xla_path(batch, e, dtype):
+    """Off the kernel's shapes the JAX package reconstructs in XLA; the
+    port's plain version is the same copy."""
+    n = 2**e
+    rng = np.random.default_rng(e)
+    x = (rng.standard_normal((batch, n // 2 + 1))
+         + 1j * rng.standard_normal((batch, n // 2 + 1))).astype(dtype)
+    ref = np.concatenate([x, np.conj(x[:, 1:n // 2][:, ::-1])], axis=1)
+    got = reconstruct.reconstruct_spectrum(torch.from_numpy(x), n).numpy()
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert np.array_equal(got, ref)
+
+
+@pytest.mark.parametrize('batch,e,dtype,takes', [
+    (1, 18, torch.complex64, True), (1, 26, torch.complex64, True),
+    (1, 17, torch.complex64, False),   # one chunk
+    (2, 18, torch.complex64, False),   # a batch
+    (1, 18, torch.complex128, False),  # the TPU kernel raises on float64
+])
+def test_reconstruct_kernel_shapes(batch, e, dtype, takes):
+    """K11 takes what the TPU kernel takes (pallas_reconstruct.py:205)."""
+    n = 2**e
+    x = torch.empty((batch, n // 2 + 1), dtype=dtype)
+    assert reconstruct.kernel_takes(x, n) == takes
+    nh = n // 2
+    ref = not (nh % jpr.CHUNK or nh // jpr.CHUNK < 2 or (nh // jpr.CHUNK) % 2 or batch != 1)
+    assert takes == (ref and dtype == torch.complex64)

@@ -10,7 +10,7 @@ import pytest
 torch = pytest.importorskip('torch')
 
 import dsc_tpu_torch as dt  # noqa: E402
-from dsc_tpu_torch.fourier import base_fft, plan  # noqa: E402
+from dsc_tpu_torch.fourier import base_fft, plan, reconstruct, stream  # noqa: E402
 from dsc_tpu_torch.fourier import packed_fused as pf  # noqa: E402
 from dsc_tpu_torch.kernels import build  # noqa: E402
 from dsc_tpu_torch.ops import stream_map as sm  # noqa: E402
@@ -90,9 +90,86 @@ def test_public_path_launches_every_kernel():
     assert np.abs(small - sig[:4096]).max() < 1e-5
 
 
+STREAM_CASES = [(512, 512, 1), (512, 256, 2), (256, 256, 6)]
+
+
+def _stream_input(n, batch, real, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((batch, n)).astype(np.float32)
+    if not real:
+        x = (x + 1j * rng.standard_normal((batch, n))).astype(np.complex64)
+    return torch.from_numpy(x).cuda()
+
+
+def _check_stream_kernels(x, t, inverse):
+    z = stream.phase_a(x, t, inverse)
+    assert _rel(z, stream.phase_a_plain(x, t, inverse)) < REL
+    for real_output in (False, True):
+        y = stream.phase_b(z, t, inverse, real_output)
+        assert _rel(y, stream.phase_b_plain(z, t, inverse, real_output)) < REL
+
+
+@pytest.mark.parametrize('inverse', [False, True])
+@pytest.mark.parametrize('real', [False, True])
+@pytest.mark.parametrize('n1,n2,batch', STREAM_CASES)
+def test_stream_kernels(n1, n2, batch, real, inverse):
+    t = plan.get_plan(n1 * n2, 'stream', torch.complex64)[1]
+    x = _stream_input(n1 * n2, batch, real, n1 + n2 + batch)
+    before = dict(build.launches)
+    _check_stream_kernels(x, t, inverse)
+    assert build.launches['stream_phase_a'] == before['stream_phase_a'] + 1
+    assert build.launches['stream_phase_b'] == before['stream_phase_b'] + 2
+
+
+def test_stream_kernels_single_2_26_inverse():
+    n = 2**26
+    t = plan.get_plan(n, 'stream', torch.complex64)[1]
+    _check_stream_kernels(_stream_input(n, 1, False, 26), t, True)
+    plan.clear_plans()
+
+
+@pytest.mark.parametrize('e', [18, 19, 24])
+def test_reconstruct_kernel(e):
+    n = 2**e
+    x = _stream_input(n // 2 + 1, 1, False, e)
+    x.imag[0, -1] = 0  # a valid spectrum's Nyquist bin is real
+    before = build.launches['reconstruct']
+    got = reconstruct.reconstruct_spectrum(x, n)
+    assert build.launches['reconstruct'] == before + 1
+    assert torch.equal(got, reconstruct.reconstruct_plain(x, n))
+
+
+def test_public_stream_routes_launch_one_pair_per_transform():
+    rng = np.random.default_rng(4)
+    c = (rng.standard_normal((6, 2**16)) + 1j * rng.standard_normal((6, 2**16))).astype(
+        np.complex64)
+    r = rng.standard_normal((4, 2**18)).astype(np.float32)
+    spec = np.fft.rfft(rng.standard_normal(2**18)).astype(np.complex64)
+    cases = [  # call, reference, reconstruct launches
+        (lambda: dt.fft(dt.from_numpy(c)), np.fft.fft(c), 0),
+        (lambda: dt.ifft(dt.from_numpy(c.reshape(-1)[:2**18])),
+         np.fft.ifft(c.reshape(-1)[:2**18]), 0),
+        (lambda: dt.rfft(dt.from_numpy(r)), np.fft.rfft(r), 0),
+        (lambda: dt.irfft(dt.from_numpy(np.fft.rfft(r).astype(np.complex64))),
+         np.fft.irfft(np.fft.rfft(r)), 0),
+        (lambda: dt.rfft(dt.from_numpy(r.T.copy()), axis=0), np.fft.rfft(r.T, axis=0), 0),
+        (lambda: dt.irfft(dt.from_numpy(spec)), np.fft.irfft(spec), 1),
+    ]
+    for call, ref, n_rec in cases:
+        build.reset_launches()
+        got = call().numpy()
+        torch.cuda.synchronize()
+        assert (build.launches['stream_phase_a'], build.launches['stream_phase_b'],
+                build.launches['reconstruct']) == (1, 1, n_rec), build.launches
+        assert got.shape == ref.shape
+        assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
+
+
 def test_unported_routes_raise():
     with pytest.raises(NotImplementedError, match='K6/K8'):
         dt.rfft(dt.from_numpy(np.ones(2**18, np.float32)))
+    with pytest.raises(NotImplementedError, match='K8'):
+        dt.fft(dt.from_numpy(np.ones(2**18, np.complex64)))
     # an elementwise op of 2^21 elements now launches K5
     x = np.random.default_rng(2).standard_normal(2**21).astype(np.float32)
     big = dt.from_numpy(x)

@@ -116,20 +116,18 @@ def test_route_base_kernel_sizes():
 def test_route_unported_single_vector_sizes_raise_on_cuda(e):
     with pytest.raises(NotImplementedError, match='K6/K8'):
         config.rfft_route('cuda', Dtype.F32, 1, 2**e)
-    with pytest.raises(NotImplementedError, match='K9/K10'):
-        config.irfft_route('cuda', Dtype.C32, 1, 2**e)
+    # a dense spectrum's inverse: K11 + K6/K7, as in the JAX package
+    assert config.irfft_route('cuda', Dtype.C32, 1, 2**e) == 'reconstruct+stream'
     assert config.rfft_route('cpu', Dtype.F32, 1, 2**e) == 'core'
 
 
 def test_route_other_unported_kernels_raise_on_cuda():
-    with pytest.raises(NotImplementedError, match='K6/K7'):
-        config.rfft_route('cuda', Dtype.F32, 8, 2**20)
+    assert config.rfft_route('cuda', Dtype.F32, 8, 2**20) == 'stream'
     with pytest.raises(NotImplementedError, match='K6/K8'):
         config.fft_route('cuda', Dtype.C32, 1, 2**21, inverse=False)
-    with pytest.raises(NotImplementedError, match='K6/K7'):
-        config.fft_route('cuda', Dtype.C32, 1, 2**21, inverse=True)
-    with pytest.raises(NotImplementedError, match='K11'):
-        config.irfft_route('cuda', Dtype.C64, 1, 2**18)
+    assert config.fft_route('cuda', Dtype.C32, 1, 2**21, inverse=True) == 'stream'
+    # complex128: the plain reconstruction (K11 is complex64 only) and core
+    assert config.irfft_route('cuda', Dtype.C64, 1, 2**18) == 'core'
     # elementwise routes are device-independent: K5 where the JAX package
     # streams, plain PyTorch (never a raise) where it runs XLA
     f32 = torch.empty(2**21)
