@@ -1,6 +1,7 @@
 """On-GPU smoke test of the dsc_tpu_torch port on one CUDA card: the
 filterFFT main path (rfft -> spectrum multiply -> irfft), the eager
-elementwise tier and the batched FFT suite.
+elementwise tier, the batched FFT suite and the single-vector transforms
+into and out of the T spectrum layout.
 
     python3 chip_smoke.py
 
@@ -17,8 +18,10 @@ Phases, each raising on failure (exit code 0 means all passed):
    and two bounds, a ragged count, the complex bodies at 2^23 + 1; the
    streaming four-step K6, K7 in every variant at the batched suite's
    shapes and a single 2^24 vector; the Hermitian reconstruction K11 at
-   2^18, 2^19 and 2^24, exactly), and the rfft against np.fft in float64;
-4. the public API at full size, as two paths, each with every launch count
+   2^18, 2^19 and 2^24, exactly; K8, K9 and K10 at 2^19 in the half-T
+   layout and at 2^24 in both, within 1e-6), and the rfft against np.fft
+   in float64;
+4. the public API at full size, as four paths, each with every launch count
    set to 0 just before it and read just after:
    a. the README quick start (2^20 samples, 255 taps, n = 2^21) and the
       4097-tap shape against np.convolve in float64, a 2^24 rfft -> irfft
@@ -38,12 +41,20 @@ Phases, each raising on failure (exit code 0 means all passed):
       launches of every kernel held to the routing table (K6, K7, K11,
       K12); then the plan cache under 22 distinct plans, which must end at
       16;
+   d. single vectors: fft -> ifft of complex64 at 2^18, 2^21, 2^24 and
+      2^26 (K6 + K8 into the T layout, K9 + K10 out of it; against np.fft
+      in float64 up to 2^24, the round trip at 2^26), rfft -> irfft at
+      2^18 and 2^19 (the half-T layout), fft_convolve at n = 2^19 against
+      np.convolve and the chirp-z transform of 10^6 points (fft_n = 2^21)
+      against np.fft, every call with the counts set to 0 before it and
+      held to the routing after it;
 5. CUDA-event timings of each kernel, its plain version and the one
    PyTorch call that computes the same function (a yardstick the port never
    calls), each as device time per call over 50 calls back to back, the
    kernel also as the median of 25 single launches; the filterFFT step
-   at n = 2^21 and 2^24 (median of 25); and each batched-suite row through
-   the public API beside the torch.fft call on the same shape.
+   at n = 2^21 and 2^24 (median of 25); each batched-suite row through
+   the public API beside the torch.fft call on the same shape; and K8, K9,
+   K10 at 2^24 (T and half-T) and 2^19 (half-T).
 
 The last lines are the kernels' JSON record, the card line and the result
 line. Without a CUDA device the script exits non-zero before any of them.
@@ -56,7 +67,8 @@ host clock over five repeats in one process, K1 timed one launch at a time
 and 200 launches back to back, and torch.profiler's device time per kernel
 and the device's busy share of the step at n = 2^21 and at n = 2^24; and
 the same breakdown for rows of the batched FFT suite (fft, rfft and irfft
-of 16 x 2^20, rfft over axis 0 of (2^18, 64), fft2 of (256, 2^16)).
+of 16 x 2^20, rfft over axis 0 of (2^18, 64), fft2 of (256, 2^16)) and of
+the single-vector ifft(fft(x)) at 2^24 and irfft(rfft(x)) at 2^19.
 """
 
 from __future__ import annotations
@@ -74,6 +86,7 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 REL_BOUND = 3e-5        # kernel vs plain version, relative to max |plain|
+T_BOUND = 1e-6          # K8, K9, K10 vs plain: the same float32 radix-2 arithmetic
 NUMPY_BOUND = 1e-4      # vs np.fft / np.convolve in float64 (BASELINE.md)
 ORACLE = 1e-5           # elementwise vs NumPy, atol = rtol (tests/conftest.py)
 RUNS = 25
@@ -105,6 +118,12 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                        'dsc_tpu/fourier/pallas_stream.py:519'),
     'reconstruct': ('dsc_tpu_torch/csrc/reconstruct.cu',
                     'dsc_tpu/fourier/pallas_reconstruct.py:95'),
+    'stream_phase_b_t': ('dsc_tpu_torch/csrc/fourstep_stream_t.cu',
+                         'dsc_tpu/fourier/pallas_stream_t.py:108'),
+    'stream_inv_phase_a_t': ('dsc_tpu_torch/csrc/fourstep_stream_t.cu',
+                             'dsc_tpu/fourier/pallas_stream_t.py:202'),
+    'stream_inv_phase_b_t': ('dsc_tpu_torch/csrc/fourstep_stream_t.cu',
+                             'dsc_tpu/fourier/pallas_stream_t.py:469'),
 }
 FFT_PATH = ('rfft_phase_a', 'rfft_phase_b', 'irfft_phase_a', 'irfft_phase_b', 'base_fft')
 MAP_PATH = ('stream_map', 'rfft_phase_a', 'rfft_phase_b', 'irfft_phase_a', 'irfft_phase_b')
@@ -114,6 +133,9 @@ SUITE = ((256, 2**16), (64, 2**18), (16, 2**20), (4, 2**22))
 # pair per 1-D transform (18), K11 for each single-row irfft off the packed
 # route (3), K12 for the 256-point axis of fft2, rfft2 and irfft2 (3)
 SUITE_LAUNCHES = {'stream_phase_a': 18, 'stream_phase_b': 18, 'reconstruct': 3, 'base_fft': 3}
+# the single-vector path's launches per call (fourier/config.py 'stream_t')
+INTO_T = {'stream_phase_a': 1, 'stream_phase_b_t': 1}
+OUT_OF_T = {'stream_inv_phase_a_t': 1, 'stream_inv_phase_b_t': 1}
 
 # K5 float32 bodies: operations per element (arithmetic of the fast sin/cos
 # polynomial; for the libm bodies an estimate of their instruction count)
@@ -256,6 +278,8 @@ def profile_step(dsc, card: str) -> None:
     spec = dsc.rfft(r)
     c, f = dsc.from_numpy(c64((16, 2**20))), dsc.from_numpy(c64((256, 2**16)))
     a = dsc.from_numpy(gen.standard_normal((2**18, 64)).astype(np.float32))
+    v = dsc.from_numpy(c64(BIG_N))
+    w = dsc.from_numpy(gen.standard_normal(2**19).astype(np.float32))
     for what, fn in (('filterFFT step 2^20 x 255 taps, n=2^21', step),
                      ('filterFFT step 2^23 x 4097 taps, n=2^24',
                       lambda: filter_fft(dsc, big_sig, big_taps, 4097, BIG_N)),
@@ -263,7 +287,9 @@ def profile_step(dsc, card: str) -> None:
                      ('batched rfft 16 x 2^20', lambda: dsc.rfft(r)),
                      ('batched irfft 16 x 2^20', lambda: dsc.irfft(spec)),
                      ('rfft over axis 0 of (2^18, 64)', lambda: dsc.rfft(a, axis=0)),
-                     ('fft2 (256, 2^16)', lambda: dsc.fft2(f))):
+                     ('fft2 (256, 2^16)', lambda: dsc.fft2(f)),
+                     ('single ifft(fft(x)) 2^24', lambda: dsc.ifft(dsc.fft(v))),
+                     ('single irfft(rfft(x)) 2^19', lambda: dsc.irfft(dsc.rfft(w)))):
         steps = 20
         wall = host_ms(fn)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -302,7 +328,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     import dsc_tpu_torch as dsc
-    from dsc_tpu_torch.fourier import base_fft, packed_fused as pf, plan, reconstruct, stream
+    from dsc_tpu_torch.fourier import (base_fft, packed_fused as pf, plan, reconstruct, stream,
+                                       stream_t)
     from dsc_tpu_torch.fourier.stream import factors
     from dsc_tpu_torch.kernels import build
     from dsc_tpu_torch.ops import kernels as ops_kernels
@@ -314,7 +341,7 @@ def main() -> int:
           f'{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}')
 
     # -- 2. build + init + copy ceiling ------------------------------------
-    t0 = time.time()
+    t_start = t0 = time.time()
     log = build.build(extra_flags=('-Xptxas', '-v'))
     build.load()
     print(f'build: {time.time() - t0:.1f} s ({build.LIB_PATH})')
@@ -333,11 +360,11 @@ def main() -> int:
     gen = np.random.default_rng(0)
     errs = dict.fromkeys(KERNELS, 0.0)
 
-    def compare(name, got, ref, what):
+    def compare(name, got, ref, what, bound=REL_BOUND):
         e = rel_err(got, ref)
         errs[name] = max(errs[name], float((got - ref).abs().max()))
         print(f'  {name:14s} {what}: rel err {e:.3e}')
-        require(e <= REL_BOUND, f'{name} {what}: {e} > {REL_BOUND}')
+        require(e <= bound, f'{name} {what}: {e} > {bound}')
 
     def normal(shape, dtype=np.float32):
         return torch.from_numpy(gen.standard_normal(shape).astype(dtype)).to(dev)
@@ -439,6 +466,29 @@ def main() -> int:
         errs['reconstruct'] = max(errs['reconstruct'], float((got - ref).abs().max()))
         print(f'  {"reconstruct":14s} n=2^{e}: equal to the plain version')
     del spec, got, ref
+    # every shape phase 4d gives K8-K10: 2^18 and 2^21 (fft -> ifft, the
+    # czt of 10^6 points), 2^19 (rfft -> irfft) and 2^24, and 2^26, where
+    # K8/K10's column pass takes C = 2 and K9 its largest row block
+    for e, layouts in ((18, (False, True)), (19, (True,)), (21, (False,)),
+                       (24, (False, True)), (26, (False,))):
+        n = 2**e
+        t = plan.get_plan(n, 'stream', torch.complex64)[1]
+        for half in layouts:
+            what = f'n=2^{e} {"half-T" if half else "T"}'
+            x = normal((1, n)) if half else cnormal((1, n))
+            z = stream.phase_a(x, t, False)
+            s = stream_t.phase_b_t(z, t, half)
+            compare('stream_phase_b_t', s, stream_t.phase_b_t_plain(z, t, half), what, T_BOUND)
+            y = stream_t.inv_phase_a_t(s, t, half)
+            compare('stream_inv_phase_a_t', y, stream_t.inv_phase_a_t_plain(s, t, half), what,
+                    T_BOUND)
+            back = stream_t.inv_phase_b_t(y, t, half)
+            compare('stream_inv_phase_b_t', back, stream_t.inv_phase_b_t_plain(y, t, half),
+                    f'{what}{" real output" if half else ""}', T_BOUND)
+            e_rt = rel_err(back, x.reshape(-1))
+            print(f'  K6+K8+K9+K10 round trip {what}: rel err {e_rt:.3e}')
+            require(e_rt <= NUMPY_BOUND, f'T round trip {what}: {e_rt}')
+    del x, z, s, y, back
     torch.cuda.synchronize()
 
     # -- 4a. the public filterFFT path at full size ------------------------
@@ -656,11 +706,71 @@ def main() -> int:
           f'(DSC_MAX_FFT_PLANS = {plan.MAX_FFT_PLANS})')
     require(plan.num_plans() == plan.MAX_FFT_PLANS == 16, 'plan cache did not end at 16')
     del c_np, r_np
+
+    # -- 4d. the single-vector path at full size ---------------------------
+    print('phase 4d: public API, single vectors into and out of the T layout')
+    single_launches = dict.fromkeys(KERNELS, 0)
+
+    def routed(what, fn, want):
+        """``fn()`` with every launch count set to 0 just before it, and the
+        counts read just after it held to ``want``."""
+        build.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        got = {name: count for name, count in build.launches.items() if count}
+        require(got == want, f'{what}: launches {got}, routing says {want}')
+        for name, count in got.items():
+            single_launches[name] += count
+        return res
+
+    for e in (18, 21, 24, 26):
+        n = 2**e
+        v_np = cnp(n)
+        v = dsc.from_numpy(v_np)
+        spec = routed(f'fft 2^{e}', lambda: dsc.fft(v), INTO_T)
+        require(spec._layout == (*factors(n), False), f'fft 2^{e}: layout {spec._layout}')
+        if e <= 24:
+            against_numpy(f'fft single 2^{e} (T layout)', spec,
+                          np.fft.fft(v_np.astype(np.complex128)))
+        back = routed(f'ifft 2^{e}', lambda: dsc.ifft(spec), OUT_OF_T)
+        against_numpy(f'ifft(fft(x)) single 2^{e}', back, v_np)
+        del v, spec, back
+    for e in (18, 19):
+        r_np = gen.standard_normal(2**e).astype(np.float32)
+        spec = routed(f'rfft 2^{e}', lambda: dsc.rfft(dsc.from_numpy(r_np)), INTO_T)
+        require(spec._layout == (*factors(2**e), True), f'rfft 2^{e}: layout {spec._layout}')
+        against_numpy(f'rfft single 2^{e} (half-T layout)', spec,
+                      np.fft.rfft(r_np.astype(np.float64)))
+        back = routed(f'irfft 2^{e}', lambda: dsc.irfft(spec), OUT_OF_T)
+        require(back.numpy().dtype == np.float32, f'irfft 2^{e} dtype {back.dtype}')
+        against_numpy(f'irfft(rfft(x)) single 2^{e}', back, r_np)
+    sig_np = gen.standard_normal(2**18 + 10000).astype(np.float32)
+    taps_np = np.blackman(255).astype(np.float32)
+    got = routed('fft_convolve n=2^19', lambda: dsc.models.fft_convolve(
+        dsc.from_numpy(sig_np), dsc.from_numpy(taps_np)),
+        {'stream_phase_a': 2, 'stream_phase_b_t': 2, **OUT_OF_T})
+    against_numpy('fft_convolve (2^18 + 10000) x 255 taps, n=2^19, vs np.convolve', got,
+                  np.convolve(sig_np.astype(np.float64), taps_np.astype(np.float64)))
+    # the chirp kernel's spectrum and the signal's (K6 + K8 each), their
+    # product (K5: 2^21 complex64 values), the inverse (K9 + K10)
+    z_np = cnp(10**6)
+    got = routed('czt 10^6', lambda: dsc.models.czt(dsc.from_numpy(z_np)),
+                 {'stream_phase_a': 2, 'stream_phase_b_t': 2, 'stream_map': 1, **OUT_OF_T})
+    against_numpy('czt of 10^6 points (fft_n = 2^21) vs np.fft', got,
+                  np.fft.fft(z_np.astype(np.complex128)))
+    del sig_np, z_np, got
+    print(f'  launches on the single-vector path: {single_launches}')
+    for name in ('stream_phase_a', *INTO_T, *OUT_OF_T):
+        require(single_launches[name] > 0, f'kernel {name} was not launched on the single path')
+
     launches = {**fft_launches, 'stream_map': map_launches['stream_map'],
                 **{k: suite_launches[k] for k in ('stream_phase_a', 'stream_phase_b',
-                                                  'reconstruct')}}
+                                                  'reconstruct')},
+                **{k: single_launches[k] for k in ('stream_phase_b_t', 'stream_inv_phase_a_t',
+                                                   'stream_inv_phase_b_t')}}
     by_path = {name: {'filterfft': fft_launches[name], 'elementwise': map_launches[name],
-                      'batched': suite_launches[name]} for name in KERNELS}
+                      'batched': suite_launches[name], 'single': single_launches[name]}
+               for name in KERNELS}
 
     # -- 5. timings --------------------------------------------------------
     print(f'phase 5: timings, CUDA events [{card}]')
@@ -777,6 +887,34 @@ def main() -> int:
         timed('reconstruct', f'n=2^{e} c64', lambda: reconstruct.reconstruct_spectrum(spec, n),
               lambda: reconstruct.reconstruct_plain(spec, n), None, nbytes(spec, full), 0)
     del spec, full
+    # K8, K9, K10 at the single-vector shapes; library: the torch.fft call
+    # computing the whole function of K6+K8 (fft, rfft) or K9+K10 (ifft,
+    # irfft) on the same vector; flops: 5 N log2 N of the pass's DFTs, plus
+    # ~6 per value of twiddle arithmetic in K9
+    for e, half in ((24, False), (24, True), (19, True)):
+        n = 2**e
+        n1, n2 = factors(n)
+        t = plan.get_plan(n, 'stream', torch.complex64)[1]
+        x = normal((1, n)) if half else cnormal((1, n))
+        z = stream.phase_a(x, t, False)
+        s = stream_t.phase_b_t(z, t, half)
+        y = stream_t.inv_phase_a_t(s, t, half)
+        back = stream_t.inv_phase_b_t(y, t, half)
+        nat = torch.fft.rfft(x) if half else torch.fft.fft(x)
+        lib_fwd = (lambda: torch.fft.rfft(x)) if half else (lambda: torch.fft.fft(x))
+        lib_inv = (lambda: torch.fft.irfft(nat, n)) if half else (lambda: torch.fft.ifft(nat))
+        what = f'n=2^{e} {(n1, n2)} {"half-T" if half else "T"}'
+        timed('stream_phase_b_t', what, lambda: stream_t.phase_b_t(z, t, half),
+              lambda: stream_t.phase_b_t_plain(z, t, half), lib_fwd,
+              nbytes(z, s, t.w_n2), fft_ops(n, n2))
+        timed('stream_inv_phase_a_t', what, lambda: stream_t.inv_phase_a_t(s, t, half),
+              lambda: stream_t.inv_phase_a_t_plain(s, t, half), lib_inv,
+              nbytes(s, y, t.w_n2, t.twiddle.lo, t.twiddle.hi), fft_ops(n, n2) + 6 * n)
+        timed('stream_inv_phase_b_t', f'{what}{" real output" if half else ""}',
+              lambda: stream_t.inv_phase_b_t(y, t, half),
+              lambda: stream_t.inv_phase_b_t_plain(y, t, half), lib_inv,
+              nbytes(y, back, t.w_n1), fft_ops(n, n1))
+    del x, z, s, y, back, nat
     # the suite's rows through the public API, beside the torch.fft call on
     # the same shape; the rest of a row's time over its K6+K7 launches is the
     # reconstruction, the movedim copies and the host
@@ -810,7 +948,8 @@ def main() -> int:
 
     # the main path's shape of each kernel: the filterFFT at n = 2^21 for the
     # packed passes, the n = 4096 pair's 2048 x 1 for K12, bench's fma for K5,
-    # the suite's 256 x 2^16 for K6/K7, the 2^19 irfft for K11
+    # the suite's 256 x 2^16 for K6/K7, the 2^19 irfft for K11, the 2^24
+    # single fft -> ifft for K8, K9, K10
     main_case = {name: rows_[0] for name, rows_ in cases.items()}
     main_case['stream_map'] = next(r for r in cases['stream_map'] if r['what'].startswith('add 2^26'))
     record = {'kernels': [
@@ -821,6 +960,7 @@ def main() -> int:
          'library_ms': main_case[name]['library_ms'], 'shape': main_case[name]['what'],
          'launches_by_path': by_path[name], 'cases': cases[name]}
         for name, (src, rep) in KERNELS.items()]}
+    print(f'chip_smoke: {time.time() - t_start:.1f} s')
     print(json.dumps(record))
     print(card)
     print(json.dumps({'ok': True, 'device': {

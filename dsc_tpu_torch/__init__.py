@@ -10,10 +10,13 @@ Ported so far: the context, dtypes, tracing, the Tensor with the whole
 eager op set of dsc_tpu (elementwise, clip, pow, reductions, creation,
 layout, indexing with write-through views) and the FFT family, whose
 filterFFT path (rfft -> spectrum multiply -> irfft) runs on the card
-through kernels K1-K4 and K12, and whose batched, non-last-axis and fft2
+through kernels K1-K4 and K12, whose batched, non-last-axis and fft2
 transforms run the streaming four-step K6/K7 with the Hermitian
-reconstruction K11. Large float32 and complex64 elementwise ops run kernel
-K5 (ops/stream_map.py). ROADMAP.md lists what remains.
+reconstruction K11, and whose single-vector transforms in the streaming
+range go into and out of the T spectrum layout through K6/K8 and K9/K10
+(the chirp-z transform, models.czt, rides them). Large float32 and
+complex64 elementwise ops run kernel K5 (ops/stream_map.py). ROADMAP.md
+lists what remains.
 """
 
 from . import models
@@ -21,7 +24,7 @@ from .context import clear, init, manual_seed, print_mem_usage, shutdown, used_m
 from .dtype import Dtype
 from .fourier import (fft, fft2, fftfreq, ifft, ifft2, irfft, irfft2, plan_fft, rfft, rfft2,
                       rfftfreq)
-from .interop import from_half_t
+from .interop import from_half_t, from_t
 from .profiler import profile, start_recording, stop_recording
 from .tensor import (
     Tensor,
@@ -80,6 +83,7 @@ __all__ = [
     'Dtype',
     'from_numpy',
     'from_half_t',
+    'from_t',
     'reshape',
     'concat',
     'transpose',

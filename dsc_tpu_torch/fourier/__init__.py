@@ -14,13 +14,18 @@ The reference FFT surface (dsc.h:384-424, dsc/src/dsc.cpp:1955-2340):
   package
 
 Engines (config.py): single-vector float32 rfft/irfft of 2^20..2^26
-points run the packed real FFT (K1-K4, packed_fused.py); float32/complex64
-transforms in the streaming range run the natural two-pass four-step
-(K6+K7, stream.py): batches over any axis, single-vector ifft, the irfft
-of a single spectrum at 2^18 and 2^19 after the Hermitian reconstruction
-(K11, reconstruct.py), and every such call with ``out=``. Everything else
-runs the plain core (core.py) with K12 at complex64 base cases. The
-spectrum is a natural-order (n/2+1,) complex tensor.
+points run the packed real FFT (K1-K4, packed_fused.py), whose spectrum is
+a natural-order (n/2+1,) complex tensor. A single vector in the streaming
+range (2^18..2^26) otherwise goes into and out of the T layout
+(stream_t.py): its forward fft returns a spectrum stored in the T layout
+(K6+K8), its rfft at 2^18 and 2^19 one in the half-T layout, and the
+ifft/irfft of such a spectrum reads it in place (K9+K10). Other
+float32/complex64 transforms in the streaming range run the natural
+two-pass four-step (K6+K7, stream.py): batches over any axis, the ifft of
+a natural-order vector, the irfft of a dense single spectrum at 2^18 and
+2^19 after the Hermitian reconstruction (K11, reconstruct.py), and every
+such call with ``out=``. Everything else runs the plain core (core.py)
+with K12 at complex64 base cases.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from .. import tracing
 from ..dtype import DTYPE_TO_NP, Dtype
 from ..interop import TORCH_DTYPE
 from ..tensor import Tensor, _finish, from_numpy
-from . import config, core, packed_fused, plan
+from . import config, core, packed_fused, plan, stream
 from .plan import next_pow2
 
 __all__ = ['fft', 'ifft', 'rfft', 'irfft', 'fft2', 'ifft2', 'rfft2', 'irfft2', 'fftfreq',
@@ -62,6 +67,14 @@ def _out_shape(x: Tensor, ax: int, out_n: int):
     return tuple(out_n if i == ax else d for i, d in enumerate(x.shape))
 
 
+def _t_result(storage, x: Tensor, ax: int, out_n: int, n: int, half: bool) -> Tensor:
+    """A spectrum in the T layout, viewed in the input's shape with the
+    transform axis ``out_n`` long (dsc_tpu fourier._planar_fft_result_t)."""
+    t = Tensor._from_t(storage, *stream.factors(n), half)
+    want = _out_shape(x, ax, out_n)
+    return t if t.shape == want else Tensor._view_of(t, want)
+
+
 def _core_plan(route: str, n: int, fft_type: str, cdtype):
     """The plain core's (spec, tables) on the 'core' route; a streaming
     route needs none (K6+K7 take the 'stream' plan)."""
@@ -79,14 +92,20 @@ def ifft(x: Tensor, out: Optional[Tensor] = None, n: int = -1, axis: int = -1) -
 def _fft_like(x: Tensor, out, n: int, axis: int, inverse: bool) -> Tensor:
     ax = _resolve_axis(x, axis)
     nn = next_pow2(n) if n > 0 else next_pow2(x.shape[ax])
-    data = x.torch
-    route = config.fft_route(data.device.type, x.dtype, _batch(x, ax), nn, inverse,
-                             out is not None)
+    route = config.fft_route(x.dtype, _batch(x, ax), nn, inverse, out is not None,
+                             x._layout)
     with tracing.trace_op('ifft' if inverse else 'fft', 'op;fft',
                           tracing.tensor_args(x=x)):
-        cdt = TORCH_DTYPE[x.dtype.as_complex]
-        spec, tables = _core_plan(route, nn, 'complex', cdt)
-        res = core.fft_nd(data, tables, spec, nn, ax, inverse, cdt, route != 'core')
+        if route == 'stream_t' and inverse:
+            res = core.ifft_stream_from_t(x._stored, *stream.factors(nn)).reshape(
+                _out_shape(x, ax, nn))
+        elif route == 'stream_t':
+            return _t_result(core.fft_stream_t(x.torch, *stream.factors(nn)), x, ax, nn,
+                             nn, False)
+        else:
+            cdt = TORCH_DTYPE[x.dtype.as_complex]
+            spec, tables = _core_plan(route, nn, 'complex', cdt)
+            res = core.fft_nd(x.torch, tables, spec, nn, ax, inverse, cdt, route != 'core')
     return _finish(res, out)
 
 
@@ -98,9 +117,11 @@ def rfft(x: Tensor, out: Optional[Tensor] = None, n: int = -1, axis: int = -1) -
     # (reference dsc.cpp:2194-2197)
     full_n = next_pow2(n) if n > 0 else next_pow2(x.shape[ax])
     data = x.torch
-    route = config.rfft_route(data.device.type, x.dtype, _batch(x, ax), full_n,
-                              out is not None)
+    route = config.rfft_route(x.dtype, _batch(x, ax), full_n, out is not None)
     with tracing.trace_op('rfft', 'op;fft', tracing.tensor_args(x=x)):
+        if route == 'stream_t':
+            return _t_result(core.rfft_stream_half_t(data, *stream.factors(full_n)), x, ax,
+                             full_n // 2 + 1, full_n, True)
         if route == 'packed':
             _, tables = plan.get_plan(full_n, 'packed', torch.complex64)
             sig = core._pad_crop(data.reshape(-1), full_n).contiguous()
@@ -119,19 +140,20 @@ def irfft(x: Tensor, out: Optional[Tensor] = None, n: int = -1, axis: int = -1) 
     # fft_order = pow2(n-1 or x_n-1); out_n = 2 * fft_order
     # (reference dsc.cpp:2198-2201)
     full_n = 2 * (next_pow2(n - 1) if n > 0 else next_pow2(x.shape[ax] - 1))
-    data = x.torch
-    route = config.irfft_route(data.device.type, x.dtype, _batch(x, ax), full_n,
-                               out is not None)
+    route = config.irfft_route(x.dtype, _batch(x, ax), full_n, out is not None, x._layout)
     with tracing.trace_op('irfft', 'op;fft', tracing.tensor_args(x=x)):
-        if route == 'packed':
+        if route == 'stream_t':
+            res = core.irfft_stream_from_half_t(x._stored, *stream.factors(full_n)).reshape(
+                _out_shape(x, ax, full_n))
+        elif route == 'packed':
             _, tables = plan.get_plan(full_n, 'packed', torch.complex64)
-            spec = core._pad_crop(data.reshape(-1), full_n // 2 + 1).contiguous()
+            spec = core._pad_crop(x.torch.reshape(-1), full_n // 2 + 1).contiguous()
             res = packed_fused.irfft_packed(spec, tables).reshape(
                 _out_shape(x, ax, full_n))
         else:
             cdt = TORCH_DTYPE[x.dtype]
             spec, tables = _core_plan(route, full_n, 'real', cdt)
-            res = core.irfft_nd(data, tables, spec, full_n, ax, cdt, route != 'core')
+            res = core.irfft_nd(x.torch, tables, spec, full_n, ax, cdt, route != 'core')
     return _finish(res, out)
 
 

@@ -2,13 +2,18 @@
 fourier/__init__.py and core.py).
 
 Which engine serves a transform is the same function of (size, dtype,
-batch, ``out``) as in the JAX package on the TPU; the axis enters only
-through the batch (a non-last axis streams as a batch). The public
-functions take their streaming branches only without ``out=``; with it
-they go through the core (core.fft_nd and its kin), which streams by size
-alone (``core_streams``), as the JAX core does. Routes:
+batch, ``out``, the input's layout) as in the JAX package on the TPU; the
+axis enters only through the batch (a non-last axis streams as a batch).
+The public functions take their streaming branches only without ``out=``;
+with it they go through the core (core.fft_nd and its kin), which streams
+by size alone (``core_streams``), as the JAX core does. Routes:
 
 - 'packed'  single-vector float32 rfft / complex64 irfft, K1+K2 / K3+K4;
+- 'stream_t'  one vector into or out of the T layout (stream_t.py): the
+            forward fft of a natural-order vector, K6+K8; the rfft where
+            the packed engine does not apply, K6+K8 into the half-T
+            layout; the ifft of a T-layout spectrum and the irfft of a
+            half-T one, K9+K10;
 - 'stream'  K6+K7 through the core (an irfft reconstructs its spectrum
             plainly first);
 - 'reconstruct+stream'  a single complex64 irfft row: K11, then K6+K7;
@@ -19,15 +24,15 @@ The public functions pass the route to the core, which streams on
 'stream' and 'reconstruct+stream' and nowhere else; a direct call to the
 core decides by ``core_streams``.
 
-The device enters only where the JAX package would reach a TPU kernel that
-is not ported yet (K8): on a CUDA tensor that route raises
-``NotImplementedError`` naming it, and on a CPU tensor it takes the plain
-core path. Ported kernels' wrappers pick the kernel or its plain version
-by the tensor's device. The JAX package's DSC_FFT_* knobs are TPU
-experiment switches and are not carried over.
+The route does not depend on the device: on a CPU tensor every kernel
+wrapper runs its plain version, on a CUDA tensor it launches its kernel.
+The JAX package's DSC_FFT_* knobs are TPU experiment switches and are not
+carried over.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -41,6 +46,9 @@ BASE_KERNEL_MAX_N = 4096
 
 # largest batch*n the streaming kernels take (dsc_tpu config.py:92)
 STREAM_MAX_ELEMS = 2**27
+
+# a spectrum's T layout: (n1, n2, half) (stream_t.py)
+Layout = Tuple[int, int, bool]
 
 
 def use_base_kernel(dtype, n: int) -> bool:
@@ -75,29 +83,27 @@ def use_packed(n: int) -> bool:
     return use_stream(1, n) and packed_fused.supported(*stream.factors(n))
 
 
-def _unported(device_type: str, what: str) -> str:
-    if device_type == 'cuda':
-        raise NotImplementedError(
-            f'{what} on CUDA runs TPU kernels K6/K8 in the JAX package; K8 (phase B '
-            'into the T layout) is not ported yet (ROADMAP.md, queue 2)')
-    return 'core'
+def fft_route(dtype: Dtype, batch: int, n: int, inverse: bool, out: bool = False,
+              layout: Optional[Layout] = None) -> str:
+    """'stream_t', 'stream' or 'core' for an n-point fft/ifft over
+    ``batch`` rows; ``out``: the call has ``out=``; ``layout``: the T
+    layout (n1, n2, half) the input is stored in, None for natural order
+    (dsc_tpu fourier/__init__.py:146-188: a forward single vector lands in
+    the T layout, an ifft of a full-T spectrum reads it; any other input in
+    a T layout is read in natural order)."""
+    if dtype not in (Dtype.F32, Dtype.C32) or not use_stream(batch, n):
+        return 'core'
+    if batch == 1 and not out:
+        if inverse and layout == (*stream.factors(n), False):
+            return 'stream_t'
+        if not inverse and layout is None:
+            return 'stream_t'
+    return 'stream'
 
 
-def fft_route(device_type: str, dtype: Dtype, batch: int, n: int, inverse: bool,
-              out: bool = False) -> str:
-    """'stream' or 'core' for an n-point fft/ifft over ``batch`` rows;
-    ``out``: the call has ``out=``."""
-    if dtype in (Dtype.F32, Dtype.C32) and use_stream(batch, n):
-        if batch == 1 and not inverse and not out:
-            return _unported(device_type, f'single-vector fft n={n}')
-        return 'stream'
-    return 'core'
-
-
-def rfft_route(device_type: str, dtype: Dtype, batch: int, n: int,
-               out: bool = False) -> str:
-    """'packed', 'stream' or 'core' for an n-point rfft over ``batch``
-    rows. With ``out=`` the core's rule decides (dsc_tpu
+def rfft_route(dtype: Dtype, batch: int, n: int, out: bool = False) -> str:
+    """'packed', 'stream_t', 'stream' or 'core' for an n-point rfft over
+    ``batch`` rows. With ``out=`` the core's rule decides (dsc_tpu
     core.rfft_batched_p)."""
     if dtype != Dtype.F32 or not use_stream(batch, n):
         return 'core'
@@ -107,21 +113,24 @@ def rfft_route(device_type: str, dtype: Dtype, batch: int, n: int,
         return 'stream'
     if use_packed(n):
         return 'packed'
-    return _unported(device_type, f'single-vector rfft n={n}')
+    return 'stream_t'
 
 
-def irfft_route(device_type: str, dtype: Dtype, batch: int, n: int,
-                out: bool = False) -> str:
-    """'packed', 'stream', 'reconstruct+stream' or 'core' for an n-point
-    irfft over ``batch`` rows. A single row off the packed route is a
-    dense spectrum to the JAX package (dsc_tpu core.irfft_batched_p): K11,
-    then K6+K7. With ``out=`` the core's rule decides."""
+def irfft_route(dtype: Dtype, batch: int, n: int, out: bool = False,
+                layout: Optional[Layout] = None) -> str:
+    """'stream_t', 'packed', 'stream', 'reconstruct+stream' or 'core' for
+    an n-point irfft over ``batch`` rows. A half-T spectrum of this n takes
+    K9+K10; a single row off the packed route is a dense spectrum to the
+    JAX package (dsc_tpu core.irfft_batched_p): K11, then K6+K7. With
+    ``out=`` the core's rule decides."""
     if dtype != Dtype.C32 or not use_stream(batch, n):
         return 'core'
     if out and not core_streams(batch, n, real=True):
         return 'core'
     if batch > 1:
         return 'stream'
+    if not out and layout == (*stream.factors(n), True):
+        return 'stream_t'
     if use_packed(n) and not out:
         return 'packed'
     return 'reconstruct+stream'

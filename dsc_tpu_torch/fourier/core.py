@@ -20,7 +20,9 @@ Where the JAX core streams, this one does too: ``fft_batched``,
 wherever the caller's ``streams`` says so (the public API passes its
 route), and the irfft's Hermitian reconstruction runs K11 where the JAX
 package runs it (reconstruct.py). A transform over a non-last axis streams
-as a batch, with ``movedim`` copies around the kernels.
+as a batch, with ``movedim`` copies around the kernels. The single-vector
+entries into and out of the T layout (``fft_stream_t`` and its kin) run
+K6+K8 and K9+K10 (stream_t.py).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from . import config, reconstruct, stream
+from . import config, reconstruct, stream, stream_t
 
 
 def stockham_fft(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -212,3 +214,29 @@ def irfft_nd(x, tables, spec, n: int, axis: int, cdtype,
              streams: Optional[bool] = None) -> torch.Tensor:
     xb, lead = _rows(x.to(cdtype), axis, n // 2 + 1)
     return _unrows(irfft_batched(xb, spec, tables, n, streams), lead, axis)
+
+
+# ---- the T / half-T layout of one vector (stream_t.py) ----------------
+
+
+def fft_stream_t(x: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
+    """One float32 or complex64 vector, padded or cropped to n = n1*n2 ->
+    its spectrum in the T layout (n1, n2): K6 + K8."""
+    return stream_t.fourstep_to_t(_pad_crop(x.reshape(-1), n1 * n2), n1, n2, False)
+
+
+def ifft_stream_from_t(s: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
+    """T-layout spectrum (n1, n2) -> the natural (n,) inverse: K9 + K10."""
+    return stream_t.fourstep_from_t(s, n1, n2, False, False)
+
+
+def rfft_stream_half_t(x: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
+    """One float32 vector, padded or cropped to n = n1*n2 -> its spectrum
+    in the half-T layout (n1, n2/2 + 1): K6 (real input) + K8."""
+    return stream_t.fourstep_to_t(_pad_crop(x.reshape(-1), n1 * n2), n1, n2, True)
+
+
+def irfft_stream_from_half_t(s: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
+    """Half-T spectrum (n1, n2/2 + 1) -> the (n,) real inverse: K9 + the
+    real-output K10."""
+    return stream_t.fourstep_from_t(s, n1, n2, True, True)

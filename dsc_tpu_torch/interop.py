@@ -8,7 +8,8 @@ directly, so neither is carried over.
 ``from_half_t`` converts a spectrum in the JAX package's hermitian-half
 transposed layout (dsc_tpu/fourier/pallas_stream_t.py, planes H with
 X[k1 + n1*k2] = H[k1, k2]) into the port's natural (n/2+1,) complex64
-Tensor, so spectra computed by the reference can feed the port.
+Tensor, and ``from_t`` a T or half-T spectrum into a port Tensor that keeps
+the layout, so spectra computed by the reference can feed the port.
 """
 
 from __future__ import annotations
@@ -45,14 +46,21 @@ def get(t: torch.Tensor) -> np.ndarray:
 def from_half_t(hr: np.ndarray, hi: np.ndarray, n1: int, n2: int):
     """Half-T planes (n1 + pad, >= n2/2 + 1) of an n = n1*n2 real-input
     spectrum -> the natural (n/2+1,) C32 Tensor: X[k1 + n1*k2] = H[k1, k2]
-    (the map of dsc_tpu/planar.py Planar.to_numpy)."""
-    from .tensor import from_numpy
+    (the map of dsc_tpu/planar.py Planar.to_numpy). It is ``from_t``'s
+    half-T Tensor, turned into natural order in place."""
+    t = from_t(hr, hi, n1, n2, True)
+    t._buf.materialize()
+    return t
 
-    m = n1 * n2 // 2 + 1
-    cols = n2 // 2 + 1
-    re = np.asarray(hr, np.float32)[:n1, :cols].T.reshape(-1)[:m]
-    im = np.asarray(hi, np.float32)[:n1, :cols].T.reshape(-1)[:m]
-    out = np.empty(m, np.complex64)
-    out.real = re
-    out.imag = im
-    return from_numpy(out)
+
+def from_t(hr: np.ndarray, hi: np.ndarray, n1: int, n2: int, half: bool):
+    """T planes (n1, n2), or half-T planes (n1 + pad, >= n2/2 + 1), of an
+    n = n1*n2 spectrum -> a C32 Tensor stored in the same layout
+    (fourier/stream_t.py), without the planes' pad rows and lane padding."""
+    from .tensor import Tensor
+
+    cols = n2 // 2 + 1 if half else n2
+    s = np.empty((n1, cols), np.complex64)
+    s.real = np.asarray(hr, np.float32)[:n1, :cols]
+    s.imag = np.asarray(hi, np.float32)[:n1, :cols]
+    return Tensor._from_t(put(s), n1, n2, half)

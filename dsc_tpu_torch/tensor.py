@@ -22,6 +22,17 @@ python/dsc/tensor.py) makes observable:
 Every tensor lives on the context's device (``dsc.init(..., device=)``).
 The compute is ``ops/kernels.py``; its large float32 and complex64 ops run
 kernel K5 (``ops/stream_map.py``).
+
+A spectrum that a single-vector fft or rfft returns is stored in the T
+layout (``_Buffer.layout``, fourier/stream_t.py), as the JAX package's
+``Planar.fourstep`` is: add/sub/mul/div (and pow on the full layout) of two
+such tensors of one layout, or of one and a Python scalar, and ``conj``
+compute on the stored values and keep the layout (dsc_tpu
+planar.binary_pp/binary_ps); the half-T layout keeps only real scalars and
+add/sub/mul/div, which leave a spectrum Hermitian. Any other read goes
+through ``Tensor.torch``, which turns the buffer into natural order in
+place the first time; ``numpy()`` reads a natural copy and leaves the
+layout alone.
 """
 
 from __future__ import annotations
@@ -42,19 +53,50 @@ from .ops import kernels as K
 DSC_MAX_DIMS = 4  # reference dsc.h:72-76
 
 
+def _logical_shape(layout) -> Tuple[int, ...]:
+    n1, n2, half = layout
+    return (n1 * n2 // 2 + 1,) if half else (n1 * n2,)
+
+
 class _Buffer:
     """Refcounted-buffer equivalent (reference dsc_tensor_buffer): owns one
-    torch tensor and registers its bytes with the context's accounting."""
+    torch tensor and registers its bytes with the context's accounting.
 
-    __slots__ = ('data', 'nbytes', '__weakref__')
+    ``layout`` is None for natural order, or (n1, n2, half) for a spectrum
+    X stored as S (n1, n2), or (n1, n2/2 + 1) with ``half``, with
+    X[k1 + n1*k2] = S[k1, k2] (fourier/stream_t.py)."""
 
-    def __init__(self, data: torch.Tensor):
-        ctx = _get_ctx()
-        nbytes = data.numel() * data.element_size()
-        ctx.alloc(nbytes)
+    __slots__ = ('data', 'nbytes', 'layout', '_free', '__weakref__')
+
+    def __init__(self, data: torch.Tensor, layout=None):
         self.data = data
+        self.layout = layout
+        self._account()
+
+    def _account(self) -> None:
+        ctx = _get_ctx()
+        nbytes = self.data.numel() * self.data.element_size()
+        ctx.alloc(nbytes)
         self.nbytes = nbytes
-        weakref.finalize(self, ctx.free, nbytes)
+        self._free = weakref.finalize(self, ctx.free, nbytes)
+
+    def natural(self) -> torch.Tensor:
+        """The values in natural order: the data itself, or a natural copy
+        of a T layout's S."""
+        if self.layout is None:
+            return self.data
+        m = _logical_shape(self.layout)[0]
+        return self.data.t().reshape(-1)[:m].contiguous()
+
+    def materialize(self) -> None:
+        """Natural order in place of a T layout (the JAX package's
+        Planar.materialize, which keeps its planes beside the copy)."""
+        if self.layout is None:
+            return
+        self.data = self.natural()
+        self.layout = None
+        self._free()
+        self._account()
 
 
 class Tensor:
@@ -77,6 +119,21 @@ class Tensor:
         return t
 
     @classmethod
+    def _from_t(cls, storage: torch.Tensor, n1: int, n2: int, half: bool) -> 'Tensor':
+        """The C32 spectrum whose T-layout storage is ``storage`` (n1, n2),
+        or (n1, n2/2 + 1) with ``half``; its shape is (n,), or (n/2 + 1,)."""
+        layout = (n1, n2, half)
+        cols = n2 // 2 + 1 if half else n2
+        if storage.dtype != torch.complex64 or tuple(storage.shape) != (n1, cols):
+            raise RuntimeError(f'T layout {layout}: expected complex64 {(n1, cols)}, '
+                               f'got {storage.dtype} {tuple(storage.shape)}')
+        t = cls.__new__(cls)
+        t._buf = _Buffer(storage.contiguous(), layout)
+        t._shape = _logical_shape(layout)
+        t._dtype = Dtype.C32
+        return t
+
+    @classmethod
     def _view_of(cls, base: 'Tensor', shape: Tuple[int, ...]) -> 'Tensor':
         t = cls.__new__(cls)
         t._buf = base._buf
@@ -88,8 +145,29 @@ class Tensor:
 
     @property
     def torch(self) -> torch.Tensor:
-        """The storage, viewed in this tensor's shape (no copy)."""
+        """The storage, viewed in this tensor's shape (no copy); a buffer in
+        a T layout turns into natural order first, in place."""
+        self._buf.materialize()
         return self._buf.data.view(self._shape)
+
+    @property
+    def _layout(self):
+        """(n1, n2, half) when this tensor is a whole spectrum stored in a T
+        layout (its shape is the layout's logical one), else None: a
+        reshaped view reads natural order."""
+        layout = self._buf.layout
+        if layout is None or self._shape != _logical_shape(layout):
+            return None
+        return layout
+
+    @property
+    def _stored(self) -> torch.Tensor:
+        """The buffer's values as stored: S when ``_layout`` is set."""
+        return self._buf.data
+
+    @property
+    def device(self) -> torch.device:
+        return self._buf.data.device
 
     @property
     def dtype(self) -> Dtype:
@@ -117,7 +195,8 @@ class Tensor:
         return f'Tensor(dtype={self._dtype}, shape={self._shape})\n{self.numpy()}'
 
     def numpy(self) -> np.ndarray:
-        return interop.get(self.torch)
+        # a natural copy of a T layout; the buffer keeps its layout
+        return interop.get(self._buf.natural().view(self._shape))
 
     def __bytes__(self) -> bytes:
         return self.numpy().tobytes()
@@ -322,10 +401,51 @@ def _finish(res: torch.Tensor, out: Optional[Tensor]) -> Tensor:
     return Tensor._view_of(out, out.shape)
 
 
+# ops that keep a Hermitian spectrum Hermitian (dsc_tpu planar._herm_preserved)
+_HERMITIAN_OPS = ('add', 'sub', 'mul', 'div')
+
+
+def _binary_in_layout(xa, xb, name: str) -> Optional[Tensor]:
+    """``xa <name> xb`` on the stored values of T-layout spectra, the result
+    in the same layout (dsc_tpu planar.binary_pp/binary_ps): two operands of
+    one layout, or one and a Python scalar. None where the rule does not
+    apply and the op reads natural order."""
+    la = xa._layout if isinstance(xa, Tensor) else None
+    lb = xb._layout if isinstance(xb, Tensor) else None
+    layout = la or lb
+    if layout is None:
+        return None
+    half = layout[2]
+    if la is not None and lb is not None:
+        if la != lb or (half and name not in _HERMITIAN_OPS):
+            return None
+        a, b = xa._stored, xb._stored
+    else:
+        s = xb if la is not None else xa
+        if isinstance(s, (bool, int, float, np.floating, np.integer)):
+            s = complex(float(s), 0.0)
+        elif isinstance(s, (complex, np.complexfloating)):
+            s = complex(s)
+        else:
+            return None
+        if half and (s.imag != 0 or name not in _HERMITIAN_OPS):
+            return None
+        a, b = (xa._stored, s) if la is not None else (s, xb._stored)
+    args = tracing.tensor_args(xa=xa if isinstance(xa, Tensor) else None,
+                               xb=xb if isinstance(xb, Tensor) else None)
+    with tracing.trace_op(name, 'op;binary', args):
+        res = K.binary(name, a, b)
+    return Tensor._from_t(res, *layout)
+
+
 def _binary_op(xa, xb, out: Optional[Tensor], name: str) -> Tensor:
     if not isinstance(xa, (Tensor, np.ndarray)) and not isinstance(
             xb, (Tensor, np.ndarray)):
         raise RuntimeError(f'{name}: at least one operand must be a Tensor')
+    if out is None:
+        res = _binary_in_layout(xa, xb, name)
+        if res is not None:
+            return res
     sa, sb = _shape_of(xa), _shape_of(xb)
     if not _can_broadcast(sa, sb):
         raise RuntimeError(f'cannot broadcast {sa} and {sb}')
@@ -416,6 +536,12 @@ def conj(x: Tensor) -> Tensor:
     # a view of real input (reference dsc.cpp:1543-1560)
     if x.dtype.is_real:
         return Tensor._view_of(x, x.shape)
+    layout = x._layout
+    if layout is not None:
+        # conj keeps a spectrum's layout, and a Hermitian one Hermitian
+        with tracing.trace_op('conj', 'op;unary', tracing.tensor_args(x=x)):
+            res = K.conj(x._stored)
+        return Tensor._from_t(res, *layout)
     return _unary_op(x, None, 'conj', K.conj)
 
 

@@ -23,6 +23,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from .dtype import DTYPE_SIZE
+
 # DSC_MAX_TRACES equivalent (reference dsc.cpp:25-27, default 1000)
 MAX_TRACES = int(os.environ.get('DSC_MAX_TRACES', '1000'))
 
@@ -87,11 +89,11 @@ def tensor_args(**tensors) -> Dict[str, Any]:
     for key, t in tensors.items():
         if t is None:
             continue
-        data = t.torch
+        # from the metadata: reading t.torch would turn a T layout natural
         out[f'{key}_shape'] = list(t.shape)
         out[f'{key}_dtype'] = str(t.dtype)
-        out[f'{key}_backend'] = data.device.type
-        out[f'{key}_nbytes'] = data.numel() * data.element_size()
+        out[f'{key}_backend'] = t.device.type
+        out[f'{key}_nbytes'] = t.ne * DTYPE_SIZE[t.dtype]
     return out
 
 

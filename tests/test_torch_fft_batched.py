@@ -7,7 +7,7 @@ The JAX package runs with ``fft_config.STREAM_MODE = 'on'``, as
 tests/test_planar.py runs it, so its streaming kernels K6/K7 (and K11)
 run in interpret mode; its results are computed once per module. The port
 runs the plain versions of K6/K7/K11. Also: the routing table of
-fourier/config.py case by case for CUDA and CPU tensors, which engine each
+fourier/config.py case by case (the same on every device), which engine each
 public call reaches, and the complex128 irfft that the JAX package's K11
 refuses."""
 
@@ -175,70 +175,77 @@ def test_out_variants_write_through():
 
 
 F32, C32, C64 = Dtype.F32, Dtype.C32, Dtype.C64
-K8 = NotImplementedError
 
-# (route function, dtype, batch, n, extra arguments, route on CUDA, on CPU);
-# an exception class stands for a raise naming K8 (the CPU takes 'core')
+# (route function, dtype, batch, n, extra arguments, route); the route does
+# not depend on the device
 ROUTES = [
     # batched, last axis or not: the batch alone enters the rule
-    ('fft', C32, 6, 2**16, (False,), {}, 'stream', 'stream'),
-    ('fft', C32, 256, 2**16, (True,), {}, 'stream', 'stream'),
-    ('fft', F32, 16, 2**20, (False,), {}, 'stream', 'stream'),
-    ('rfft', F32, 64, 2**18, (), {}, 'stream', 'stream'),
-    ('rfft', F32, 6, 2**16, (), {}, 'stream', 'stream'),
-    ('irfft', C32, 16, 2**20, (), {}, 'stream', 'stream'),
-    ('irfft', C32, 6, 2**16, (), {}, 'stream', 'stream'),
+    ('fft', C32, 6, 2**16, (False,), {}, 'stream'),
+    ('fft', C32, 256, 2**16, (True,), {}, 'stream'),
+    ('fft', F32, 16, 2**20, (False,), {}, 'stream'),
+    ('rfft', F32, 64, 2**18, (), {}, 'stream'),
+    ('rfft', F32, 6, 2**16, (), {}, 'stream'),
+    ('irfft', C32, 16, 2**20, (), {}, 'stream'),
+    ('irfft', C32, 6, 2**16, (), {}, 'stream'),
     # single-vector ifft of a natural-order input
-    ('fft', C32, 1, 2**18, (True,), {}, 'stream', 'stream'),
-    ('fft', C32, 1, 2**26, (True,), {}, 'stream', 'stream'),
+    ('fft', C32, 1, 2**18, (True,), {}, 'stream'),
+    ('fft', C32, 1, 2**26, (True,), {}, 'stream'),
     # single-vector irfft of a dense spectrum where the packed engine does not apply
-    ('irfft', C32, 1, 2**18, (), {}, 'reconstruct+stream', 'reconstruct+stream'),
-    ('irfft', C32, 1, 2**19, (), {}, 'reconstruct+stream', 'reconstruct+stream'),
+    ('irfft', C32, 1, 2**18, (), {}, 'reconstruct+stream'),
+    ('irfft', C32, 1, 2**19, (), {}, 'reconstruct+stream'),
     # the packed engine, unchanged
-    ('rfft', F32, 1, 2**20, (), {}, 'packed', 'packed'),
-    ('irfft', C32, 1, 2**26, (), {}, 'packed', 'packed'),
+    ('rfft', F32, 1, 2**20, (), {}, 'packed'),
+    ('irfft', C32, 1, 2**26, (), {}, 'packed'),
     # out=: the core streams by size, a single vector too
-    ('fft', C32, 1, 2**21, (False,), {'out': True}, 'stream', 'stream'),
-    ('fft', C32, 6, 2**16, (False,), {'out': True}, 'stream', 'stream'),
-    ('rfft', F32, 1, 2**21, (), {'out': True}, 'stream', 'stream'),
-    ('rfft', F32, 6, 2**16, (), {'out': True}, 'core', 'core'),
-    ('irfft', C32, 1, 2**21, (), {'out': True}, 'reconstruct+stream', 'reconstruct+stream'),
-    ('irfft', C32, 1, 2**18, (), {'out': True}, 'reconstruct+stream', 'reconstruct+stream'),
-    ('irfft', C32, 4, 2**18, (), {'out': True}, 'stream', 'stream'),
-    ('irfft', C32, 6, 2**16, (), {'out': True}, 'core', 'core'),
+    ('fft', C32, 1, 2**21, (False,), {'out': True}, 'stream'),
+    ('fft', C32, 6, 2**16, (False,), {'out': True}, 'stream'),
+    ('rfft', F32, 1, 2**21, (), {'out': True}, 'stream'),
+    ('rfft', F32, 6, 2**16, (), {'out': True}, 'core'),
+    ('irfft', C32, 1, 2**21, (), {'out': True}, 'reconstruct+stream'),
+    ('irfft', C32, 1, 2**18, (), {'out': True}, 'reconstruct+stream'),
+    ('irfft', C32, 4, 2**18, (), {'out': True}, 'stream'),
+    ('irfft', C32, 6, 2**16, (), {'out': True}, 'core'),
     # complex128 takes the plain reconstruction and core (K11 raises in the JAX package)
-    ('irfft', C64, 1, 2**18, (), {}, 'core', 'core'),
-    ('fft', C64, 6, 2**16, (False,), {}, 'core', 'core'),
+    ('irfft', C64, 1, 2**18, (), {}, 'core'),
+    ('fft', C64, 6, 2**16, (False,), {}, 'core'),
     # the fft2 family's short axis: 256-point columns of a (256, 2^16) array
-    ('fft', C32, 2**16, 256, (False,), {}, 'core', 'core'),
-    # still to port: the T layout (K8)
-    ('fft', C32, 1, 2**18, (False,), {}, K8, 'core'),
-    ('fft', F32, 1, 2**24, (False,), {}, K8, 'core'),
-    ('rfft', F32, 1, 2**18, (), {}, K8, 'core'),
-    ('rfft', F32, 1, 2**19, (), {}, K8, 'core'),
+    ('fft', C32, 2**16, 256, (False,), {}, 'core'),
+    # a single vector into the T layout: K6+K8
+    ('fft', C32, 1, 2**18, (False,), {}, 'stream_t'),
+    ('fft', F32, 1, 2**24, (False,), {}, 'stream_t'),
+    ('rfft', F32, 1, 2**18, (), {}, 'stream_t'),
+    ('rfft', F32, 1, 2**19, (), {}, 'stream_t'),
+    # out of the T layout: K9+K10 for the ifft of a full-T spectrum and the
+    # irfft of a half-T one of this n; any other layout, or out=, reads
+    # natural order
+    ('fft', C32, 1, 2**18, (True,), {'layout': (512, 512, False)}, 'stream_t'),
+    ('irfft', C32, 1, 2**19, (), {'layout': (1024, 512, True)}, 'stream_t'),
+    ('fft', C32, 1, 2**18, (False,), {'layout': (512, 512, False)}, 'stream'),
+    ('fft', C32, 1, 2**18, (True,), {'layout': (512, 512, True)}, 'stream'),
+    ('fft', C32, 1, 2**19, (True,), {'layout': (512, 512, False)}, 'stream'),
+    ('fft', C32, 1, 2**18, (True,), {'layout': (512, 512, False), 'out': True}, 'stream'),
+    ('irfft', C32, 1, 2**18, (), {'layout': (512, 512, False)}, 'reconstruct+stream'),
+    ('irfft', C32, 1, 2**18, (), {'layout': (512, 512, True), 'out': True},
+     'reconstruct+stream'),
     # the edges of `supported`: batch 1 and 37 at 256 x 256 do not stream,
     # 6 and 32 do; B*n = 2^27 streams, 2^28 does not
-    ('fft', C32, 1, 2**16, (True,), {}, 'core', 'core'),
-    ('fft', C32, 37, 2**16, (False,), {}, 'core', 'core'),
-    ('fft', C32, 32, 2**16, (False,), {}, 'stream', 'stream'),
-    ('fft', C32, 2**9, 2**18, (False,), {}, 'stream', 'stream'),
-    ('fft', C32, 2**10, 2**18, (False,), {}, 'core', 'core'),
-    ('rfft', F32, 2**10, 2**18, (), {}, 'core', 'core'),
-    ('irfft', C32, 37, 2**16, (), {}, 'core', 'core'),
+    ('fft', C32, 1, 2**16, (True,), {}, 'core'),
+    ('fft', C32, 37, 2**16, (False,), {}, 'core'),
+    ('fft', C32, 32, 2**16, (False,), {}, 'stream'),
+    ('fft', C32, 2**9, 2**18, (False,), {}, 'stream'),
+    ('fft', C32, 2**10, 2**18, (False,), {}, 'core'),
+    ('rfft', F32, 2**10, 2**18, (), {}, 'core'),
+    ('irfft', C32, 37, 2**16, (), {}, 'core'),
 ]
 ROUTE_FNS = {'fft': config.fft_route, 'rfft': config.rfft_route, 'irfft': config.irfft_route}
 
 
 @pytest.mark.parametrize('row', ROUTES, ids=lambda r: f'{r[0]}-{r[1].name}-{r[2]}x{r[3]}'
-                         f'{"-inv" if r[4] == (True,) else ""}{"-out" if r[5] else ""}')
+                         f'{"-inv" if r[4] == (True,) else ""}{"-out" if r[5].get("out") else ""}'
+                         f'{"-T%s" % (r[5]["layout"],) if r[5].get("layout") else ""}')
 def test_route_table(row):
-    fn, dtype, batch, n, extra, kw, on_cuda, on_cpu = row
-    assert ROUTE_FNS[fn]('cpu', dtype, batch, n, *extra, **kw) == on_cpu
-    if isinstance(on_cuda, type):
-        with pytest.raises(on_cuda, match='K8'):
-            ROUTE_FNS[fn]('cuda', dtype, batch, n, *extra, **kw)
-    else:
-        assert ROUTE_FNS[fn]('cuda', dtype, batch, n, *extra, **kw) == on_cuda
+    fn, dtype, batch, n, extra, kw, route = row
+    assert ROUTE_FNS[fn](dtype, batch, n, *extra, **kw) == route
 
 
 @pytest.mark.parametrize('batch,n', [(1, 2**16), (37, 2**16), (6, 2**16), (32, 2**16),

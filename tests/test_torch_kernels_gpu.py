@@ -10,7 +10,7 @@ import pytest
 torch = pytest.importorskip('torch')
 
 import dsc_tpu_torch as dt  # noqa: E402
-from dsc_tpu_torch.fourier import base_fft, plan, reconstruct, stream  # noqa: E402
+from dsc_tpu_torch.fourier import base_fft, plan, reconstruct, stream, stream_t  # noqa: E402
 from dsc_tpu_torch.fourier import packed_fused as pf  # noqa: E402
 from dsc_tpu_torch.kernels import build  # noqa: E402
 from dsc_tpu_torch.ops import stream_map as sm  # noqa: E402
@@ -18,6 +18,7 @@ from dsc_tpu_torch.ops import stream_map as sm  # noqa: E402
 pytestmark = pytest.mark.gpu
 
 REL = 3e-5  # kernel vs plain version, relative to max |plain|
+T_REL = 1e-6  # K8, K9, K10 vs plain: the same float32 radix-2 arithmetic
 
 
 @pytest.fixture(scope='module', autouse=True)
@@ -165,11 +166,23 @@ def test_public_stream_routes_launch_one_pair_per_transform():
         assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
 
 
-def test_unported_routes_raise():
-    with pytest.raises(NotImplementedError, match='K6/K8'):
-        dt.rfft(dt.from_numpy(np.ones(2**18, np.float32)))
-    with pytest.raises(NotImplementedError, match='K8'):
-        dt.fft(dt.from_numpy(np.ones(2**18, np.complex64)))
+def test_single_vector_routes_run_k8_on_cuda():
+    """Single-vector rfft at 2^18 and fft at 2^18 return values on the card,
+    through K6 + K8."""
+    build.reset_launches()
+    spec = dt.rfft(dt.from_numpy(np.ones(2**18, np.float32)))
+    assert spec._layout == (512, 512, True)
+    ref = np.zeros(2**17 + 1, np.complex64)
+    ref[0] = 2**18
+    np.testing.assert_allclose(spec.numpy(), ref, atol=0.5)
+    c = np.exp(2j * np.pi * 5 * np.arange(2**18) / 2**18).astype(np.complex64)
+    x = dt.fft(dt.from_numpy(c))
+    assert x._layout == (512, 512, False)
+    ref = np.fft.fft(c.astype(np.complex128))
+    assert np.abs(x.numpy() - ref).max() / np.abs(ref).max() < 1e-4
+    torch.cuda.synchronize()
+    assert (build.launches['stream_phase_a'], build.launches['stream_phase_b_t'],
+            build.launches['stream_phase_b']) == (2, 2, 0)
     # an elementwise op of 2^21 elements now launches K5
     x = np.random.default_rng(2).standard_normal(2**21).astype(np.float32)
     big = dt.from_numpy(x)
@@ -183,6 +196,68 @@ def test_unported_routes_raise():
     outer = dt.from_numpy(x[:2048].reshape(2048, 1)) * dt.from_numpy(x[:2048].reshape(1, 2048))
     assert outer.shape == (2048, 2048)
     assert build.launches['stream_map'] == before   # plain PyTorch, as XLA there
+
+
+# (n1, n2): the 2^18, 2^19, 2^21, 2^24 and 2^26 splits
+T_CASES = [(512, 512), (1024, 512), (2048, 1024), (4096, 4096), (8192, 8192)]
+
+
+@pytest.mark.parametrize('half', [False, True])
+@pytest.mark.parametrize('n1,n2', T_CASES)
+def test_stream_t_kernels(n1, n2, half):
+    """K8, K9 and K10 each against its plain version on the same input, and
+    the round trip K6 + K8 + K9 + K10 back to the input."""
+    n = n1 * n2
+    t = plan.get_plan(n, 'stream', torch.complex64)[1]
+    x = _stream_input(n, 1, half, n1 + n2)
+    z = stream.phase_a(x, t, False)
+    before = dict(build.launches)
+    s = stream_t.phase_b_t(z, t, half)
+    assert _rel(s, stream_t.phase_b_t_plain(z, t, half)) < T_REL
+    y = stream_t.inv_phase_a_t(s, t, half)
+    assert _rel(y, stream_t.inv_phase_a_t_plain(s, t, half)) < T_REL
+    for real_output in (False, True):
+        back = stream_t.inv_phase_b_t(y, t, real_output)
+        assert _rel(back, stream_t.inv_phase_b_t_plain(y, t, real_output)) < T_REL
+    torch.cuda.synchronize()
+    assert [build.launches[k] - before[k] for k in
+            ('stream_phase_b_t', 'stream_inv_phase_a_t', 'stream_inv_phase_b_t')] == [1, 1, 2]
+    want = x.reshape(-1) if half else x.reshape(-1).real
+    assert float((back - want).abs().max() / want.abs().max()) < 1e-5
+    del x, z, s, y, back
+    plan.clear_plans()
+
+
+def test_public_single_vector_routes_launch_k8_k9_k10():
+    rng = np.random.default_rng(6)
+    for e in (18, 21):
+        c = (rng.standard_normal(2**e) + 1j * rng.standard_normal(2**e)).astype(np.complex64)
+        build.reset_launches()
+        spec = dt.fft(dt.from_numpy(c))
+        torch.cuda.synchronize()
+        assert (build.launches['stream_phase_a'], build.launches['stream_phase_b_t'],
+                build.launches['stream_phase_b']) == (1, 1, 0)
+        ref = np.fft.fft(c.astype(np.complex128))
+        assert np.abs(spec.numpy() - ref).max() / np.abs(ref).max() < 1e-4
+        build.reset_launches()
+        back = dt.ifft(spec).numpy()
+        torch.cuda.synchronize()
+        assert (build.launches['stream_inv_phase_a_t'], build.launches['stream_inv_phase_b_t'],
+                build.launches['stream_phase_a']) == (1, 1, 0)
+        assert np.abs(back - c).max() / np.abs(c).max() < 1e-5
+    for e in (18, 19):
+        r = rng.standard_normal(2**e).astype(np.float32)
+        spec = dt.rfft(dt.from_numpy(r))
+        assert spec._layout == (*stream.factors(2**e), True)
+        ref = np.fft.rfft(r.astype(np.float64))
+        assert np.abs(spec.numpy() - ref).max() / np.abs(ref).max() < 1e-4
+        build.reset_launches()
+        back = dt.irfft(spec)
+        torch.cuda.synchronize()
+        assert (build.launches['stream_inv_phase_a_t'], build.launches['stream_inv_phase_b_t'],
+                build.launches['reconstruct']) == (1, 1, 0)
+        assert back.shape == r.shape and back.dtype == dt.Dtype.F32
+        assert np.abs(back.numpy() - r).max() / np.abs(r).max() < 1e-5
 
 
 def _k5_operands(body, ne, seed):

@@ -1,7 +1,8 @@
 """The filterFFT slice of dsc_tpu_torch end to end on CPU tensors: the README
 quick start at reduced length through the public API (the packed route's
 plain versions at n = 2^20), fft_convolve, the profiler, the routing
-decisions for CUDA tensors, and the import boundary (no jax)."""
+decisions (the same for CUDA and CPU tensors), and the import boundary (no
+jax)."""
 
 import json
 import os
@@ -50,7 +51,7 @@ def _quick_start(lib, sig, taps):
 
 def test_quick_start_matches_reference_and_numpy(inputs):
     sig, taps = inputs
-    assert config.rfft_route('cpu', Dtype.F32, 1, FFT_N) == 'packed'
+    assert config.rfft_route(Dtype.F32, 1, FFT_N) == 'packed'
     spec, y = _quick_start(dt, sig, taps)
     jspec, jy = _quick_start(dsc_tpu, sig, taps)
     assert spec.shape == jspec.shape == (FFT_N // 2 + 1,)
@@ -98,8 +99,8 @@ def test_profile_writes_trace(inputs, tmp_path):
 
 @pytest.mark.parametrize('e', range(20, 27))
 def test_route_packed_on_cuda(e):
-    assert config.rfft_route('cuda', Dtype.F32, 1, 2**e) == 'packed'
-    assert config.irfft_route('cuda', Dtype.C32, 1, 2**e) == 'packed'
+    assert config.rfft_route(Dtype.F32, 1, 2**e) == 'packed'
+    assert config.irfft_route(Dtype.C32, 1, 2**e) == 'packed'
 
 
 def test_route_base_kernel_sizes():
@@ -108,26 +109,36 @@ def test_route_base_kernel_sizes():
         assert config.use_base_kernel(np.complex64, n) == (256 <= n <= 4096)
         assert not config.use_base_kernel(np.complex128, n)
     # rfft n = 4096 packs to a 2048-point base case; n = 2^17 splits 512 x 256
-    assert config.rfft_route('cuda', Dtype.F32, 1, 4096) == 'core'
+    assert config.rfft_route(Dtype.F32, 1, 4096) == 'core'
     assert dt.fourier.plan.build_spec(2**17)[:3] == ('split', 512, 256)
 
 
 @pytest.mark.parametrize('e', [18, 19])
 def test_route_unported_single_vector_sizes_raise_on_cuda(e):
-    with pytest.raises(NotImplementedError, match='K6/K8'):
-        config.rfft_route('cuda', Dtype.F32, 1, 2**e)
-    # a dense spectrum's inverse: K11 + K6/K7, as in the JAX package
-    assert config.irfft_route('cuda', Dtype.C32, 1, 2**e) == 'reconstruct+stream'
-    assert config.rfft_route('cpu', Dtype.F32, 1, 2**e) == 'core'
+    """The single rfft off the packed range lands in the half-T layout
+    (K6 + K8), on any device; its inverse reads it (K9 + K10), and a dense
+    spectrum's takes K11 + K6/K7, as in the JAX package. (The name is kept
+    from when these routes raised on CUDA; none raises now.)"""
+    assert config.rfft_route(Dtype.F32, 1, 2**e) == 'stream_t'
+    half = (*dt.fourier.stream.factors(2**e), True)
+    assert config.irfft_route(Dtype.C32, 1, 2**e, layout=half) == 'stream_t'
+    assert config.irfft_route(Dtype.C32, 1, 2**e) == 'reconstruct+stream'
+    x = np.random.default_rng(e).standard_normal(2**e).astype(np.float32)
+    spec = dt.rfft(dt.from_numpy(x))
+    assert spec._layout == half and spec.shape == (2**(e - 1) + 1,)
+    assert _rel(dt.irfft(spec).numpy(), x) < 1e-5
 
 
 def test_route_other_unported_kernels_raise_on_cuda():
-    assert config.rfft_route('cuda', Dtype.F32, 8, 2**20) == 'stream'
-    with pytest.raises(NotImplementedError, match='K6/K8'):
-        config.fft_route('cuda', Dtype.C32, 1, 2**21, inverse=False)
-    assert config.fft_route('cuda', Dtype.C32, 1, 2**21, inverse=True) == 'stream'
+    """Every other route names its engine on any device. (The name is kept
+    from when these routes raised on CUDA; none raises now.)"""
+    assert config.rfft_route(Dtype.F32, 8, 2**20) == 'stream'
+    assert config.fft_route(Dtype.C32, 1, 2**21, inverse=False) == 'stream_t'
+    assert config.fft_route(Dtype.C32, 1, 2**21, inverse=True) == 'stream'
+    assert config.fft_route(Dtype.C32, 1, 2**21, inverse=True,
+                            layout=(2048, 1024, False)) == 'stream_t'
     # complex128: the plain reconstruction (K11 is complex64 only) and core
-    assert config.irfft_route('cuda', Dtype.C64, 1, 2**18) == 'core'
+    assert config.irfft_route(Dtype.C64, 1, 2**18) == 'core'
     # elementwise routes are device-independent: K5 where the JAX package
     # streams, plain PyTorch (never a raise) where it runs XLA
     f32 = torch.empty(2**21)
@@ -137,8 +148,8 @@ def test_route_other_unported_kernels_raise_on_cuda():
     assert not ops_kernels.streams('mul', c64, c64)
     assert ops_kernels.streams('mul', torch.empty(2**23 + 1, dtype=torch.complex64), 2.0)
     assert not stream_map.eligible([(2048, 1), (1, 2048)], [torch.float32] * 2)
-    assert config.fft_route('cuda', Dtype.C64, 1, 2**21, inverse=False) == 'core'
-    assert config.irfft_route('cuda', Dtype.C32, 1, 2**16) == 'core'
+    assert config.fft_route(Dtype.C64, 1, 2**21, inverse=False) == 'core'
+    assert config.irfft_route(Dtype.C32, 1, 2**16) == 'core'
 
 
 def test_import_loads_no_jax():
