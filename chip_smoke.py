@@ -18,9 +18,9 @@ Phases, each raising on failure (exit code 0 means all passed):
    and two bounds, a ragged count, the complex bodies at 2^23 + 1; the
    streaming four-step K6, K7 in every variant at the batched suite's
    shapes and a single 2^24 vector; the Hermitian reconstruction K11 at
-   2^18, 2^19 and 2^24, exactly; K8, K9 and K10 at 2^19 in the half-T
-   layout and at 2^24 in both, within 1e-6), and the rfft against np.fft
-   in float64;
+   2^18, 2^19 and 2^24, exactly; K6 once more and K8, K9 and K10 (within
+   1e-6) at every single-vector shape of phase 4d: 2^18, 2^19, 2^21, 2^24
+   and 2^26, T and half-T layouts), and the rfft against np.fft in float64;
 4. the public API at full size, as four paths, each with every launch count
    set to 0 just before it and read just after:
    a. the README quick start (2^20 samples, 255 taps, n = 2^21) and the
@@ -61,14 +61,23 @@ line. Without a CUDA device the script exits non-zero before any of them.
 
     python3 chip_smoke.py --profile
 
-runs phases 1-2 and then, in place of the checks, measures where the
-filterFFT step's time goes: the step at n = 2^21 on CUDA events and on the
+runs phases 1-2 and then, in place of the checks, times the column pass of
+K6, K7, K8 and K10 with blocks of 4096, 8192 and 16384 points side by side
+and measures where the filterFFT step's time goes: the step at n = 2^21 on
+CUDA events and on the
 host clock over five repeats in one process, K1 timed one launch at a time
 and 200 launches back to back, and torch.profiler's device time per kernel
 and the device's busy share of the step at n = 2^21 and at n = 2^24; and
 the same breakdown for rows of the batched FFT suite (fft, rfft and irfft
 of 16 x 2^20, rfft over axis 0 of (2^18, 64), fft2 of (256, 2^16)) and of
 the single-vector ifft(fft(x)) at 2^24 and irfft(rfft(x)) at 2^19.
+
+    python3 chip_smoke.py --wrappers
+
+runs phases 1-2 and then times the wrappers of K6, K8, K9 and K10 at 2^19
+(their host time) with the irfft(rfft(x)) call there, and K6, K7, K8 and
+K10 at 2^24 in turns with torch.fft.fft and ifft. It calls only the
+wrappers, so it also runs from an earlier tree of the port.
 """
 
 from __future__ import annotations
@@ -311,6 +320,103 @@ def profile_step(dsc, card: str) -> None:
             print('  torch.profiler recorded no device time: busy share not measured')
 
 
+COLUMN_CANDIDATES = (4096, 8192, 16384)   # C*L points a block of the column pass
+
+
+def column_candidates(card: str) -> None:
+    """--profile: the column pass of K6, K7, K8 and K10 with blocks of each
+    size of COLUMN_CANDIDATES (C = points / L columns), back to back in turns (a, b, c, c, b, a) at the batched suite's shapes
+    and the single 2^24 vector's, complex64 and (K7, K10) float32 output;
+    the table the wrappers take C from is stream.COLUMNS."""
+    from dsc_tpu_torch.fourier import plan, stream, stream_t
+    from dsc_tpu_torch.fourier.stream import factors
+
+    gen = np.random.default_rng(5)
+
+    def cnormal(shape):
+        z = gen.standard_normal(shape) + 1j * gen.standard_normal(shape)
+        return torch.from_numpy(z.astype(np.complex64)).cuda()
+
+    cases = []  # (what, L, a launch with c columns a block)
+    for batch, n in SUITE + ((1, BIG_N),):
+        n1, n2 = factors(n)
+        t = plan.get_plan(n, 'stream', torch.complex64)[1]
+        x = cnormal((batch, n))
+        z = stream.phase_a(x, t, False)
+        shape = f'{batch} x 2^{n.bit_length() - 1}'
+        cases += [(f'K6 {shape}', n1,
+                   lambda c, x=x, t=t: stream._launch_phase_a(x, t, False, c)),
+                  (f'K7 {shape}', n2,
+                   lambda c, z=z, t=t: stream._launch_phase_b(z, t, False, False, c)),
+                  (f'K7 {shape} inverse real output', n2,
+                   lambda c, z=z, t=t: stream._launch_phase_b(z, t, True, True, c))]
+        if batch == 1:
+            y = cnormal((n1, n2))
+            cases += [(f'K8 {shape} T', n2,
+                       lambda c, z=z, t=t: stream_t._launch_phase_b_t(z, t, False, c)),
+                      (f'K10 {shape} T', n1,
+                       lambda c, y=y, t=t: stream_t._launch_inv_phase_b_t(y, t, False, c)),
+                      (f'K10 {shape} real output', n1,
+                       lambda c, y=y, t=t: stream_t._launch_inv_phase_b_t(y, t, True, c))]
+    print(f'column pass, block size candidates, ms per launch, 50 launches back to back, '
+          f'in turns [{card}]:')
+    for what, L, launch in cases:
+        cols = [max(1, p // L) for p in COLUMN_CANDIDATES]
+        times = {c: [] for c in cols}
+        for c in cols + cols[::-1]:
+            times[c].append(back_to_back_ms(lambda c=c: launch(c), 50))
+        print(f'  {what} (L={L}): ' + '; '.join(
+            f'{p} points (C={c}): {float(np.mean(times[c])):.4f} ms'
+            for p, c in zip(COLUMN_CANDIDATES, cols)))
+
+
+def wrapper_times(dsc, card: str) -> None:
+    """--wrappers: at 2^19, where a launch takes less device time than its
+    wrapper's Python, K6, K8, K9 and K10 back to back (the wrappers' host
+    time) and the irfft(rfft(x)) call on the host clock; at 2^24, K6, K7,
+    K8 and K10 in turns (a ... f f ... a) with torch.fft.fft and ifft of
+    the same vector. It calls only the wrappers, whose arguments have not
+    changed since they were ported, so an earlier tree of the port runs it
+    too."""
+    from dsc_tpu_torch.fourier import plan, stream, stream_t
+
+    gen = np.random.default_rng(7)
+    n = 2**19
+    t = plan.get_plan(n, 'stream', torch.complex64)[1]
+    x = torch.from_numpy(gen.standard_normal((1, n)).astype(np.float32)).cuda()
+    z = stream.phase_a(x, t, False)
+    s = stream_t.phase_b_t(z, t, True)
+    y = stream_t.inv_phase_a_t(s, t, True)
+    print(f'wrappers at 2^19, ms per call, 200 calls back to back [{card}]:')
+    for what, fn in (('K6 real input', lambda: stream.phase_a(x, t, False)),
+                     ('K8 half-T', lambda: stream_t.phase_b_t(z, t, True)),
+                     ('K9 half-T', lambda: stream_t.inv_phase_a_t(s, t, True)),
+                     ('K10 real output', lambda: stream_t.inv_phase_b_t(y, t, True))):
+        print(f'  {what}: {back_to_back_ms(fn):.4f} ms')
+    w = dsc.from_numpy(x.cpu().numpy().reshape(-1))
+    print(f'  irfft(rfft(x)) 2^19, host clock + synchronize, median of {RUNS}: '
+          f'{host_ms(lambda: dsc.irfft(dsc.rfft(w))):.4f} ms')
+    n = BIG_N
+    t = plan.get_plan(n, 'stream', torch.complex64)[1]
+    n1, n2 = stream.factors(n)
+    v = torch.from_numpy((gen.standard_normal((1, n)) + 1j * gen.standard_normal((1, n)))
+                         .astype(np.complex64)).cuda()
+    z = stream.phase_a(v, t, False)
+    y = v.reshape(n1, n2)
+    rows = (('K6', lambda: stream.phase_a(v, t, False)),
+            ('K7', lambda: stream.phase_b(z, t, False)),
+            ('K8 T', lambda: stream_t.phase_b_t(z, t, False)),
+            ('K10 T', lambda: stream_t.inv_phase_b_t(y, t, False)),
+            ('torch.fft.fft', lambda: torch.fft.fft(v)),
+            ('torch.fft.ifft', lambda: torch.fft.ifft(v)))
+    times = {what: [] for what, _ in rows}
+    for what, fn in rows + rows[::-1]:
+        times[what].append(back_to_back_ms(fn, 50))
+    print(f'one 2^24 vector, ms per call, 50 calls back to back, in turns [{card}]:')
+    for what, ms in times.items():
+        print(f'  {what}: {ms[0]:.4f} / {ms[1]:.4f} ms')
+
+
 def fft_ops(n: int, points: int) -> float:
     """Flops of complex FFTs of ``points`` points over ``n`` values in all
     (5 N log2 N each)."""
@@ -321,6 +427,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--profile', action='store_true',
                         help='measure where the filterFFT step time goes '
+                             'in place of the checks')
+    parser.add_argument('--wrappers', action='store_true',
+                        help='time the column-pass wrappers at 2^19 and 2^24 '
                              'in place of the checks')
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -354,7 +463,11 @@ def main() -> int:
     dsc.init(2**34, device='cuda')
     ceiling = copy_ceiling(card)
     if args.profile:
+        column_candidates(card)
         profile_step(dsc, card)
+        return 0
+    if args.wrappers:
+        wrapper_times(dsc, card)
         return 0
     dev = torch.device('cuda')
     gen = np.random.default_rng(0)
@@ -466,9 +579,11 @@ def main() -> int:
         errs['reconstruct'] = max(errs['reconstruct'], float((got - ref).abs().max()))
         print(f'  {"reconstruct":14s} n=2^{e}: equal to the plain version')
     del spec, got, ref
-    # every shape phase 4d gives K8-K10: 2^18 and 2^21 (fft -> ifft, the
-    # czt of 10^6 points), 2^19 (rfft -> irfft) and 2^24, and 2^26, where
-    # K8/K10's column pass takes C = 2 and K9 its largest row block
+    # every shape phase 4d gives K6 and K8-K10: 2^18 and 2^21 (fft -> ifft,
+    # the czt of 10^6 points), 2^19 (rfft -> irfft) and 2^24, and 2^26.
+    # There the column pass takes C = 1 (K6 and K10 at 2^18 and 2^19: a
+    # grid of 512 blocks from one vector), C = 2 (K6 and K10 at 2^21,
+    # every pass at 2^26) and C = 4 (at 2^24), blocks the suite never uses
     for e, layouts in ((18, (False, True)), (19, (True,)), (21, (False,)),
                        (24, (False, True)), (26, (False,))):
         n = 2**e
@@ -477,6 +592,8 @@ def main() -> int:
             what = f'n=2^{e} {"half-T" if half else "T"}'
             x = normal((1, n)) if half else cnormal((1, n))
             z = stream.phase_a(x, t, False)
+            compare('stream_phase_a', z, stream.phase_a_plain(x, t, False),
+                    f'{what} {"real" if half else "complex"} forward')
             s = stream_t.phase_b_t(z, t, half)
             compare('stream_phase_b_t', s, stream_t.phase_b_t_plain(z, t, half), what, T_BOUND)
             y = stream_t.inv_phase_a_t(s, t, half)
@@ -948,10 +1065,12 @@ def main() -> int:
 
     # the main path's shape of each kernel: the filterFFT at n = 2^21 for the
     # packed passes, the n = 4096 pair's 2048 x 1 for K12, bench's fma for K5,
-    # the suite's 256 x 2^16 for K6/K7, the 2^19 irfft for K11, the 2^24
-    # single fft -> ifft for K8, K9, K10
+    # the suite's 16 x 2^20 for K6/K7 (where they lose most to torch.fft),
+    # the 2^19 irfft for K11, the 2^24 single fft -> ifft for K8, K9, K10
     main_case = {name: rows_[0] for name, rows_ in cases.items()}
     main_case['stream_map'] = next(r for r in cases['stream_map'] if r['what'].startswith('add 2^26'))
+    for name in ('stream_phase_a', 'stream_phase_b'):
+        main_case[name] = next(r for r in cases[name] if r['what'].startswith('16 x 2^20 '))
     record = {'kernels': [
         {'name': name, 'route': 'cuda', 'source': src, 'replaces': rep,
          'launches': launches[name], 'max_abs_err': errs[name],

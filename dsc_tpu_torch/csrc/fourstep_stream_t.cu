@@ -46,10 +46,12 @@ using namespace dsc;
 
 namespace {
 
+constexpr int kRowThreads = 512;  // K9: threads a block at most
+
 // Block u < n1/2 owns rows u and n1 - u (block 0: rows 0 and n1/2); slot 0
 // holds the first row, slot 1 the second, each at smem + slot * (n2 + 1).
 template <bool HALF>
-__global__ void __launch_bounds__(kColumnThreads)
+__global__ void __launch_bounds__(kRowThreads)
 inv_phase_a_t_kernel(const float2* __restrict__ s, float2* __restrict__ y, int log2n1,
                      int log2n2, const float2* __restrict__ w, const float2* __restrict__ tw_lo,
                      const float2* __restrict__ tw_hi, int tw_bits) {
@@ -92,7 +94,7 @@ template <bool HALF>
 int launch_inv_phase_a_t(const void* s, void* y, int n1, int n2, const void* w,
                          const void* tw_lo, const void* tw_hi, int tw_bits, void* stream) {
   int threads = n2;  // two rows of n2/2 butterflies a stage
-  if (threads > kColumnThreads) threads = kColumnThreads;
+  if (threads > kRowThreads) threads = kRowThreads;
   const size_t smem = (size_t)2 * (n2 + 1) * sizeof(float2);
   const void* kernel = (const void*)inv_phase_a_t_kernel<HALF>;
   int err = set_smem(kernel, smem);
@@ -108,13 +110,14 @@ int launch_inv_phase_a_t(const void* s, void* y, int n1, int n2, const void* w,
 extern "C" {
 
 // K8: z (n2, n1) complex64 from K6 -> s (n1, n2), or (n1, n2/2 + 1) with
-// half; w_n2: n2/2 stage twiddles W_n2^p. Forward, unscaled.
+// half; w_n2: n2/2 stage twiddles W_n2^p; columns: C, the columns a
+// block. Forward, unscaled.
 int dsc_stream_phase_b_t(const void* z, void* s, int n1, int n2, int half, const void* w_n2,
-                         void* stream) {
+                         int columns, void* stream) {
   return half ? launch_columns<false, false, kStoreRowsHalf, false>(
-                    z, s, 1, n2, n1, w_n2, nullptr, nullptr, 0, 1.f, stream)
+                    z, s, 1, n2, n1, columns, w_n2, nullptr, nullptr, 0, 1.f, stream)
               : launch_columns<false, false, kStoreRows, false>(
-                    z, s, 1, n2, n1, w_n2, nullptr, nullptr, 0, 1.f, stream);
+                    z, s, 1, n2, n1, columns, w_n2, nullptr, nullptr, 0, 1.f, stream);
 }
 
 // K9: s (n1, n2), or (n1, n2/2 + 1) with half -> y (n1, n2) complex64;
@@ -126,13 +129,14 @@ int dsc_stream_inv_phase_a_t(const void* s, void* y, int n1, int n2, int half, c
 }
 
 // K10: y (n1, n2) complex64 -> out (n1*n2,), complex64 or the float32 real
-// part (real_output), times scale; w_n1: n1/2 stage twiddles W_n1^p.
+// part (real_output), times scale; w_n1: n1/2 stage twiddles W_n1^p;
+// columns: C, the columns a block.
 int dsc_stream_inv_phase_b_t(const void* y, void* out, int n1, int n2, int real_output,
-                             const void* w_n1, float scale, void* stream) {
+                             const void* w_n1, float scale, int columns, void* stream) {
   return real_output ? launch_columns<true, false, kStoreInPlace, true>(
-                           y, out, 1, n1, n2, w_n1, nullptr, nullptr, 0, scale, stream)
+                           y, out, 1, n1, n2, columns, w_n1, nullptr, nullptr, 0, scale, stream)
                      : launch_columns<true, false, kStoreInPlace, false>(
-                           y, out, 1, n1, n2, w_n1, nullptr, nullptr, 0, scale, stream);
+                           y, out, 1, n1, n2, columns, w_n1, nullptr, nullptr, 0, scale, stream);
 }
 
 }  // extern "C"

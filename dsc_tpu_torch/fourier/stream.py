@@ -21,7 +21,10 @@ The tables come from the 'stream' plan (plan.StreamTables).
 Here also live the size rules that decide, as on the TPU, which transforms
 take the two kernels (config.py): the split ``factors`` and ``supported``
 with the batch grouping ``_group``. The grouping only sizes the TPU's
-copies; the kernels need none, but the rule stays the JAX package's.
+copies; the kernels need none, but the rule stays the JAX package's. And
+here lives ``block_columns``, the choice of the block size C of the column
+pass that K6, K7, K8 and K10 share (csrc/stream_columns.cuh); the launcher
+derives the rest of the geometry from C.
 
 Each kernel has a plain PyTorch version (``*_plain``) with the same inputs
 and outputs; the wrappers launch the kernel for CUDA tensors and run the
@@ -30,6 +33,7 @@ plain version for CPU tensors.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -68,6 +72,35 @@ def supported(n1: int, n2: int, dtype, batch: int = 1) -> bool:
         if _group(batch, f) * f < FACTOR_MIN:
             return False
     return n1 % LANES == 0 and n2 % LANES == 0
+
+
+# The column pass (csrc/stream_columns.cuh) takes C consecutive columns a
+# block; the launcher derives the rest (C*L/16 threads, at most 1024, and
+# the shared-memory exchange) from C. COLUMNS[out_bytes][L] is the C of the
+# fastest block size that chip_smoke.py --profile timed for each column
+# length L and output value size (8 bytes: complex64, 4: the float32 real
+# part; PERF.md): C*L = 4096 points up to L = 512, 8192 at 1024 and 2048,
+# and C >= 32 / out_bytes wherever a block can hold that many columns,
+# since a column store of runs under a 32-byte sector took K7 and K10 over
+# twice as long.
+COLUMNS = {
+    8: {256: 16, 512: 8, 1024: 8, 2048: 4, 4096: 4, 8192: 2},
+    4: {256: 16, 512: 8, 1024: 8, 2048: 8, 4096: 4, 8192: 2},
+}
+MIN_BLOCKS = 512      # C halves until the grid has this many blocks
+
+
+@functools.lru_cache(maxsize=None)
+def block_columns(L: int, M: int, batch: int, out_bytes: int = 8) -> int:
+    """C, the columns a block of the column pass over ``batch`` (L, M)
+    matrices whose output values take ``out_bytes``: COLUMNS, halved until
+    the grid has MIN_BLOCKS blocks (or C is 1)."""
+    if L not in COLUMNS[out_bytes] or M < 1 or M & (M - 1):
+        raise ValueError(f'column pass: L = {L}, M = {M} not supported')
+    c = min(COLUMNS[out_bytes][L], M)
+    while c > 1 and batch * (M // c) < MIN_BLOCKS:
+        c //= 2
+    return c
 
 
 def _sizes(t: plan.StreamTables):
@@ -124,6 +157,13 @@ def phase_a(x: torch.Tensor, t: plan.StreamTables, inverse: bool) -> torch.Tenso
     """K6 on a CUDA tensor, its plain version on a CPU tensor."""
     if x.device.type == 'cpu':
         return phase_a_plain(x, t, inverse)
+    n1, n2, _ = _sizes(t)
+    return _launch_phase_a(x, t, inverse, block_columns(n1, n2, x.shape[0]))
+
+
+def _launch_phase_a(x: torch.Tensor, t: plan.StreamTables, inverse: bool,
+                    columns: int) -> torch.Tensor:
+    """K6 with ``columns`` columns a block."""
     n1, n2, n = _sizes(t)
     b = x.shape[0]
     if x.dtype not in (torch.float32, torch.complex64):
@@ -134,7 +174,8 @@ def phase_a(x: torch.Tensor, t: plan.StreamTables, inverse: bool) -> torch.Tenso
     if b:  # a grid of no blocks is refused at launch
         build.launch('stream_phase_a', x.data_ptr(), z.data_ptr(), b, n1, n2,
                      int(x.dtype == torch.float32), int(inverse), t.w_n1.data_ptr(),
-                     t.twiddle.lo.data_ptr(), t.twiddle.hi.data_ptr(), t.twiddle.bits)
+                     t.twiddle.lo.data_ptr(), t.twiddle.hi.data_ptr(), t.twiddle.bits,
+                     columns)
     return z
 
 
@@ -143,6 +184,14 @@ def phase_b(z: torch.Tensor, t: plan.StreamTables, inverse: bool,
     """K7 on a CUDA tensor, its plain version on a CPU tensor."""
     if z.device.type == 'cpu':
         return phase_b_plain(z, t, inverse, real_output)
+    n1, n2, _ = _sizes(t)
+    return _launch_phase_b(z, t, inverse, real_output,
+                           block_columns(n2, n1, z.shape[0] // n2, 4 if real_output else 8))
+
+
+def _launch_phase_b(z: torch.Tensor, t: plan.StreamTables, inverse: bool, real_output: bool,
+                    columns: int) -> torch.Tensor:
+    """K7 with ``columns`` columns a block."""
     n1, n2, n = _sizes(t)
     b = z.shape[0] // n2
     build.check(z, torch.complex64, (b * n2, n1), 'z')
@@ -152,7 +201,7 @@ def phase_b(z: torch.Tensor, t: plan.StreamTables, inverse: bool,
     if b:
         build.launch('stream_phase_b', z.data_ptr(), out.data_ptr(), b, n1, n2,
                      int(inverse), int(real_output), t.w_n2.data_ptr(),
-                     (1.0 / n) if inverse else 1.0)
+                     (1.0 / n) if inverse else 1.0, columns)
     return out
 
 

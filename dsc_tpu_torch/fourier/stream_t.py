@@ -88,11 +88,18 @@ def phase_b_t(z: torch.Tensor, t: plan.StreamTables, half: bool) -> torch.Tensor
     if z.device.type == 'cpu':
         return phase_b_t_plain(z, t, half)
     n1, n2, _ = stream._sizes(t)
+    return _launch_phase_b_t(z, t, half, stream.block_columns(n2, n1, 1))
+
+
+def _launch_phase_b_t(z: torch.Tensor, t: plan.StreamTables, half: bool,
+                      columns: int) -> torch.Tensor:
+    """K8 with ``columns`` columns a block."""
+    n1, n2, _ = stream._sizes(t)
     build.check(z, torch.complex64, (n2, n1), 'z')
     stream._check_tables(t)
     s = torch.empty((n1, width(n2, half)), dtype=torch.complex64, device=z.device)
     build.launch('stream_phase_b_t', z.data_ptr(), s.data_ptr(), n1, n2, int(half),
-                 t.w_n2.data_ptr())
+                 t.w_n2.data_ptr(), columns)
     return s
 
 
@@ -114,13 +121,21 @@ def inv_phase_b_t(y: torch.Tensor, t: plan.StreamTables, real_output: bool) -> t
     """K10 on a CUDA tensor, its plain version on a CPU tensor."""
     if y.device.type == 'cpu':
         return inv_phase_b_t_plain(y, t, real_output)
+    n1, n2, _ = stream._sizes(t)
+    return _launch_inv_phase_b_t(y, t, real_output,
+                                 stream.block_columns(n1, n2, 1, 4 if real_output else 8))
+
+
+def _launch_inv_phase_b_t(y: torch.Tensor, t: plan.StreamTables, real_output: bool,
+                          columns: int) -> torch.Tensor:
+    """K10 with ``columns`` columns a block."""
     n1, n2, n = stream._sizes(t)
     build.check(y, torch.complex64, (n1, n2), 'y')
     stream._check_tables(t)
     out = torch.empty(n, dtype=torch.float32 if real_output else torch.complex64,
                       device=y.device)
     build.launch('stream_inv_phase_b_t', y.data_ptr(), out.data_ptr(), n1, n2,
-                 int(real_output), t.w_n1.data_ptr(), 1.0 / n)
+                 int(real_output), t.w_n1.data_ptr(), 1.0 / n, columns)
     return out
 
 

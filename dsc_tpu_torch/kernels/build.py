@@ -32,7 +32,7 @@ BUILD_DIR = PACKAGE_DIR.parent / 'build' / 'kernels'
 LIB_PATH = BUILD_DIR / 'libdsc_tpu_torch_kernels.so'
 SOURCES = ('base_fft.cu', 'packed_rfft.cu', 'stream_map.cu', 'fourstep_stream.cu',
            'fourstep_stream_t.cu', 'reconstruct.cu')
-HEADERS = ('fft_core.cuh', 'stream_columns.cuh')
+HEADERS = ('fft_core.cuh', 'fft_radix.cuh', 'stream_columns.cuh')
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 COMPILE_FLAGS = (*ARCH_FLAGS, '-std=c++17', '-O3', '-Xcompiler', '-fPIC')
 
@@ -51,16 +51,18 @@ KERNELS = {
     'irfft_phase_b': ('dsc_irfft_phase_b', (_P, _P, _I, _I, _P, _F)),
     # op code; (pointer, re, im, kind, brow length) for three operands; out, n
     'stream_map': ('dsc_stream_map', (_I, *(_P, _F, _F, _I, _I) * 3, _P, _L)),
-    # x, z, batch, n1, n2, real input, inverse, w_n1, twiddle lo, hi, bits
-    'stream_phase_a': ('dsc_stream_phase_a', (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I)),
-    # z, out, batch, n1, n2, inverse, real output, w_n2, scale
-    'stream_phase_b': ('dsc_stream_phase_b', (_P, _P, _I, _I, _I, _I, _I, _P, _F)),
-    # z, s, n1, n2, half, w_n2
-    'stream_phase_b_t': ('dsc_stream_phase_b_t', (_P, _P, _I, _I, _I, _P)),
+    # x, z, batch, n1, n2, real input, inverse, w_n1, twiddle lo, hi, bits,
+    # columns a block
+    'stream_phase_a': ('dsc_stream_phase_a',
+                       (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I)),
+    # z, out, batch, n1, n2, inverse, real output, w_n2, scale, columns a block
+    'stream_phase_b': ('dsc_stream_phase_b', (_P, _P, _I, _I, _I, _I, _I, _P, _F, _I)),
+    # z, s, n1, n2, half, w_n2, columns a block
+    'stream_phase_b_t': ('dsc_stream_phase_b_t', (_P, _P, _I, _I, _I, _P, _I)),
     # s, y, n1, n2, half, w_n2, twiddle lo, hi, bits
     'stream_inv_phase_a_t': ('dsc_stream_inv_phase_a_t', (_P, _P, _I, _I, _I, _P, _P, _P, _I)),
-    # y, out, n1, n2, real output, w_n1, scale
-    'stream_inv_phase_b_t': ('dsc_stream_inv_phase_b_t', (_P, _P, _I, _I, _I, _P, _F)),
+    # y, out, n1, n2, real output, w_n1, scale, columns a block
+    'stream_inv_phase_b_t': ('dsc_stream_inv_phase_b_t', (_P, _P, _I, _I, _I, _P, _F, _I)),
     'reconstruct': ('dsc_reconstruct', (_P, _P, _L)),
 }
 

@@ -128,6 +128,58 @@ def test_fourstep_stream_takes_only_the_plan_split():
         stream.fourstep_stream(torch.zeros(2**18), 1024, 256, False)
 
 
+def _column_passes():
+    """(L, M, batch) of every column pass the routes launch: K6 (L = n1)
+    and K7 (L = n2) of each (batch, n) that ``stream.supported`` admits up
+    to 2^26 values, the batched suite's among them, and, at batch 1, the
+    single vector's K6 + K8 (L = n1, then n2) and K10 (L = n1)."""
+    cases = set()
+    for e in range(16, 27):
+        n1, n2 = stream.factors(2**e)
+        for batch in (1, 2, 3, 4, 5, 6, 16, 64, 256, 1000):
+            if batch * 2**e <= 2**26 and stream.supported(n1, n2, np.complex64, batch):
+                cases |= {(n1, n2, batch), (n2, n1, batch)}
+    return sorted(cases)
+
+
+@pytest.mark.parametrize('out_bytes', [8, 4])
+@pytest.mark.parametrize('L,M,batch', _column_passes())
+def test_column_schedule(L, M, batch, out_bytes):
+    """The block size C of every column pass the routes launch, with
+    complex64 output and (K7, K10 real output) float32, against what the
+    kernel needs of it (csrc/stream_columns.cuh launch_columns: C a power
+    of two dividing M, C*L/16 <= 1024 threads a block, each 16 values of a
+    column in 64 registers at most) and what the timed candidates chose."""
+    c = stream.block_columns(L, M, batch, out_bytes)
+    assert c >= 1 and c & (c - 1) == 0 and M % c == 0
+    assert c * L // 16 <= 1024
+    # the exchange buffer, at most C*(L + L/16 + 16) float2 (fft_radix.cuh
+    # column_stride), fits a block's 227 KB of shared memory
+    assert c * (L + L // 16 + 16) * 8 <= 227 * 1024
+    # the table's C, halved only as far as a grid of MIN_BLOCKS needs
+    table = stream.COLUMNS[out_bytes][L]
+    blocks = batch * M // c
+    assert c <= table and (c == min(table, M) or batch * M // (2 * c) < stream.MIN_BLOCKS)
+    assert blocks >= stream.MIN_BLOCKS or c == 1
+    # column runs of a 32-byte sector or more wherever a block of at most
+    # 16384 points can hold that many columns and the grid still has
+    # MIN_BLOCKS blocks (not at L = 8192, nor at 4096 with float32 output)
+    floor = 32 // out_bytes
+    if floor * L <= 16384 and batch * M // floor >= stream.MIN_BLOCKS:
+        assert c * out_bytes >= 32, c
+    # more than one block in flight a SM (one's load and store under
+    # another's passes): two blocks' registers, 64 a thread, fit the SM's
+    # 65536 wherever the run floor leaves a block of 8192 points or fewer
+    if floor * L <= 8192:
+        assert 2 * 64 * (c * L // 16) <= 65536, c
+
+
+def test_column_schedule_refuses_lengths_off_the_pass():
+    for L, M in ((128, 512), (16384, 512), (512, 384)):
+        with pytest.raises(ValueError, match='column pass'):
+            stream.block_columns(L, M, 1)
+
+
 @pytest.fixture(scope='module')
 def spectrum():
     n = 8192

@@ -91,7 +91,12 @@ def test_public_path_launches_every_kernel():
     assert np.abs(small - sig[:4096]).max() < 1e-5
 
 
-STREAM_CASES = [(512, 512, 1), (512, 256, 2), (256, 256, 6)]
+# (n1, n2, batch): the column pass's L = n1 (K6) and n2 (K7) from 256 to
+# 4096, with 1 to 8 columns and 32 to 1024 threads a block
+# (stream.block_columns; (2048, 2048, 2) takes 8 columns of 2048 for the
+# float32 output); (1024, 512, 5) leaves a ragged last wave of blocks
+STREAM_CASES = [(512, 512, 1), (512, 256, 2), (256, 256, 6), (1024, 1024, 3), (2048, 2048, 1),
+                (2048, 2048, 2), (4096, 2048, 1), (1024, 512, 5)]
 
 
 def _stream_input(n, batch, real, seed):

@@ -114,11 +114,10 @@ def test_route_base_kernel_sizes():
 
 
 @pytest.mark.parametrize('e', [18, 19])
-def test_route_unported_single_vector_sizes_raise_on_cuda(e):
+def test_route_single_rfft_half_t(e):
     """The single rfft off the packed range lands in the half-T layout
     (K6 + K8), on any device; its inverse reads it (K9 + K10), and a dense
-    spectrum's takes K11 + K6/K7, as in the JAX package. (The name is kept
-    from when these routes raised on CUDA; none raises now.)"""
+    spectrum's takes K11 + K6/K7, as in the JAX package."""
     assert config.rfft_route(Dtype.F32, 1, 2**e) == 'stream_t'
     half = (*dt.fourier.stream.factors(2**e), True)
     assert config.irfft_route(Dtype.C32, 1, 2**e, layout=half) == 'stream_t'
@@ -129,9 +128,8 @@ def test_route_unported_single_vector_sizes_raise_on_cuda(e):
     assert _rel(dt.irfft(spec).numpy(), x) < 1e-5
 
 
-def test_route_other_unported_kernels_raise_on_cuda():
-    """Every other route names its engine on any device. (The name is kept
-    from when these routes raised on CUDA; none raises now.)"""
+def test_route_engines_named_on_any_device():
+    """Every other route names its engine on any device."""
     assert config.rfft_route(Dtype.F32, 8, 2**20) == 'stream'
     assert config.fft_route(Dtype.C32, 1, 2**21, inverse=False) == 'stream_t'
     assert config.fft_route(Dtype.C32, 1, 2**21, inverse=True) == 'stream'
