@@ -12,10 +12,13 @@ Phases, each raising on failure (exit code 0 means all passed):
    process per source), init the port on the card and measure the 256 MiB
    device-to-device copy rate, the ceiling the kernels' bytes are held to;
 3. each kernel against its plain PyTorch version on the same inputs on
-   the card (K12 base FFT; packed rfft K1, K2 and irfft K3, K4 phase by
-   phase at 2^21 and 2^24; K5 streaming map: every float32 body at 2^26,
-   scalars on each side, a 1-element tensor, a broadcast row, clip with one
-   and two bounds, a ragged count, the complex bodies at 2^23 + 1; the
+   the card (K12 base FFT at n = 256 ... 4096, 65536 x 256 among them;
+   packed rfft K1, K2 and irfft K3, K4 phase by phase at 2^21 and 2^24,
+   K3 also on a spectrum whose X[0] and X[n/2] are not real, and the 2^24
+   irfft of that spectrum against np.fft; K5 streaming map: every float32
+   body at 2^26, scalars on each side, a 1-element tensor, a broadcast
+   row, clip with one and two bounds, a ragged count, the complex bodies
+   at 2^23 + 1; the
    streaming four-step K6, K7 in every variant at the batched suite's
    shapes and a single 2^24 vector; the Hermitian reconstruction K11 at
    2^18, 2^19 and 2^24, exactly; K6 once more and K8, K9 and K10 (within
@@ -26,7 +29,8 @@ Phases, each raising on failure (exit code 0 means all passed):
    a. the README quick start (2^20 samples, 255 taps, n = 2^21) and the
       4097-tap shape against np.convolve in float64, a 2^24 rfft -> irfft
       round trip and an n = 4096 rfft/irfft pair (K1-K4, K12); the quick
-      start runs once more under dsc.profile;
+      start runs once more under dsc.profile; each kernel's launches held
+      to the routing (K1, K2 5, K3, K4 3, K12 2);
    b. bench.py's fma and sin rows (dsc.add and dsc.sin of 2^26 float32)
       against NumPy in float64, a sweep of add/mul/exp/sum/max over sizes
       and dtypes in which K5 must launch exactly where the routing rule
@@ -53,18 +57,19 @@ Phases, each raising on failure (exit code 0 means all passed):
    calls), each as device time per call over 50 calls back to back, the
    kernel also as the median of 25 single launches; the filterFFT step
    at n = 2^21 and 2^24 (median of 25); each batched-suite row through
-   the public API beside the torch.fft call on the same shape; and K8, K9,
-   K10 at 2^24 (T and half-T) and 2^19 (half-T).
+   the public API beside the torch.fft call on the same shape; K12 at
+   2048 x 1, 4096 x 1000 and 65536 x 256; and K8, K9, K10 at 2^24 (T and
+   half-T) and 2^19 (half-T).
 
 The last lines are the kernels' JSON record, the card line and the result
 line. Without a CUDA device the script exits non-zero before any of them.
 
     python3 chip_smoke.py --profile
 
-runs phases 1-2 and then, in place of the checks, times the column pass of
-K6, K7, K8 and K10 with blocks of 4096, 8192 and 16384 points side by side
-and measures where the filterFFT step's time goes: the step at n = 2^21 on
-CUDA events and on the
+runs phases 1-2 and then, in place of the checks, times K12 and the column
+pass of K6, K7, K8 and K10 with blocks of 4096, 8192 and 16384 points and
+K2 with 2-16 row pairs a block, each side by side, and measures where the
+filterFFT step's time goes: the step at n = 2^21 on CUDA events and on the
 host clock over five repeats in one process, K1 timed one launch at a time
 and 200 launches back to back, and torch.profiler's device time per kernel
 and the device's busy share of the step at n = 2^21 and at n = 2^24; and
@@ -134,7 +139,11 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     'stream_inv_phase_b_t': ('dsc_tpu_torch/csrc/fourstep_stream_t.cu',
                              'dsc_tpu/fourier/pallas_stream_t.py:469'),
 }
-FFT_PATH = ('rfft_phase_a', 'rfft_phase_b', 'irfft_phase_a', 'irfft_phase_b', 'base_fft')
+# the launches the filterFFT path must make (fourier/config.py): K1 + K2 for
+# each packed rfft (two per filterFFT, one for the 2^24 round trip), K3 + K4
+# for each packed irfft, K12 for the n = 4096 pair's half-size rfft and irfft
+FFT_PATH_LAUNCHES = {'rfft_phase_a': 5, 'rfft_phase_b': 5, 'irfft_phase_a': 3,
+                     'irfft_phase_b': 3, 'base_fft': 2}
 MAP_PATH = ('stream_map', 'rfft_phase_a', 'rfft_phase_b', 'irfft_phase_a', 'irfft_phase_b')
 # BASELINE config 3's batched rows: (batch, n), 2^24 complex64 values each
 SUITE = ((256, 2**16), (64, 2**18), (16, 2**20), (4, 2**22))
@@ -370,6 +379,50 @@ def column_candidates(card: str) -> None:
             for p, c in zip(COLUMN_CANDIDATES, cols)))
 
 
+ROW_CANDIDATES = (4096, 8192, 16384)      # R*n points a block of K12
+PAIR_CANDIDATES = (2, 4, 8, 16)           # row pairs a block of K2
+
+
+def row_candidates(card: str) -> None:
+    """--profile: K12 with blocks of each size of ROW_CANDIDATES (R = points
+    / n rows) at n = 256 ... 4096, over 2^24 values and over 1000 rows, and
+    K2 with each P of PAIR_CANDIDATES that 1024 threads allow at n = 2^21
+    ... 2^26, back to back in turns (a, b, c, c, b, a); the tables the
+    wrappers take R and P from are base_fft.ROWS and packed_fused.PAIRS."""
+    from dsc_tpu_torch.fourier import base_fft, packed_fused as pf, plan
+    from dsc_tpu_torch.fourier.stream import factors
+
+    gen = np.random.default_rng(6)
+
+    def cnormal(shape):
+        z = gen.standard_normal(shape) + 1j * gen.standard_normal(shape)
+        return torch.from_numpy(z.astype(np.complex64)).cuda()
+
+    cases = []  # (what, {block shape: a launch with it})
+    for n in (256, 512, 1024, 2048, 4096):
+        w = plan.get_plan(n, 'complex', torch.complex64)[1]
+        for batch in (2**24 // n, 1000):
+            x = cnormal((batch, n))
+            cases.append((f'K12 {batch} x {n}', {
+                f'{p} points (R={p // n})': lambda r=p // n, x=x, w=w: base_fft._launch(x, w, r)
+                for p in ROW_CANDIDATES}))
+    for e in range(21, 27):
+        t = plan.get_plan(2**e, 'packed', torch.complex64)[1]
+        n1, n2 = factors(2**e)
+        at = cnormal((n1, n2 // 2))
+        cases.append((f'K2 2^{e} (n1={n1}, m2={n2 // 2})', {
+            f'P={p}': lambda p=p, at=at, t=t: pf._launch_phase_b(at, t, p)
+            for p in PAIR_CANDIDATES if 2 * p * (n2 // 2) // 16 <= 1024 and n1 % (2 * p) == 0}))
+    print(f'row passes, block shape candidates, ms per launch, 50 launches back to back, '
+          f'in turns [{card}]:')
+    for what, launches in cases:
+        times = {shape: [] for shape in launches}
+        for shape in list(launches) + list(launches)[::-1]:
+            times[shape].append(back_to_back_ms(launches[shape], 50))
+        print(f'  {what}: ' + '; '.join(f'{shape}: {float(np.mean(ms)):.4f} ms'
+                                        for shape, ms in times.items()))
+
+
 def wrapper_times(dsc, card: str) -> None:
     """--wrappers: at 2^19, where a launch takes less device time than its
     wrapper's Python, K6, K8, K9 and K10 back to back (the wrappers' host
@@ -463,6 +516,7 @@ def main() -> int:
     dsc.init(2**34, device='cuda')
     ceiling = copy_ceiling(card)
     if args.profile:
+        row_candidates(card)
         column_candidates(card)
         profile_step(dsc, card)
         return 0
@@ -496,9 +550,10 @@ def main() -> int:
 
     # -- 3. kernels vs plain versions --------------------------------------
     print('phase 3: kernels vs plain versions')
-    for n in (256, 512, 2048, 4096):
+    for n, batches in ((256, (1, 128, 1000, 65536)), (512, (1, 128, 1000)),
+                       (1024, (1, 128, 1000)), (2048, (1, 128, 1000)), (4096, (1, 128, 1000))):
         w = plan.get_plan(n, 'complex', torch.complex64)[1]
-        for batch in (1, 128, 1000):
+        for batch in batches:
             x = cnormal((batch, n))
             compare('base_fft', base_fft.fft_base(x, w),
                     base_fft.fft_base_plain(x, w), f'n={n} batch={batch}')
@@ -524,6 +579,18 @@ def main() -> int:
         e = float((back - x).abs().max())
         print(f'  irfft(rfft(x)) - x, max abs: {e:.3e}')
         require(e <= 2e-4, f'round trip {e}')
+        # a spectrum whose X[0] and X[n/2] are not real: K3 reads their
+        # real parts, as np.fft.irfft does
+        wild = cnormal(n // 2 + 1)
+        compare('irfft_phase_a', pf.irfft_phase_a(wild, t), pf.irfft_phase_a_plain(wild, t),
+                f'n=2^{n.bit_length() - 1} non-Hermitian spectrum')
+    wild_np = wild.cpu().numpy()
+    got = dsc.irfft(dsc.from_numpy(wild_np)).numpy()
+    ref = np.fft.irfft(wild_np.astype(np.complex128))
+    e = float(np.abs(got - ref).max() / np.abs(ref).max())
+    print(f'  dsc.irfft of a non-Hermitian 2^23+1 spectrum vs np.fft float64: {e:.3e}')
+    require(got.shape == ref.shape and e <= NUMPY_BOUND, f'irfft non-Hermitian 2^24: {e}')
+    del wild, wild_np, got, ref
     for body in sm.REAL_BODIES:
         xs = map_operands(body, MAP_N)
         compare('stream_map', sm.stream_map(body, *xs), sm.stream_map_plain(body, *xs),
@@ -646,8 +713,8 @@ def main() -> int:
     torch.cuda.synchronize()
     fft_launches = dict(build.launches)
     print(f'  launches on the filterFFT path: {fft_launches}')
-    for name in FFT_PATH:
-        require(fft_launches[name] > 0, f'kernel {name} was not launched on the filterFFT path')
+    want = {name: FFT_PATH_LAUNCHES.get(name, 0) for name in KERNELS}
+    require(fft_launches == want, f'filterFFT path launches {fft_launches}, routing says {want}')
     del big, spec, back
 
     trace = os.path.join(REPO, 'build', 'chip_smoke_traces.json')
@@ -941,7 +1008,9 @@ def main() -> int:
         timed('irfft_phase_b', what, lambda: pf.irfft_phase_b(y, t),
               lambda: pf.irfft_phase_b_plain(y, t), lambda: torch.fft.irfft(spec, n),
               nbytes(y, x) + tables, fft_ops(nh, n1) + 2 * n)
-    for n, batch in ((2048, 1), (4096, 1000)):
+    # K12 at the n = 4096 pair's 2048 x 1, at 4096 x 1000 and at fft2
+    # (256, 2^16)'s axis-0 shape, 65536 x 256 (2^24 values, cold in L2)
+    for n, batch in ((2048, 1), (4096, 1000), (256, 65536)):
         w = plan.get_plan(n, 'complex', torch.complex64)[1]
         x = cnormal((batch, n))
         timed('base_fft', f'n={n} batch={batch}', lambda: base_fft.fft_base(x, w),

@@ -10,24 +10,32 @@
 // plus the hermitian untangle (packed_fused.py has the formulas). A float2
 // load of x IS z, so the TPU kernel's even/odd selection matmul has no
 // counterpart, and its bf16x3 DFT-matrix products become float32
-// butterflies (fft_core.cuh). The four-step twiddle W_nh^(k1*j2) and the
-// untangle twiddle W_n^k are as large as the data; each comes from two
-// float64-built tables of ~sqrt entries (fourier/plan.py Factored).
+// butterflies: K2's row DFT runs the register-resident radix-16 passes of
+// fft_rows_reg.cuh, K1, K3 and K4 still the radix-2 stages of fft_core.cuh.
+// The four-step twiddle W_nh^(k1*j2) and the untangle twiddle W_n^k are as
+// large as the data; each comes from two float64-built tables of ~sqrt
+// entries (fourier/plan.py Factored).
 //
 // Bound on the H100: device memory. At n = 2^24 a forward reads 64 MiB of x,
 // writes and reads the 64 MiB intermediate and writes the 64 MiB spectrum
 // (256 MiB), against ~5*nh*log2(nh) = 1 GFLOP: about 4 flops per byte.
 // Each pass therefore reads and writes every element once, and all the
-// work of a pass happens in shared memory between the two.
+// work of a pass happens on chip between the two.
 //
 // Layout costs, the first things a faster version looks at:
 // - the column passes (K1, K4) read and write rows of `cols` consecutive
 //   complex values (32 B at cols = 4, one sector) at a stride of m2;
 // - the row passes (K2, K3) own P consecutive rows k1 and their mirrors
 //   n1-k1 and touch the natural spectrum X[k1 + n1*k2] in runs of P
-//   complex values at a stride of n1: P = 8 (64 B) at n = 2^21, P = 2
-//   (16 B, half a sector wasted) at n = 2^24;
-// - the in-place radix-2 stages bank-conflict in shared memory.
+//   complex values at a stride of n1. K2 takes P from its caller
+//   (packed_fused.py block_pairs): P >= 4 (runs of 32 B or more) up to
+//   m2 = 2048, but at m2 = 4096 (n = 2^26) 1024 threads cap P at 2 and
+//   its stores are 16-byte runs, half a sector wasted. The runs of rows
+//   k = bP+1 .. bP+P start one value past a P-aligned row, so each spans
+//   two 32-byte sectors whose other parts the neighbouring blocks write.
+//   K3 keeps P = 8192 / (2*m2): 16-byte runs from n = 2^24;
+// - the in-place radix-2 stages of K1, K3, K4 bank-conflict in shared
+//   memory.
 //
 // The TPU phase B needs a boundary-row DFT and precomputed k1 = 0 rows
 // (packed_fused.py:856-883, :913-921) because its tile pairs cannot see
@@ -37,7 +45,7 @@
 // by one column, Z_T[0, (m2-k2) mod m2]; one extra block takes row 0 and
 // the Nyquist bin X[nh] = Re Z[0] - Im Z[0]).
 
-#include "fft_core.cuh"
+#include "fft_rows_reg.cuh"
 
 using namespace dsc;
 
@@ -45,7 +53,8 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kColumnPoints = 16384;  // column pass: n1 * cols <= 16384 (128 KB)
-constexpr int kRowPoints = 8192;      // row pass: 2 * P * m2 <= 8192 (64 KB)
+constexpr int kRowPoints = 8192;      // K3: 2 * P * m2 <= 8192 (64 KB)
+constexpr int kRowThreads = 1024;     // K2: 2 * P * m2 / 16 <= 1024, at most 64 registers
 
 // ---------------------------------------------------------------------------
 // column passes (K1, K4): `cols` consecutive columns j0.. of an (n1, m2)
@@ -119,35 +128,53 @@ __device__ __forceinline__ bool duplicate_slot(int slot, int P, int row, int n1)
   return slot >= P && 2 * row == n1;
 }
 
-__global__ void __launch_bounds__(kThreads)
-rfft_phase_b_kernel(const float2* __restrict__ at, float2* __restrict__ spec, int n1,
-                    int log2m2, int P, int log2P, const float2* __restrict__ w_m2,
+// K2: 2P*m2/16 threads, slot s at smem + s*sstride (sstride =
+// column_stride(m2, P): padded_row(m2) plus an offset that puts the P slots
+// a half warp reads in the untangle on distinct banks); m2 = 2^LOG2M2, a
+// constant, so that every index and shift of the passes folds.
+template <int LOG2M2>
+__global__ void __launch_bounds__(kRowThreads, 1)
+rfft_phase_b_kernel(const float2* __restrict__ at, float2* __restrict__ spec, int n1, int P,
+                    int log2P, int sstride, const float2* __restrict__ w_m2,
                     const float2* __restrict__ un_lo, const float2* __restrict__ un_hi,
                     int un_bits) {
   extern __shared__ float2 smem[];
-  const int m2 = 1 << log2m2;
+  constexpr int log2m2 = LOG2M2;
+  constexpr int m2 = 1 << log2m2;
   const int npairs = n1 / (2 * P);
   const int b = blockIdx.x;
   const int slots = b == npairs ? 1 : 2 * P;
-  for (int i = threadIdx.x; i < slots * m2; i += blockDim.x) {
-    const int s = i >> log2m2;
-    const int j = i & (m2 - 1);
-    smem[(s << log2m2) + bitrev(j, log2m2)] = at[(long)slot_row(b, npairs, P, n1, s) * m2 + j];
+  {
+    // the row pass: T = m2/16 neighbouring threads a slot, 16 values a
+    // thread (the row-0 block runs row 0 in every slot and keeps slot 0)
+    constexpr int log2T = log2m2 - kLog2Radix;
+    const int s = threadIdx.x >> log2T;
+    const int t = threadIdx.x & ((1 << log2T) - 1);
+    const float2* src = at + ((long)slot_row(b, npairs, P, n1, s) << log2m2);
+    float2 v[kRadix];
+#pragma unroll
+    for (int u = 0; u < kRadix; ++u) v[u] = src[t + (u << log2T)];
+    float2* row = smem + s * sstride;
+    row_fft<false>(v, row, t, log2m2, w_m2);
+    __syncthreads();  // every thread has read the last exchange
+#pragma unroll
+    for (int u = 0; u < kRadix; ++u) row[pad16(t + (u << log2T))] = v[u];  // Z_T[row, k2]
   }
   __syncthreads();
-  fft_rows<false>(smem, slots, m2, log2m2, w_m2);  // slot s, k2: Z[row + n1*k2]
+  // the untangle: slots fastest, so that neighbouring threads write
+  // neighbouring bins X[row + n1*k2] (runs of P)
   for (int t = threadIdx.x; t < slots * m2; t += blockDim.x) {
     int s, k2;
     slot_k2(b, npairs, P, log2P, m2, t, &s, &k2);
     const int row = slot_row(b, npairs, P, n1, s);
     if (duplicate_slot(s, P, row, n1)) continue;
-    const float2 a = smem[(s << log2m2) + k2];
+    const float2 a = smem[s * sstride + pad16(k2)];
     float2 mir;  // Z[(nh - k) mod nh]
     if (row == 0) {
-      mir = smem[(m2 - k2) & (m2 - 1)];
+      mir = smem[pad16((m2 - k2) & (m2 - 1))];
     } else {
       const int ms = s < P ? s + P : s - P;
-      mir = smem[(ms << log2m2) + (m2 - 1 - k2)];
+      mir = smem[ms * sstride + pad16(m2 - 1 - k2)];
     }
     const float2 bc = conj2(mir);
     const unsigned k = (unsigned)row + (unsigned)n1 * (unsigned)k2;
@@ -174,14 +201,20 @@ irfft_phase_a_kernel(const float2* __restrict__ spec, float2* __restrict__ y, in
   const int slots = b == npairs ? 1 : 2 * P;
   const unsigned nh = (unsigned)n1 << log2m2;
   // entangle while loading: Z[k] = (A + B)/2 + i*W^-k*(A - B)/2 with
-  // A = X[k], B = conj X[nh - k]; the mirror rows are this block's own
+  // A = X[k], B = conj X[nh - k]; the mirror rows are this block's own.
+  // As np.fft.irfft, only the real parts of X[0] and X[nh] count: both
+  // meet in the k = 0 slot alone.
   for (int t = threadIdx.x; t < slots * m2; t += blockDim.x) {
     int s, k2;
     slot_k2(b, npairs, P, log2P, m2, t, &s, &k2);
     const int row = slot_row(b, npairs, P, n1, s);
     const unsigned k = (unsigned)row + (unsigned)n1 * (unsigned)k2;
-    const float2 a = spec[k];
-    const float2 bc = conj2(spec[nh - k]);
+    float2 a = spec[k];
+    float2 bc = conj2(spec[nh - k]);
+    if (k == 0) {
+      a.y = 0.f;
+      bc.y = 0.f;
+    }
     const float2 e = cscale(cadd(a, bc), 0.5f);
     const float2 d = cmul(conj2(factored_twiddle(un_lo, un_hi, un_bits, k)),
                           cscale(csub(a, bc), 0.5f));
@@ -197,12 +230,6 @@ irfft_phase_a_kernel(const float2* __restrict__ spec, float2* __restrict__ y, in
     const float2 tw = conj2(factored_twiddle(tw_lo, tw_hi, tw_bits, (unsigned)row * (unsigned)j2));
     y[((long)row << log2m2) + j2] = cmul(smem[i], tw);
   }
-}
-
-int set_smem(const void* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
 }
 
 template <bool INV>
@@ -222,7 +249,21 @@ int launch_column_pass(const void* in, void* out, int n1, int m2, const void* w_
   return (int)cudaGetLastError();
 }
 
-// rows per block half: 2P rows of m2 points within kRowPoints
+template <int LOG2M2>
+int launch_rfft_phase_b(const void* at, void* spec, int n1, int P, const void* w_m2,
+                        const void* un_lo, const void* un_hi, int un_bits, void* stream) {
+  const int sstride = column_stride(1 << LOG2M2, P);
+  const size_t smem = (size_t)2 * P * sstride * sizeof(float2);
+  int err = set_smem((const void*)rfft_phase_b_kernel<LOG2M2>, smem);
+  if (err) return err;
+  rfft_phase_b_kernel<LOG2M2><<<n1 / (2 * P) + 1, 2 * P << (LOG2M2 - kLog2Radix), smem,
+                                (cudaStream_t)stream>>>(
+      (const float2*)at, (float2*)spec, n1, P, ilog2(P), sstride, (const float2*)w_m2,
+      (const float2*)un_lo, (const float2*)un_hi, un_bits);
+  return (int)cudaGetLastError();
+}
+
+// K3's rows per block half: 2P rows of m2 points within kRowPoints
 int pairs_per_block(int m2) {
   int P = kRowPoints / (2 * m2);
   if (P > 8) P = 8;
@@ -239,17 +280,21 @@ int dsc_rfft_phase_a(const void* x, void* at, int n1, int m2, const void* w_n1,
   return launch_column_pass<false>(x, at, n1, m2, w_n1, tw_lo, tw_hi, tw_bits, 1.f, stream);
 }
 
-// at (n1, m2) -> spec (n1*m2 + 1,) complex64, natural order
+// at (n1, m2) -> spec (n1*m2 + 1,) complex64, natural order; P row pairs a
+// block (2P*m2/16 threads), n1/(2P) + 1 blocks
 int dsc_rfft_phase_b(const void* at, void* spec, int n1, int m2, const void* w_m2,
-                     const void* un_lo, const void* un_hi, int un_bits, void* stream) {
-  const int P = pairs_per_block(m2);
-  const size_t smem = (size_t)2 * P * m2 * sizeof(float2);
-  int err = set_smem((const void*)rfft_phase_b_kernel, smem);
-  if (err) return err;
-  rfft_phase_b_kernel<<<n1 / (2 * P) + 1, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float2*)at, (float2*)spec, n1, ilog2(m2), P, ilog2(P), (const float2*)w_m2,
-      (const float2*)un_lo, (const float2*)un_hi, un_bits);
-  return (int)cudaGetLastError();
+                     const void* un_lo, const void* un_hi, int un_bits, int P, void* stream) {
+  const int log2m2 = ilog2(m2);
+  if (m2 < 256 || m2 > 4096 || (1 << log2m2) != m2 || P < 1 || (1 << ilog2(P)) != P ||
+      n1 % (2 * P) || 2 * P * (m2 / kRadix) > kRowThreads)
+    return (int)cudaErrorInvalidValue;
+  switch (log2m2) {
+    case 8: return launch_rfft_phase_b<8>(at, spec, n1, P, w_m2, un_lo, un_hi, un_bits, stream);
+    case 9: return launch_rfft_phase_b<9>(at, spec, n1, P, w_m2, un_lo, un_hi, un_bits, stream);
+    case 10: return launch_rfft_phase_b<10>(at, spec, n1, P, w_m2, un_lo, un_hi, un_bits, stream);
+    case 11: return launch_rfft_phase_b<11>(at, spec, n1, P, w_m2, un_lo, un_hi, un_bits, stream);
+    default: return launch_rfft_phase_b<12>(at, spec, n1, P, w_m2, un_lo, un_hi, un_bits, stream);
+  }
 }
 
 // spec (n1*m2 + 1,) complex64 -> y (n1, m2) complex64

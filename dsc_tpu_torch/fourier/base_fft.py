@@ -4,17 +4,40 @@ Replaces ``_fft_block_kernel`` (pallas_kernels.py:55, called through
 ``fft_base_planar``): a batched forward DFT of 256..4096-point complex64
 rows, the leaf of the four-step plan (core.fft_apply). The TPU kernel runs
 each row as two DFT-matrix products on the MXU; the Hopper kernel
-(csrc/base_fft.cu) runs an in-shared-memory radix-2 FFT per row
-(csrc/fft_core.cuh).
+(csrc/base_fft.cu) runs each row through the register-resident radix-16
+row pass of csrc/fft_rows_reg.cuh, R rows a block.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..kernels import build
 from .config import BASE_KERNEL_MAX_N, BASE_KERNEL_MIN_N
 from .core import stockham_fft
+
+# K12 takes R rows of n points a block; the launcher derives the rest
+# (R*n/16 threads, at most 1024, and R padded rows of shared memory) from R.
+# ROWS[n] is the R of the fastest block size that chip_smoke.py --profile
+# timed (4096, 8192 and 16384 points a block, over 2^24 values and over
+# 1000 rows; PERF.md): 4096 points up to n = 2048, 8192 at 4096 (ahead at
+# 1000 rows, 2.5% behind over 2^24 values).
+ROWS = {256: 16, 512: 8, 1024: 4, 2048: 2, 4096: 2}
+MIN_BLOCKS = 264      # R halves until the grid has two blocks a SM (132 SMs)
+
+
+@functools.lru_cache(maxsize=None)
+def block_rows(n: int, batch: int) -> int:
+    """R, the rows a block of K12 over ``batch`` n-point rows: ROWS, halved
+    until the grid has MIN_BLOCKS blocks (or R is 1)."""
+    if n not in ROWS:
+        raise ValueError(f'base_fft: n = {n} not supported')
+    r = ROWS[n]
+    while r > 1 and -(-batch // r) < MIN_BLOCKS:
+        r //= 2
+    return r
 
 
 def fft_base_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -31,9 +54,15 @@ def fft_base(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if n & (n - 1) or not BASE_KERNEL_MIN_N <= n <= BASE_KERNEL_MAX_N:
         raise RuntimeError(f'base_fft: n={n} is not a power of two in '
                            f'[{BASE_KERNEL_MIN_N}, {BASE_KERNEL_MAX_N}]')
+    return _launch(x, w, block_rows(n, b))
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, rows: int) -> torch.Tensor:
+    """K12 with ``rows`` rows a block."""
+    b, n = x.shape
     build.check(x, torch.complex64, (b, n), 'x')
     build.check(w, torch.complex64, (n // 2,), 'w')
     y = torch.empty_like(x)
     if b:  # a grid of no blocks is refused at launch
-        build.launch('base_fft', x.data_ptr(), y.data_ptr(), b, n, w.data_ptr())
+        build.launch('base_fft', x.data_ptr(), y.data_ptr(), b, n, w.data_ptr(), rows)
     return y

@@ -18,8 +18,9 @@ Four kernels, each a pass over device memory (csrc/packed_rfft.cu):
                      -> At (n1, m2), row k1 contiguous
   K2 rfft_phase_b    row DFT_m2 of At (Z[k1 + n1*k2] = Z_T[k1, k2]) +
                      untangle -> natural (nh+1,) spectrum
-  K3 irfft_phase_a   entangle + inverse row DFT_m2 + twiddle W_nh^-(k1*j2)
-                     -> Y (n1, m2)
+  K3 irfft_phase_a   entangle (of the real parts of X[0] and X[nh], as
+                     np.fft.irfft) + inverse row DFT_m2 + twiddle
+                     W_nh^-(k1*j2) -> Y (n1, m2)
   K4 irfft_phase_b   inverse column DFT_n1, 1/nh scale -> (n,) real
 
 The mirror operand of the untangle, Z[nh-k] = Z_T[n1-k1, m2-1-k2] (and
@@ -61,6 +62,24 @@ def _sizes(t: PackedTables):
     return n1, m2, n1 * m2
 
 
+# K2 takes P row pairs a block (rows k, their mirrors n1 - k); the launcher
+# derives the rest (2P*m2/16 threads, at most 1024, and 2P padded rows of
+# shared memory) from P. PAIRS[m2] is the P of the fastest block shape that
+# chip_smoke.py --profile timed (PERF.md). K2 stores the spectrum in runs
+# of P values, and at P = 2 (16-byte runs) took 1.8-2.1x as long as at
+# P = 4, so P >= 4 (32 bytes) wherever 1024 threads allow it (not at
+# m2 = 4096); at m2 = 512 every P took the same host-bound time, and P = 4
+# keeps n1/(2P) >= 128 blocks at the smallest split, n1 = 1024.
+PAIRS = {512: 4, 1024: 8, 2048: 4, 4096: 2}
+
+
+def block_pairs(m2: int) -> int:
+    """P, the row pairs a block of K2 over rows of m2 points."""
+    if m2 not in PAIRS:
+        raise ValueError(f'rfft_phase_b: m2 = {m2} not supported')
+    return PAIRS[m2]
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -85,9 +104,12 @@ def rfft_phase_b_plain(at: torch.Tensor, t: PackedTables) -> torch.Tensor:
 
 
 def irfft_phase_a_plain(spec: torch.Tensor, t: PackedTables) -> torch.Tensor:
-    """K3: natural (nh+1,) c64 spectrum -> Y (n1, m2) c64."""
+    """K3: natural (nh+1,) c64 spectrum -> Y (n1, m2) c64. As np.fft.irfft,
+    it reads only the real parts of X[0] and X[nh]."""
     n1, m2, nh = _sizes(t)
     dev = spec.device
+    spec = spec.clone()
+    spec.imag[[0, nh]] = 0
     z = entangle(spec, t.untangle.at(torch.arange(nh, device=dev)))
     zt = z.reshape(m2, n1).transpose(0, 1).contiguous()         # Z_T[k1, k2]
     y = stockham_fft(zt, t.w_m2.conj())
@@ -145,13 +167,18 @@ def rfft_phase_b(at: torch.Tensor, t: PackedTables) -> torch.Tensor:
     """K2 on a CUDA tensor, its plain version on a CPU tensor."""
     if at.device.type == 'cpu':
         return rfft_phase_b_plain(at, t)
+    return _launch_phase_b(at, t, block_pairs(_sizes(t)[1]))
+
+
+def _launch_phase_b(at: torch.Tensor, t: PackedTables, pairs: int) -> torch.Tensor:
+    """K2 with ``pairs`` row pairs a block."""
     n1, m2, nh = _sizes(t)
     build.check(at, torch.complex64, (n1, m2), 'at')
     _check_tables(t)
     spec = torch.empty(nh + 1, dtype=torch.complex64, device=at.device)
     build.launch('rfft_phase_b', at.data_ptr(), spec.data_ptr(), n1, m2,
                  t.w_m2.data_ptr(), t.untangle.lo.data_ptr(),
-                 t.untangle.hi.data_ptr(), t.untangle.bits)
+                 t.untangle.hi.data_ptr(), t.untangle.bits, pairs)
     return spec
 
 

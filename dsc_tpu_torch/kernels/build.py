@@ -32,7 +32,7 @@ BUILD_DIR = PACKAGE_DIR.parent / 'build' / 'kernels'
 LIB_PATH = BUILD_DIR / 'libdsc_tpu_torch_kernels.so'
 SOURCES = ('base_fft.cu', 'packed_rfft.cu', 'stream_map.cu', 'fourstep_stream.cu',
            'fourstep_stream_t.cu', 'reconstruct.cu')
-HEADERS = ('fft_core.cuh', 'fft_radix.cuh', 'stream_columns.cuh')
+HEADERS = ('fft_core.cuh', 'fft_radix.cuh', 'fft_rows_reg.cuh', 'stream_columns.cuh')
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 COMPILE_FLAGS = (*ARCH_FLAGS, '-std=c++17', '-O3', '-Xcompiler', '-fPIC')
 
@@ -43,9 +43,11 @@ _L = ctypes.c_longlong
 
 # kernel -> (C entry point, argument types before the trailing stream)
 KERNELS = {
-    'base_fft': ('dsc_base_fft', (_P, _P, _I, _I, _P)),
+    # x, y, batch, n, w, rows a block
+    'base_fft': ('dsc_base_fft', (_P, _P, _I, _I, _P, _I)),
     'rfft_phase_a': ('dsc_rfft_phase_a', (_P, _P, _I, _I, _P, _P, _P, _I)),
-    'rfft_phase_b': ('dsc_rfft_phase_b', (_P, _P, _I, _I, _P, _P, _P, _I)),
+    # at, spec, n1, m2, w_m2, untangle lo, hi, bits, row pairs a block
+    'rfft_phase_b': ('dsc_rfft_phase_b', (_P, _P, _I, _I, _P, _P, _P, _I, _I)),
     'irfft_phase_a': ('dsc_irfft_phase_a',
                       (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I)),
     'irfft_phase_b': ('dsc_irfft_phase_b', (_P, _P, _I, _I, _P, _F)),

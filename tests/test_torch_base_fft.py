@@ -49,3 +49,30 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(n, match):
     x = torch.empty((2, n), dtype=torch.complex64, device='meta')
     with pytest.raises(RuntimeError, match=match):
         base_fft.fft_base(x, w)
+
+
+@pytest.mark.parametrize('batch', [1, 3, 130, 1000, 65536])
+@pytest.mark.parametrize('n', [256, 512, 1024, 2048, 4096])
+def test_block_rows(n, batch):
+    """R, the rows a block of K12, for every n the routes give it and the
+    batches they give it, against what the kernel needs of it
+    (csrc/base_fft.cu dsc_base_fft: R*n/16 <= 1024 threads, R padded rows
+    within a block's 227 KB of shared memory) and what the timed
+    candidates chose; the blocks cover each row once."""
+    r = base_fft.block_rows(n, batch)
+    assert r >= 1 and r & (r - 1) == 0
+    assert r * n // 16 <= 1024
+    assert r * (n + n // 16) * 8 <= 227 * 1024
+    # the table's R, halved only as far as a grid of MIN_BLOCKS needs
+    table = base_fft.ROWS[n]
+    blocks = -(-batch // r)
+    assert r <= table and (r == table or -(-batch // (2 * r)) < base_fft.MIN_BLOCKS)
+    assert blocks >= base_fft.MIN_BLOCKS or r == 1
+    rows = (np.arange(blocks)[:, None] * r + np.arange(r)[None, :]).ravel()
+    np.testing.assert_array_equal(rows[rows < batch], np.arange(batch))
+
+
+@pytest.mark.parametrize('n', [128, 8192, 768])
+def test_block_rows_refuses_lengths_off_the_kernel(n):
+    with pytest.raises(ValueError, match='base_fft'):
+        base_fft.block_rows(n, 1000)

@@ -35,17 +35,39 @@ def _rel(got, ref):
     return float((got - ref).abs().max() / ref.abs().max())
 
 
+def _cnormal(shape, seed):
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    return torch.from_numpy(z.astype(np.complex64)).cuda()
+
+
 @pytest.mark.parametrize('batch', [1, 3, 130])
-@pytest.mark.parametrize('n', [256, 1024, 4096])
+@pytest.mark.parametrize('n', [256, 512, 1024, 2048, 4096])
 def test_base_fft_kernel(n, batch):
-    rng = np.random.default_rng(n + batch)
-    z = rng.standard_normal((batch, n)) + 1j * rng.standard_normal((batch, n))
-    x = torch.from_numpy(z.astype(np.complex64)).cuda()
+    x = _cnormal((batch, n), n + batch)
     w = plan.get_plan(n, 'complex', torch.complex64)[1]
     before = build.launches['base_fft']
     got = base_fft.fft_base(x, w)
     assert build.launches['base_fft'] == before + 1
     assert _rel(got, base_fft.fft_base_plain(x, w)) < REL
+
+
+@pytest.mark.parametrize('points', [4096, 8192, 16384])
+@pytest.mark.parametrize('n', [256, 512, 1024, 2048, 4096])
+def test_base_fft_kernel_block_sizes(n, points):
+    """K12 with each block size that chip_smoke.py --profile times, on a
+    batch that leaves a ragged last block."""
+    rows = points // n
+    x = _cnormal((3 * rows + 1, n), n + points)
+    w = plan.get_plan(n, 'complex', torch.complex64)[1]
+    assert _rel(base_fft._launch(x, w, rows), base_fft.fft_base_plain(x, w)) < REL
+
+
+def test_base_fft_kernel_fft2_axis():
+    """K12 at fft2 (256, 2^16)'s axis-0 shape, 65536 rows of 256."""
+    x = _cnormal((65536, 256), 256)
+    w = plan.get_plan(256, 'complex', torch.complex64)[1]
+    assert _rel(base_fft.fft_base(x, w), base_fft.fft_base_plain(x, w)) < REL
 
 
 def test_base_fft_empty_batch_launches_nothing():
@@ -72,6 +94,35 @@ def test_packed_kernels_phase_by_phase(e):
     back = pf.irfft_phase_b(y, t)
     assert _rel(back, pf.irfft_phase_b_plain(y, t)) < REL
     assert float((back - x).abs().max()) < 2e-4
+
+
+@pytest.mark.parametrize('e', range(20, 27))
+def test_rfft_phase_b_block_shapes(e):
+    """K2 with every number of row pairs a block that 1024 threads allow,
+    against its plain version."""
+    n = 2**e
+    t = plan.get_plan(n, 'packed', torch.complex64)[1]
+    n1, n2 = stream.factors(n)
+    m2 = n2 // 2
+    at = _cnormal((n1, m2), e)
+    ref = pf.rfft_phase_b_plain(at, t)
+    for pairs in (1, 2, 4, 8, 16):
+        if 2 * pairs * m2 // 16 <= 1024:
+            assert _rel(pf._launch_phase_b(at, t, pairs), ref) < REL, pairs
+    plan.clear_plans()
+
+
+@pytest.mark.parametrize('e', [21, 24])
+def test_irfft_phase_a_non_hermitian_spectrum(e):
+    """K3 on a spectrum whose X[0] and X[n/2] are not real: it reads their
+    real parts, as its plain version and np.fft.irfft do."""
+    n = 2**e
+    t = plan.get_plan(n, 'packed', torch.complex64)[1]
+    spec = _cnormal(n // 2 + 1, e)
+    assert _rel(pf.irfft_phase_a(spec, t), pf.irfft_phase_a_plain(spec, t)) < REL
+    got = dt.irfft(dt.from_numpy(spec.cpu().numpy())).numpy()
+    ref = np.fft.irfft(spec.cpu().numpy().astype(np.complex128))
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
 
 
 def test_public_path_launches_every_kernel():
