@@ -13,9 +13,12 @@ Phases, each raising on failure (exit code 0 means all passed):
    device-to-device copy rate, the ceiling the kernels' bytes are held to;
 3. each kernel against its plain PyTorch version on the same inputs on
    the card (K12 base FFT at n = 256 ... 4096, 65536 x 256 among them;
-   packed rfft K1, K2 and irfft K3, K4 phase by phase at 2^21 and 2^24,
-   K3 also on a spectrum whose X[0] and X[n/2] are not real, and the 2^24
-   irfft of that spectrum against np.fft; K5 streaming map: every float32
+   packed rfft K1, K2 and irfft K3, K4 phase by phase at 2^20, 2^21, 2^24
+   and 2^26, K3 also on a spectrum whose X[0] and X[n/2] are not real, and
+   the 2^24 irfft of that spectrum against np.fft; K1 on the unpadded
+   operands of the filterFFT (2^20 samples and 255 taps at n = 2^21, 2^23
+   samples, 4097 taps and 2^23 - 3 samples at n = 2^24) against the plain
+   version on the zero-padded signal; K5 streaming map: every float32
    body at 2^26, scalars on each side, a 1-element tensor, a broadcast
    row, clip with one and two bounds, a ragged count, the complex bodies
    at 2^23 + 1; the
@@ -55,9 +58,10 @@ Phases, each raising on failure (exit code 0 means all passed):
 5. CUDA-event timings of each kernel, its plain version and the one
    PyTorch call that computes the same function (a yardstick the port never
    calls), each as device time per call over 50 calls back to back, the
-   kernel also as the median of 25 single launches; the filterFFT step
-   at n = 2^21 and 2^24 (median of 25); each batched-suite row through
-   the public API beside the torch.fft call on the same shape; K12 at
+   kernel also as the median of 25 single launches (K1 and K4 at 2^21,
+   2^24 and 2^26, K1 also on the filterFFT's unpadded operands); the
+   filterFFT step at n = 2^21 and 2^24 (median of 25); each batched-suite
+   row through the public API beside the torch.fft call on the same shape; K12 at
    2048 x 1, 4096 x 1000 and 65536 x 256; and K8, K9, K10 at 2^24 (T and
    half-T) and 2^19 (half-T).
 
@@ -67,9 +71,11 @@ line. Without a CUDA device the script exits non-zero before any of them.
     python3 chip_smoke.py --profile
 
 runs phases 1-2 and then, in place of the checks, times K12 and the column
-pass of K6, K7, K8 and K10 with blocks of 4096, 8192 and 16384 points and
-K2 with 2-16 row pairs a block, each side by side, and measures where the
-filterFFT step's time goes: the step at n = 2^21 on CUDA events and on the
+pass of K6, K7, K8, K10, K1 and K4 (2^21, 2^24, 2^26, and K1 on 4097 taps
+at 2^24) with blocks of 4096, 8192 and 16384 points and the C its wrapper
+takes, and K2 with 2-16 row pairs a block, each side by side, and measures
+where the filterFFT step's time goes (the copies and fills among the
+kernels): the step at n = 2^21 on CUDA events and on the
 host clock over five repeats in one process, K1 timed one launch at a time
 and 200 launches back to back, and torch.profiler's device time per kernel
 and the device's busy share of the step at n = 2^21 and at n = 2^24; and
@@ -80,9 +86,11 @@ the single-vector ifft(fft(x)) at 2^24 and irfft(rfft(x)) at 2^19.
     python3 chip_smoke.py --wrappers
 
 runs phases 1-2 and then times the wrappers of K6, K8, K9 and K10 at 2^19
-(their host time) with the irfft(rfft(x)) call there, and K6, K7, K8 and
-K10 at 2^24 in turns with torch.fft.fft and ifft. It calls only the
-wrappers, so it also runs from an earlier tree of the port.
+(their host time) with the irfft(rfft(x)) call there, K6, K7, K8 and
+K10 at 2^24 in turns with torch.fft.fft and ifft, K1 and K4 at 2^21, 2^24
+and 2^26 in turns, and the filterFFT step at n = 2^21 and 2^24. It calls
+only the wrappers and the public API, so it also runs from an earlier
+tree of the port.
 """
 
 from __future__ import annotations
@@ -310,14 +318,21 @@ def profile_step(dsc, card: str) -> None:
                      ('single irfft(rfft(x)) 2^19', lambda: dsc.irfft(dsc.rfft(w)))):
         steps = 20
         wall = host_ms(fn)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                fn()
-            torch.cuda.synchronize()
+        for attempt in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    fn()
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            # a kernel recorded a number of times that is no multiple of the
+            # calls: the trace lost events, and its sums undercount
+            if all(e.count % steps == 0 for e in events):
+                break
+            print(f'  torch.profiler lost events ({what}: '
+                  f'{sorted(e.count for e in events)} over {steps} calls), profiling again')
         rows = sorted(((e.self_device_time_total / steps / 1e3, e.count // steps, e.key)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                      reverse=True)
+                       for e in events), reverse=True)
         print(f'torch.profiler, {what}, {steps} calls, device time per call [{card}]:')
         for dev_ms, count, key in rows:
             print(f'  {dev_ms:9.4f} ms  x{count:<3d} {key[:100]}')
@@ -333,12 +348,15 @@ COLUMN_CANDIDATES = (4096, 8192, 16384)   # C*L points a block of the column pas
 
 
 def column_candidates(card: str) -> None:
-    """--profile: the column pass of K6, K7, K8 and K10 with blocks of each
-    size of COLUMN_CANDIDATES (C = points / L columns), back to back in turns (a, b, c, c, b, a) at the batched suite's shapes
-    and the single 2^24 vector's, complex64 and (K7, K10) float32 output;
-    the table the wrappers take C from is stream.COLUMNS."""
-    from dsc_tpu_torch.fourier import plan, stream, stream_t
-    from dsc_tpu_torch.fourier.stream import factors
+    """--profile: the column pass of K6, K7, K8, K10, K1 and K4 with blocks
+    of each size of COLUMN_CANDIDATES (C = points / L columns) and with the
+    C its wrapper takes, back to back in turns (a, b, c, c, b, a) at the
+    batched suite's shapes and the single 2^24 vector's, complex64 and (K7,
+    K10) float32 output, and for K1 and K4 at the packed splits of 2^21,
+    2^24 and 2^26, K1 also on the 4097 taps of the 2^24 filterFFT; the
+    table the wrappers take C from is stream.COLUMNS."""
+    from dsc_tpu_torch.fourier import packed_fused as pf, plan, stream, stream_t
+    from dsc_tpu_torch.fourier.stream import block_columns, factors
 
     gen = np.random.default_rng(5)
 
@@ -346,37 +364,50 @@ def column_candidates(card: str) -> None:
         z = gen.standard_normal(shape) + 1j * gen.standard_normal(shape)
         return torch.from_numpy(z.astype(np.complex64)).cuda()
 
-    cases = []  # (what, L, a launch with c columns a block)
+    cases = []  # (what, L, the wrapper's C, a launch with c columns a block)
     for batch, n in SUITE + ((1, BIG_N),):
         n1, n2 = factors(n)
         t = plan.get_plan(n, 'stream', torch.complex64)[1]
         x = cnormal((batch, n))
         z = stream.phase_a(x, t, False)
         shape = f'{batch} x 2^{n.bit_length() - 1}'
-        cases += [(f'K6 {shape}', n1,
+        cases += [(f'K6 {shape}', n1, block_columns(n1, n2, batch),
                    lambda c, x=x, t=t: stream._launch_phase_a(x, t, False, c)),
-                  (f'K7 {shape}', n2,
+                  (f'K7 {shape}', n2, block_columns(n2, n1, batch),
                    lambda c, z=z, t=t: stream._launch_phase_b(z, t, False, False, c)),
-                  (f'K7 {shape} inverse real output', n2,
+                  (f'K7 {shape} inverse real output', n2, block_columns(n2, n1, batch, 4),
                    lambda c, z=z, t=t: stream._launch_phase_b(z, t, True, True, c))]
         if batch == 1:
             y = cnormal((n1, n2))
-            cases += [(f'K8 {shape} T', n2,
+            cases += [(f'K8 {shape} T', n2, block_columns(n2, n1, 1),
                        lambda c, z=z, t=t: stream_t._launch_phase_b_t(z, t, False, c)),
-                      (f'K10 {shape} T', n1,
+                      (f'K10 {shape} T', n1, block_columns(n1, n2, 1),
                        lambda c, y=y, t=t: stream_t._launch_inv_phase_b_t(y, t, False, c)),
-                      (f'K10 {shape} real output', n1,
+                      (f'K10 {shape} real output', n1, block_columns(n1, n2, 1, 4),
                        lambda c, y=y, t=t: stream_t._launch_inv_phase_b_t(y, t, True, c))]
+    for e in (21, 24, 26):
+        n = 2**e
+        n1, m2 = factors(n)[0], factors(n)[1] // 2
+        t = plan.get_plan(n, 'packed', torch.complex64)[1]
+        x = torch.from_numpy(gen.standard_normal(n).astype(np.float32)).cuda()
+        y = cnormal((n1, m2))
+        c_table = block_columns(n1, m2, 1)
+        cases += [(f'K1 2^{e}', n1, c_table, lambda c, x=x, t=t: pf._launch_phase_a(x, t, c)),
+                  (f'K4 2^{e}', n1, c_table,
+                   lambda c, y=y, t=t: pf._launch_inv_phase_b(y, t, c))]
+        if n == BIG_N:
+            taps = torch.from_numpy(np.blackman(4097).astype(np.float32)).cuda()
+            cases.append((f'K1 2^{e} on 4097 taps', n1, c_table,
+                          lambda c, x=taps, t=t: pf._launch_phase_a(x, t, c)))
     print(f'column pass, block size candidates, ms per launch, 50 launches back to back, '
           f'in turns [{card}]:')
-    for what, L, launch in cases:
-        cols = [max(1, p // L) for p in COLUMN_CANDIDATES]
+    for what, L, c_table, launch in cases:
+        cols = sorted({max(1, p // L) for p in COLUMN_CANDIDATES} | {c_table})
         times = {c: [] for c in cols}
         for c in cols + cols[::-1]:
             times[c].append(back_to_back_ms(lambda c=c: launch(c), 50))
-        print(f'  {what} (L={L}): ' + '; '.join(
-            f'{p} points (C={c}): {float(np.mean(times[c])):.4f} ms'
-            for p, c in zip(COLUMN_CANDIDATES, cols)))
+        print(f'  {what} (L={L}, the wrapper takes C={c_table}): ' + '; '.join(
+            f'C={c} ({c * L} points): {float(np.mean(times[c])):.4f} ms' for c in cols))
 
 
 ROW_CANDIDATES = (4096, 8192, 16384)      # R*n points a block of K12
@@ -428,9 +459,10 @@ def wrapper_times(dsc, card: str) -> None:
     wrapper's Python, K6, K8, K9 and K10 back to back (the wrappers' host
     time) and the irfft(rfft(x)) call on the host clock; at 2^24, K6, K7,
     K8 and K10 in turns (a ... f f ... a) with torch.fft.fft and ifft of
-    the same vector. It calls only the wrappers, whose arguments have not
-    changed since they were ported, so an earlier tree of the port runs it
-    too."""
+    the same vector; K1 and K4 at 2^21, 2^24 and 2^26 in turns; the
+    filterFFT step at n = 2^21 and 2^24 in turns. It calls only the
+    wrappers, whose arguments have not changed since they were ported, and
+    the public API, so an earlier tree of the port runs it too."""
     from dsc_tpu_torch.fourier import plan, stream, stream_t
 
     gen = np.random.default_rng(7)
@@ -466,6 +498,36 @@ def wrapper_times(dsc, card: str) -> None:
     for what, fn in rows + rows[::-1]:
         times[what].append(back_to_back_ms(fn, 50))
     print(f'one 2^24 vector, ms per call, 50 calls back to back, in turns [{card}]:')
+    for what, ms in times.items():
+        print(f'  {what}: {ms[0]:.4f} / {ms[1]:.4f} ms')
+    del v, z, y
+    # the packed column passes K1, K4 and the filterFFT step (public API)
+    from dsc_tpu_torch.fourier import packed_fused as pf
+    rows = []
+    for e in (21, 24, 26):
+        n = 2**e
+        t = plan.get_plan(n, 'packed', torch.complex64)[1]
+        x = torch.from_numpy(gen.standard_normal(n).astype(np.float32)).cuda()
+        y = pf.irfft_phase_a(pf.rfft_phase_b(pf.rfft_phase_a(x, t), t), t)
+        rows += [(f'K1 2^{e}', lambda x=x, t=t: pf.rfft_phase_a(x, t)),
+                 (f'K4 2^{e}', lambda y=y, t=t: pf.irfft_phase_b(y, t))]
+    times = {what: [] for what, _ in rows}
+    for what, fn in rows + rows[::-1]:
+        times[what].append(back_to_back_ms(fn, 50))
+    print(f'K1 and K4, ms per call, 50 calls back to back, in turns [{card}]:')
+    for what, ms in times.items():
+        print(f'  {what}: {ms[0]:.4f} / {ms[1]:.4f} ms')
+    del rows, x, y
+    steps = []
+    for n, k in ((STEP_N, 255), (BIG_N, 4097)):
+        sig = dsc.from_numpy(gen.standard_normal(n // 2).astype(np.float32))
+        taps = dsc.from_numpy(np.blackman(k).astype(np.float32))
+        steps.append((f'filterFFT step n=2^{n.bit_length() - 1}',
+                      lambda sig=sig, taps=taps, k=k, n=n: filter_fft(dsc, sig, taps, k, n)))
+    times = {what: [] for what, _ in steps}
+    for what, fn in steps + steps[::-1]:
+        times[what].append(cuda_ms(fn))
+    print(f'filterFFT step, public API, median of {RUNS} on CUDA events, in turns [{card}]:')
     for what, ms in times.items():
         print(f'  {what}: {ms[0]:.4f} / {ms[1]:.4f} ms')
 
@@ -540,6 +602,9 @@ def main() -> int:
         z = gen.standard_normal(n) + 1j * gen.standard_normal(n)
         return torch.from_numpy(z.astype(np.complex64)).to(dev)
 
+    def taps_of(k):
+        return torch.from_numpy(np.blackman(k).astype(np.float32)).to(dev)
+
     def map_operands(body, n):
         xs = [normal(n) for _ in range(sm.REAL_BODIES[body])]
         if body in ('logn', 'log2', 'log10', 'sqrt'):
@@ -557,7 +622,9 @@ def main() -> int:
             x = cnormal((batch, n))
             compare('base_fft', base_fft.fft_base(x, w),
                     base_fft.fft_base_plain(x, w), f'n={n} batch={batch}')
-    for n in (STEP_N, BIG_N):
+    # the packed splits of 2^20 (the smallest), the two filterFFT sizes and
+    # 2^26 (the largest): K1 and K4 take C = 1, 1, 4 and 2 columns a block
+    for n in (2**20, STEP_N, BIG_N, 2**26):
         t = plan.get_plan(n, 'packed', torch.complex64)[1]
         x_np = gen.standard_normal(n).astype(np.float32)
         x = torch.from_numpy(x_np).to(dev)
@@ -566,10 +633,11 @@ def main() -> int:
         spec = pf.rfft_phase_b(at, t)
         compare('rfft_phase_b', spec, pf.rfft_phase_b_plain(at, t),
                 f'n=2^{n.bit_length() - 1}')
-        ref = np.fft.rfft(x_np.astype(np.float64))
-        e = float(np.abs(spec.cpu().numpy() - ref).max() / np.abs(ref).max())
-        print(f'  rfft K1+K2 vs np.fft float64 n=2^{n.bit_length() - 1}: {e:.3e}')
-        require(e <= NUMPY_BOUND, f'rfft vs np.fft: {e}')
+        if n in (STEP_N, BIG_N):
+            ref = np.fft.rfft(x_np.astype(np.float64))
+            e = float(np.abs(spec.cpu().numpy() - ref).max() / np.abs(ref).max())
+            print(f'  rfft K1+K2 vs np.fft float64 n=2^{n.bit_length() - 1}: {e:.3e}')
+            require(e <= NUMPY_BOUND, f'rfft vs np.fft: {e}')
         y = pf.irfft_phase_a(spec, t)
         compare('irfft_phase_a', y, pf.irfft_phase_a_plain(spec, t),
                 f'n=2^{n.bit_length() - 1}')
@@ -584,13 +652,29 @@ def main() -> int:
         wild = cnormal(n // 2 + 1)
         compare('irfft_phase_a', pf.irfft_phase_a(wild, t), pf.irfft_phase_a_plain(wild, t),
                 f'n=2^{n.bit_length() - 1} non-Hermitian spectrum')
-    wild_np = wild.cpu().numpy()
+        if n == BIG_N:
+            wild_np = wild.cpu().numpy()
+        del x, at, spec, y, back, wild
+    # K1 on the filterFFT's operands as the public path hands them over,
+    # unpadded (the samples past their end count as zeros), against the
+    # plain version on the zero-padded signal; 2^23 - 3 samples end in half
+    # a complex pair
+    for n, x, what in ((STEP_N, normal(2**20), 'the quick start\'s 2^20 samples'),
+                       (STEP_N, taps_of(255), '255 taps'),
+                       (BIG_N, normal(BIG_N // 2), '2^23 samples'),
+                       (BIG_N, taps_of(4097), '4097 taps'),
+                       (BIG_N, normal(BIG_N // 2 - 3), '2^23 - 3 samples')):
+        t = plan.get_plan(n, 'packed', torch.complex64)[1]
+        padded = torch.nn.functional.pad(x, (0, n - x.numel()))
+        compare('rfft_phase_a', pf.rfft_phase_a(x, t), pf.rfft_phase_a_plain(padded, t),
+                f'n=2^{n.bit_length() - 1} on {what}, unpadded')
+    del x, padded
     got = dsc.irfft(dsc.from_numpy(wild_np)).numpy()
     ref = np.fft.irfft(wild_np.astype(np.complex128))
     e = float(np.abs(got - ref).max() / np.abs(ref).max())
     print(f'  dsc.irfft of a non-Hermitian 2^23+1 spectrum vs np.fft float64: {e:.3e}')
     require(got.shape == ref.shape and e <= NUMPY_BOUND, f'irfft non-Hermitian 2^24: {e}')
-    del wild, wild_np, got, ref
+    del wild_np, got, ref
     for body in sm.REAL_BODIES:
         xs = map_operands(body, MAP_N)
         compare('stream_map', sm.stream_map(body, *xs), sm.stream_map_plain(body, *xs),
@@ -982,7 +1066,7 @@ def main() -> int:
               f'{row["copy_bound_ms"]:.4f} ms [{card}]')
         return row
 
-    for n in (STEP_N, BIG_N):
+    for n in (STEP_N, BIG_N, 2**26):
         t = plan.get_plan(n, 'packed', torch.complex64)[1]
         tables = nbytes(t.w_n1, t.w_m2, t.twiddle.lo, t.twiddle.hi, t.untangle.lo,
                         t.untangle.hi)
@@ -999,15 +1083,26 @@ def main() -> int:
         timed('rfft_phase_a', what, lambda: pf.rfft_phase_a(x, t),
               lambda: pf.rfft_phase_a_plain(x, t), lambda: torch.fft.rfft(x),
               nbytes(x, at) + tables, fft_ops(nh, n1) + 6 * nh)
+        timed('irfft_phase_b', what, lambda: pf.irfft_phase_b(y, t),
+              lambda: pf.irfft_phase_b_plain(y, t), lambda: torch.fft.irfft(spec, n),
+              nbytes(y, x) + tables, fft_ops(nh, n1) + 2 * n)
+        if n == 2**26:  # K2 and K3 at the filterFFT's two sizes only
+            continue
         timed('rfft_phase_b', what, lambda: pf.rfft_phase_b(at, t),
               lambda: pf.rfft_phase_b_plain(at, t), lambda: torch.fft.rfft(x),
               nbytes(at, spec) + tables, fft_ops(nh, n2 // 2) + 10 * nh)
         timed('irfft_phase_a', what, lambda: pf.irfft_phase_a(spec, t),
               lambda: pf.irfft_phase_a_plain(spec, t), lambda: torch.fft.irfft(spec, n),
               nbytes(spec, y) + tables, fft_ops(nh, n2 // 2) + 16 * nh)
-        timed('irfft_phase_b', what, lambda: pf.irfft_phase_b(y, t),
-              lambda: pf.irfft_phase_b_plain(y, t), lambda: torch.fft.irfft(spec, n),
-              nbytes(y, x) + tables, fft_ops(nh, n1) + 2 * n)
+        # K1 on the filterFFT's operands, unpadded: it reads only their
+        # samples (the bound counts those) and writes all of At
+        for xs, kind in ((normal(n // 2), 'samples'),
+                         (taps_of(255 if n == STEP_N else 4097), 'taps')):
+            timed('rfft_phase_a', f'{what} on {xs.numel()} {kind}, unpadded',
+                  lambda: pf.rfft_phase_a(xs, t), lambda: pf.rfft_phase_a_plain(xs, t),
+                  lambda: torch.fft.rfft(xs, n), nbytes(xs, at) + tables,
+                  fft_ops(nh, n1) + 6 * nh)
+    del x, at, spec, y, xs
     # K12 at the n = 4096 pair's 2048 x 1, at 4096 x 1000 and at fft2
     # (256, 2^16)'s axis-0 shape, 65536 x 256 (2^24 values, cold in L2)
     for n, batch in ((2048, 1), (4096, 1000), (256, 65536)):

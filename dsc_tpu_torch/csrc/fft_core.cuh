@@ -1,8 +1,8 @@
 // Shared device code of the FFT kernels: complex float2 arithmetic, the
 // factored twiddle lookup, and an in-shared-memory power-of-two FFT
-// (fft_rows: K1, K3, K4, K9; the column pass of K6, K7, K8, K10 and the row
-// pass of K2 and K12 run the register-resident passes of fft_radix.cuh
-// instead).
+// (fft_rows: K3 and K9 only; the column pass of K1, K4, K6, K7, K8, K10 and
+// the row pass of K2 and K12 run the register-resident passes of
+// fft_radix.cuh instead).
 //
 // The FFT is radix-2, decimation in time, IN PLACE: rows are loaded in
 // bit-reversed order (the loaders scatter with bitrev()), then log2(n)

@@ -1,7 +1,7 @@
 // Register-resident radix-2^k FFT building blocks for Hopper: the column
-// pass of stream_columns.cuh (K6, K7, K8, K10) and the row pass of
-// fft_rows_reg.cuh (K2, K12) are made of them; K1, K3, K4 and K9 are still
-// on fft_core.cuh's radix-2 stages in shared memory.
+// pass of stream_columns.cuh (K1, K4, K6, K7, K8, K10) and the row pass of
+// fft_rows_reg.cuh (K2, K12) are made of them; K3 and K9 are still on
+// fft_core.cuh's radix-2 stages in shared memory.
 //
 // A thread holds R = kRadix values of one column in registers. A pass of
 // radix r (r | R) runs R/r DFT_r butterflies on them with the internal
@@ -42,6 +42,13 @@ __device__ __forceinline__ int pad16(int o) { return o + (o >> 4); }
 // plus an offset that puts the 16 / C columns of a half warp (C columns a
 // block, C < 16) on distinct banks
 inline int column_stride(int L, int C) { return L + L / 16 + (C >= 16 ? 1 : 16 / C); }
+
+// Above 48 KB a kernel takes dynamic shared memory only once allowed to.
+inline int set_smem(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
 
 // z * W_16^k, 0 <= k < 8, W = exp(-2 pi i / 16) (INV: its conjugate); k is
 // a constant once the callers' loops unroll, so the switch folds away

@@ -39,13 +39,6 @@ namespace dsc {
 // float2 slots of one row in shared memory (pad16 of L)
 __host__ __device__ constexpr int padded_row(int L) { return L + L / 16; }
 
-// Above 48 KB a kernel takes dynamic shared memory only once allowed to.
-inline int set_smem(const void* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
-}
-
 // v[s + q*G] *= W_L^(e*q), 0 < q < R: W^e and (R > 4) W^(4e) from the
 // stage table, the other factors as products of those, so that a butterfly
 // reads two table entries where radix_pass reads R - 1 (each a warp-wide

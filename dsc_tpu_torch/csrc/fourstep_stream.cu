@@ -26,7 +26,8 @@
 // complex64 values in and out: 0.080 ms at 3.35 TB/s, against 0.013 ms of
 // float32 arithmetic). What the design does about it, and what is still
 // weak after it (the runs of C values at a stride of M, 8-byte accesses),
-// is in stream_columns.cuh, shared with K8 and K10 (fourstep_stream_t.cu).
+// is in stream_columns.cuh, shared with K8 and K10 (fourstep_stream_t.cu)
+// and the packed real FFT's K1 and K4 (packed_rfft.cu).
 // The block size C comes from the caller (fourier/stream.py
 // block_columns).
 

@@ -10,11 +10,17 @@
 // plus the hermitian untangle (packed_fused.py has the formulas). A float2
 // load of x IS z, so the TPU kernel's even/odd selection matmul has no
 // counterpart, and its bf16x3 DFT-matrix products become float32
-// butterflies: K2's row DFT runs the register-resident radix-16 passes of
-// fft_rows_reg.cuh, K1, K3 and K4 still the radix-2 stages of fft_core.cuh.
-// The four-step twiddle W_nh^(k1*j2) and the untangle twiddle W_n^k are as
-// large as the data; each comes from two float64-built tables of ~sqrt
-// entries (fourier/plan.py Factored).
+// butterflies in registers: K1 and K4 are the column pass of
+// stream_columns.cuh (batch 1, L = n1, M = m2, C columns a block from the
+// caller, fourier/stream.py block_columns), K2's row DFT runs the row pass
+// of fft_rows_reg.cuh, and only K3 still runs the radix-2 stages of
+// fft_core.cuh. K1 stores At in place with the four-step twiddle and
+// reads the signal unpadded: floats past its end count as zeros (the
+// filterFFT's zero padding is never written); K4 is the inverse in-place
+// pass scaled by 1/nh, whose complex64 output read as float32 is the real
+// signal. The four-step twiddle W_nh^(k1*j2) and the untangle twiddle
+// W_n^k are as large as the data; each comes from two float64-built
+// tables of ~sqrt entries (fourier/plan.py Factored).
 //
 // Bound on the H100: device memory. At n = 2^24 a forward reads 64 MiB of x,
 // writes and reads the 64 MiB intermediate and writes the 64 MiB spectrum
@@ -23,8 +29,10 @@
 // work of a pass happens on chip between the two.
 //
 // Layout costs, the first things a faster version looks at:
-// - the column passes (K1, K4) read and write rows of `cols` consecutive
-//   complex values (32 B at cols = 4, one sector) at a stride of m2;
+// - the column passes (K1, K4) read and write runs of C consecutive
+//   complex values at a stride of m2: 32 B (one sector) at n = 2^24, where
+//   C = 4, but 8-16 B where the grid's 512 blocks or the 1024 threads cap C
+//   (C = 1 at 2^20 and 2^21, 2 at 2^22, 2^23, 2^25, 2^26);
 // - the row passes (K2, K3) own P consecutive rows k1 and their mirrors
 //   n1-k1 and touch the natural spectrum X[k1 + n1*k2] in runs of P
 //   complex values at a stride of n1. K2 takes P from its caller
@@ -34,8 +42,7 @@
 //   k = bP+1 .. bP+P start one value past a P-aligned row, so each spans
 //   two 32-byte sectors whose other parts the neighbouring blocks write.
 //   K3 keeps P = 8192 / (2*m2): 16-byte runs from n = 2^24;
-// - the in-place radix-2 stages of K1, K3, K4 bank-conflict in shared
-//   memory.
+// - K3's in-place radix-2 stages bank-conflict in shared memory.
 //
 // The TPU phase B needs a boundary-row DFT and precomputed k1 = 0 rows
 // (packed_fused.py:856-883, :913-921) because its tile pairs cannot see
@@ -46,53 +53,15 @@
 // the Nyquist bin X[nh] = Re Z[0] - Im Z[0]).
 
 #include "fft_rows_reg.cuh"
+#include "stream_columns.cuh"
 
 using namespace dsc;
 
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kColumnPoints = 16384;  // column pass: n1 * cols <= 16384 (128 KB)
 constexpr int kRowPoints = 8192;      // K3: 2 * P * m2 <= 8192 (64 KB)
 constexpr int kRowThreads = 1024;     // K2: 2 * P * m2 / 16 <= 1024, at most 64 registers
-
-// ---------------------------------------------------------------------------
-// column passes (K1, K4): `cols` consecutive columns j0.. of an (n1, m2)
-// complex array per block; column c at smem + c * (n1 + 1) (the pad keeps
-// the column-to-column accesses on different banks)
-// ---------------------------------------------------------------------------
-
-template <bool INV>
-__global__ void __launch_bounds__(kThreads)
-column_pass_kernel(const float2* __restrict__ in, float2* __restrict__ out, int log2n1,
-                   int m2, int log2cols, const float2* __restrict__ w_n1,
-                   const float2* __restrict__ tw_lo, const float2* __restrict__ tw_hi,
-                   int tw_bits, float scale) {
-  extern __shared__ float2 smem[];
-  const int n1 = 1 << log2n1;
-  const int cols = 1 << log2cols;
-  const int stride = n1 + 1;
-  const int j0 = blockIdx.x * cols;
-  const int total = n1 * cols;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int c = i & (cols - 1);
-    const int j1 = i >> log2cols;
-    smem[c * stride + bitrev(j1, log2n1)] = in[(long)j1 * m2 + j0 + c];
-  }
-  __syncthreads();
-  fft_rows<INV>(smem, cols, stride, log2n1, w_n1);
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int c = i & (cols - 1);
-    const int k1 = i >> log2cols;
-    float2 v = smem[c * stride + k1];
-    if (INV) {
-      v = cscale(v, scale);  // K4: z[k1*m2 + j] = (1/nh) * column IDFT
-    } else {                 // K1: four-step twiddle W_nh^(k1*j2)
-      v = cmul(v, factored_twiddle(tw_lo, tw_hi, tw_bits, (unsigned)k1 * (unsigned)(j0 + c)));
-    }
-    out[(long)k1 * m2 + j0 + c] = v;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // row passes (K2, K3): block b < npairs holds 2P rows, slot i < P is row
@@ -232,23 +201,6 @@ irfft_phase_a_kernel(const float2* __restrict__ spec, float2* __restrict__ y, in
   }
 }
 
-template <bool INV>
-int launch_column_pass(const void* in, void* out, int n1, int m2, const void* w_n1,
-                       const void* tw_lo, const void* tw_hi, int tw_bits, float scale,
-                       void* stream) {
-  int cols = kColumnPoints / n1;
-  if (cols > 4) cols = 4;
-  if (cols > m2) cols = m2;
-  const size_t smem = (size_t)cols * (n1 + 1) * sizeof(float2);
-  const void* kernel = (const void*)column_pass_kernel<INV>;
-  int err = set_smem(kernel, smem);
-  if (err) return err;
-  column_pass_kernel<INV><<<m2 / cols, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float2*)in, (float2*)out, ilog2(n1), m2, ilog2(cols), (const float2*)w_n1,
-      (const float2*)tw_lo, (const float2*)tw_hi, tw_bits, scale);
-  return (int)cudaGetLastError();
-}
-
 template <int LOG2M2>
 int launch_rfft_phase_b(const void* at, void* spec, int n1, int P, const void* w_m2,
                         const void* un_lo, const void* un_hi, int un_bits, void* stream) {
@@ -274,10 +226,14 @@ int pairs_per_block(int m2) {
 
 extern "C" {
 
-// x: (n1*m2*2,) float32 = z (n1, m2) complex64 -> at (n1, m2) complex64
-int dsc_rfft_phase_a(const void* x, void* at, int n1, int m2, const void* w_n1,
-                     const void* tw_lo, const void* tw_hi, int tw_bits, void* stream) {
-  return launch_column_pass<false>(x, at, n1, m2, w_n1, tw_lo, tw_hi, tw_bits, 1.f, stream);
+// x: (valid,) float32, 1 <= valid <= 2*n1*m2, zero-padded to 2*n1*m2 = z
+// (n1, m2) complex64 -> at (n1, m2) complex64; C = columns a block
+int dsc_rfft_phase_a(const void* x, void* at, long long valid, int n1, int m2,
+                     const void* w_n1, const void* tw_lo, const void* tw_hi, int tw_bits,
+                     int columns, void* stream) {
+  if (valid < 1 || valid > 2LL * n1 * m2) return (int)cudaErrorInvalidValue;
+  return launch_columns<false, false, kStoreInPlaceTwiddled, false, true>(
+      x, at, 1, n1, m2, columns, w_n1, tw_lo, tw_hi, tw_bits, 1.f, stream, (long)valid);
 }
 
 // at (n1, m2) -> spec (n1*m2 + 1,) complex64, natural order; P row pairs a
@@ -312,10 +268,12 @@ int dsc_irfft_phase_a(const void* spec, void* y, int n1, int m2, const void* w_m
   return (int)cudaGetLastError();
 }
 
-// y (n1, m2) complex64 -> out (2*n1*m2,) float32 (even samples = real parts)
+// y (n1, m2) complex64 -> out (2*n1*m2,) float32 (even samples = real
+// parts), scaled by `scale`; C = columns a block
 int dsc_irfft_phase_b(const void* y, void* out, int n1, int m2, const void* w_n1,
-                      float scale, void* stream) {
-  return launch_column_pass<true>(y, out, n1, m2, w_n1, nullptr, nullptr, 0, scale, stream);
+                      float scale, int columns, void* stream) {
+  return launch_columns<true, false, kStoreInPlace, false>(
+      y, out, 1, n1, m2, columns, w_n1, nullptr, nullptr, 0, scale, stream);
 }
 
 }  // extern "C"

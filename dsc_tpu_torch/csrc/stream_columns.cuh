@@ -1,16 +1,22 @@
-// The column pass of the streaming four-step kernels: K6, K7
-// (fourstep_stream.cu) and K8, K10 (fourstep_stream_t.cu).
+// The column pass of the four-step kernels: K6, K7 (fourstep_stream.cu),
+// K8, K10 (fourstep_stream_t.cu) and the packed real FFT's K1, K4
+// (packed_rfft.cu).
 //
 // A block owns C consecutive columns of one (L, M) matrix of B row-major
 // matrices, 256 <= L <= 8192, and transforms each column with the
 // register-resident Stockham passes of fft_radix.cuh: T = L/16 threads a
 // column, 16 values a thread, passes of radix 16 (the last one of radix
 // 2, 4 or 8 where log2(L) is not a multiple of 4), the values crossing
-// shared memory once between two passes. It stores them in one of four
+// shared memory once between two passes. It stores them in one of five
 // ways (STORE):
 //   kStoreInPlace      back into the columns they came from, scaled by
 //                      `scale`, as complex64 or (REAL_OUT) the float32
-//                      real part (K7, K10);
+//                      real part (K7, K10; K4, whose complex64 output
+//                      read as float32 is the interleaved real signal);
+//   kStoreInPlaceTwiddled  back into the columns they came from, value k
+//                      of column m times the four-step twiddle
+//                      W_n^(s*k*m) (K1: At keeps z's (n1, m2) layout,
+//                      which K2 reads row by row);
 //   kStoreRowsTwiddled column m of matrix b as the contiguous L-long row
 //                      b*M + m, times the four-step twiddle W_n^(s*k*m)
 //                      (K6);
@@ -23,7 +29,13 @@
 // inter-pass twiddles W_L^e come from the float64-built stage table. INV
 // conjugates the table values and the butterflies' constants: no
 // conjugation pass over the data. REAL_IN reads float32 and takes it as
-// the real part (the rfft's K6).
+// the real part (the rfft's K6). BOUNDED (K1 alone) reads complex value i
+// as floats 2i and 2i+1 of a float32 signal of `valid` floats, each float
+// at or past `valid` as 0 (an odd `valid` leaves one half pair): the
+// packed real FFT reads its unpadded input, and no zero padding is ever
+// written to device memory. Its load has no branch (a select per value):
+// per-value branches around the two loads took K1 at n = 2^24 from 0.110
+// to 0.120 ms on an H100 80GB HBM3 at 700 W (PERF.md).
 //
 // Bound on the H100: device memory. A pass over 2^24 complex64 values
 // reads 128 MiB and writes 128 MiB (0.080 ms at 3.35 TB/s) against
@@ -42,7 +54,7 @@
 // - the row stores (K6, K8) read the last pass's values with the threads
 //   of a column neighbouring (t fastest), so neighbouring threads write
 //   neighbouring values of one output row; the first pass and the in-place
-//   store keep neighbouring threads on neighbouring columns.
+//   stores keep neighbouring threads on neighbouring columns.
 //
 // Known weaknesses, the first things a faster version looks at:
 // - the reads (and the in-place writes) are still runs of C complex values
@@ -71,6 +83,11 @@ constexpr int kStoreInPlace = 0;
 constexpr int kStoreRowsTwiddled = 1;
 constexpr int kStoreRows = 2;
 constexpr int kStoreRowsHalf = 3;
+constexpr int kStoreInPlaceTwiddled = 4;
+
+__host__ __device__ constexpr bool in_place(int store) {
+  return store == kStoreInPlace || store == kStoreInPlaceTwiddled;
+}
 
 constexpr int kColumnThreads = 1024;  // C * L / 16 <= 1024; at most 64 registers a thread
 
@@ -96,13 +113,14 @@ __device__ __forceinline__ void store_pass(const float2 (&v)[kRadix], int log2r,
 }
 
 // Matrix b at in + b*L*M; block blockIdx.x owns columns m0 .. m0 + C - 1 of
-// matrix b; column c sits at smem + c * cstride between passes.
-template <bool INV, bool REAL_IN, int STORE, bool REAL_OUT>
+// matrix b; column c sits at smem + c * cstride between passes. Only the
+// BOUNDED instances read `valid`.
+template <bool INV, bool REAL_IN, int STORE, bool REAL_OUT, bool BOUNDED>
 __global__ void __launch_bounds__(kColumnThreads, 1)
 stream_column_kernel(const void* __restrict__ in, void* __restrict__ out, int log2L, int log2M,
                      int log2C, int cstride, const float2* __restrict__ w,
                      const float2* __restrict__ tw_lo, const float2* __restrict__ tw_hi,
-                     int tw_bits, float scale) {
+                     int tw_bits, float scale, long valid) {
   extern __shared__ float2 smem[];
   const int log2T = log2L - kLog2Radix;  // threads a column
   const int log2G = log2M - log2C;       // column groups a matrix
@@ -113,11 +131,23 @@ stream_column_kernel(const void* __restrict__ in, void* __restrict__ out, int lo
   int c = threadIdx.x & ((1 << log2C) - 1);
   int t = threadIdx.x >> log2C;
   float2 v[kRadix];
+  const long pairs = valid >> 1;  // BOUNDED: the signal's complete pairs
+  const float odd_last =
+      BOUNDED && (valid & 1) ? static_cast<const float*>(in)[valid - 1] : 0.f;
 #pragma unroll
   for (int u = 0; u < kRadix; ++u) {
     const long src = base + ((long)(t + (u << log2T)) << log2M) + m0 + c;
-    v[u] = REAL_IN ? make_float2(static_cast<const float*>(in)[src], 0.f)
-                   : static_cast<const float2*>(in)[src];
+    if (BOUNDED) {
+      // branch-free, so that the 16 loads issue back to back: a place past
+      // the last complete pair loads pair 0 (in bounds, cached) and keeps a
+      // zero, or the signal's odd last float
+      const float2 q = pairs > 0 ? static_cast<const float2*>(in)[src < pairs ? src : 0]
+                                 : make_float2(0.f, 0.f);
+      v[u] = src < pairs ? q : make_float2(src == pairs ? odd_last : 0.f, 0.f);
+    } else {
+      v[u] = REAL_IN ? make_float2(static_cast<const float*>(in)[src], 0.f)
+                     : static_cast<const float2*>(in)[src];
+    }
   }
   int log2Ns = 0;
   for (;;) {
@@ -128,7 +158,7 @@ stream_column_kernel(const void* __restrict__ in, void* __restrict__ out, int lo
     __syncthreads();
     log2Ns += log2r;
     const bool last = log2Ns + min(kLog2Radix, log2L - log2Ns) == log2L;
-    if (last && STORE != kStoreInPlace) {
+    if (last && !in_place(STORE)) {
       // the row stores: neighbouring threads take neighbouring values of
       // one column
       c = threadIdx.x >> log2T;
@@ -140,11 +170,16 @@ stream_column_kernel(const void* __restrict__ in, void* __restrict__ out, int lo
     if (!last) __syncthreads();  // the next pass's store overwrites
   }
   // v[u] is value k = t + u*T of the transform of column m0 + c
-  if (STORE == kStoreInPlace) {
+  if (in_place(STORE)) {
 #pragma unroll
     for (int u = 0; u < kRadix; ++u) {
-      const long dst = base + ((long)(t + (u << log2T)) << log2M) + m0 + c;
-      const float2 y = cscale(v[u], scale);
+      const int k = t + (u << log2T);
+      const long dst = base + ((long)k << log2M) + m0 + c;
+      float2 y = cscale(v[u], scale);
+      if (STORE == kStoreInPlaceTwiddled) {
+        float2 tw = factored_twiddle(tw_lo, tw_hi, tw_bits, (unsigned)k * (unsigned)(m0 + c));
+        y = cmul(y, INV ? conj2(tw) : tw);
+      }
       if (REAL_OUT) {
         static_cast<float*>(out)[dst] = y.x;
       } else {
@@ -169,20 +204,14 @@ stream_column_kernel(const void* __restrict__ in, void* __restrict__ out, int lo
   }
 }
 
-// Above 48 KB a kernel takes dynamic shared memory only once allowed to.
-inline int set_smem(const void* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
-}
-
 // The pass over `batch` (L, M) matrices with C columns a block: C*L/16
 // threads and C*column_stride(L, C) float2 of shared memory a block
-// (fourier/stream.py block_columns chooses C).
-template <bool INV, bool REAL_IN, int STORE, bool REAL_OUT>
+// (fourier/stream.py block_columns chooses C). `valid`: the floats of the
+// input that a BOUNDED pass reads.
+template <bool INV, bool REAL_IN, int STORE, bool REAL_OUT, bool BOUNDED = false>
 int launch_columns(const void* in, void* out, int batch, int L, int M, int C, const void* w,
                    const void* tw_lo, const void* tw_hi, int tw_bits, float scale,
-                   void* stream) {
+                   void* stream, long valid = 0) {
   const int log2L = ilog2(L), log2M = ilog2(M), log2C = ilog2(C);
   if (L < 256 || L > 8192 || (1 << log2L) != L || (1 << log2M) != M || (1 << log2C) != C ||
       C > M || C * (L / kRadix) > kColumnThreads)
@@ -190,13 +219,14 @@ int launch_columns(const void* in, void* out, int batch, int L, int M, int C, co
   const long blocks = (long)batch * (M / C);
   const int cstride = column_stride(L, C);
   const size_t smem = (size_t)C * cstride * sizeof(float2);
-  const void* kernel = (const void*)stream_column_kernel<INV, REAL_IN, STORE, REAL_OUT>;
+  const void* kernel =
+      (const void*)stream_column_kernel<INV, REAL_IN, STORE, REAL_OUT, BOUNDED>;
   int err = set_smem(kernel, smem);
   if (err) return err;
-  stream_column_kernel<INV, REAL_IN, STORE, REAL_OUT>
+  stream_column_kernel<INV, REAL_IN, STORE, REAL_OUT, BOUNDED>
       <<<(unsigned)blocks, C * (L / kRadix), smem, (cudaStream_t)stream>>>(
           in, out, log2L, log2M, log2C, cstride, (const float2*)w, (const float2*)tw_lo,
-          (const float2*)tw_hi, tw_bits, scale);
+          (const float2*)tw_hi, tw_bits, scale, valid);
   return (int)cudaGetLastError();
 }
 

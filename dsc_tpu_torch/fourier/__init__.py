@@ -124,8 +124,9 @@ def rfft(x: Tensor, out: Optional[Tensor] = None, n: int = -1, axis: int = -1) -
                              full_n // 2 + 1, full_n, True)
         if route == 'packed':
             _, tables = plan.get_plan(full_n, 'packed', torch.complex64)
-            sig = core._pad_crop(data.reshape(-1), full_n).contiguous()
-            res = packed_fused.rfft_packed(sig, tables).reshape(
+            # K1 reads the unpadded signal (a crop is a view) and zeros
+            # what lies past its end
+            res = packed_fused.rfft_packed(data.reshape(-1)[:full_n], tables).reshape(
                 _out_shape(x, ax, full_n // 2 + 1))
         else:
             spec, tables = _core_plan(route, full_n, 'real', TORCH_DTYPE[x.dtype.as_complex])

@@ -15,13 +15,22 @@ signal: even samples in the real parts, odd samples in the imaginary ones.
 Four kernels, each a pass over device memory (csrc/packed_rfft.cu):
 
   K1 rfft_phase_a    column DFT_n1 of z + four-step twiddle W_nh^(k1*j2)
-                     -> At (n1, m2), row k1 contiguous
+                     -> At (n1, m2), row k1 contiguous; x may be shorter
+                     than n: the samples past its end count as zeros
   K2 rfft_phase_b    row DFT_m2 of At (Z[k1 + n1*k2] = Z_T[k1, k2]) +
                      untangle -> natural (nh+1,) spectrum
   K3 irfft_phase_a   entangle (of the real parts of X[0] and X[nh], as
                      np.fft.irfft) + inverse row DFT_m2 + twiddle
                      W_nh^-(k1*j2) -> Y (n1, m2)
   K4 irfft_phase_b   inverse column DFT_n1, 1/nh scale -> (n,) real
+
+K1 and K4 are the column pass that the streaming kernels share
+(csrc/stream_columns.cuh: batch 1, L = n1, M = m2), C columns a block from
+``stream.block_columns(n1, m2, 1, 8)``. K1 reads the signal unpadded and
+zeros what lies past its end as it loads, so the filterFFT's zero padding
+is never written to device memory; K4 stores in place, scaled by 1/nh. K2
+runs the register-resident row pass (csrc/fft_rows_reg.cuh), K3 still the
+radix-2 stages of csrc/fft_core.cuh.
 
 The mirror operand of the untangle, Z[nh-k] = Z_T[n1-k1, m2-1-k2] (and
 Z_T[0, (m2-k2) mod m2] for k1 = 0), lies in row n1-k1, so the phase-B
@@ -85,10 +94,20 @@ def block_pairs(m2: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _check_signal(x: torch.Tensor, nh: int) -> None:
+    if x.dim() != 1 or not 1 <= x.numel() <= 2 * nh:
+        raise RuntimeError(f'rfft_phase_a: x must hold 1 ... {2 * nh} samples, '
+                           f'got shape {tuple(x.shape)}')
+
+
 def rfft_phase_a_plain(x: torch.Tensor, t: PackedTables) -> torch.Tensor:
-    """K1: (n,) f32 -> At (n1, m2) c64, At[k1, j2] =
-    W_nh^(k1*j2) * sum_j1 z[j1*m2 + j2] W_n1^(j1*k1)."""
-    n1, m2, _ = _sizes(t)
+    """K1: (valid,) f32, 1 <= valid <= n, zero-padded to n -> At (n1, m2)
+    c64, At[k1, j2] = W_nh^(k1*j2) * sum_j1 z[j1*m2 + j2] W_n1^(j1*k1).
+    The kernel reads the same unpadded x and takes the samples past its end
+    as zeros: the same function."""
+    n1, m2, nh = _sizes(t)
+    _check_signal(x, nh)
+    x = torch.nn.functional.pad(x, (0, 2 * nh - x.numel()))
     z = torch.view_as_complex(x.reshape(n1, m2, 2))
     a = stockham_fft(z.transpose(0, 1).contiguous(), t.w_n1)   # (m2, n1)
     dev = x.device
@@ -127,7 +146,8 @@ def irfft_phase_b_plain(y: torch.Tensor, t: PackedTables) -> torch.Tensor:
 
 
 def rfft_packed_plain(x: torch.Tensor, t: PackedTables) -> torch.Tensor:
-    """Plain version of K1+K2: (n,) f32 -> (n/2+1,) c64."""
+    """Plain version of K1+K2: (valid,) f32, zero-padded to n -> (n/2+1,)
+    c64."""
     return rfft_phase_b_plain(rfft_phase_a_plain(x, t), t)
 
 
@@ -150,16 +170,27 @@ def _check_tables(t: PackedTables) -> None:
 
 
 def rfft_phase_a(x: torch.Tensor, t: PackedTables) -> torch.Tensor:
-    """K1 on a CUDA tensor, its plain version on a CPU tensor."""
+    """K1 on a CUDA tensor, its plain version on a CPU tensor. ``x``: 1 ... n
+    float32 samples; those past its end count as zeros."""
     if x.device.type == 'cpu':
         return rfft_phase_a_plain(x, t)
+    n1, m2, _ = _sizes(t)
+    return _launch_phase_a(x, t, stream.block_columns(n1, m2, 1, 8))
+
+
+def _launch_phase_a(x: torch.Tensor, t: PackedTables, columns: int) -> torch.Tensor:
+    """K1 with ``columns`` columns a block. The kernel's float2 loads need
+    8-byte aligned data, which a sliced view may lack: ``build.aligned``
+    copies such a view."""
     n1, m2, nh = _sizes(t)
-    build.check(x, torch.float32, (2 * nh,), 'x')
+    _check_signal(x, nh)
+    x = build.aligned(x)
+    build.check(x, torch.float32, (x.numel(),), 'x')
     _check_tables(t)
     at = torch.empty((n1, m2), dtype=torch.complex64, device=x.device)
-    build.launch('rfft_phase_a', x.data_ptr(), at.data_ptr(), n1, m2,
+    build.launch('rfft_phase_a', x.data_ptr(), at.data_ptr(), x.numel(), n1, m2,
                  t.w_n1.data_ptr(), t.twiddle.lo.data_ptr(),
-                 t.twiddle.hi.data_ptr(), t.twiddle.bits)
+                 t.twiddle.hi.data_ptr(), t.twiddle.bits, columns)
     return at
 
 
@@ -202,17 +233,24 @@ def irfft_phase_b(y: torch.Tensor, t: PackedTables) -> torch.Tensor:
     """K4 on a CUDA tensor, its plain version on a CPU tensor."""
     if y.device.type == 'cpu':
         return irfft_phase_b_plain(y, t)
+    n1, m2, _ = _sizes(t)
+    return _launch_inv_phase_b(y, t, stream.block_columns(n1, m2, 1, 8))
+
+
+def _launch_inv_phase_b(y: torch.Tensor, t: PackedTables, columns: int) -> torch.Tensor:
+    """K4 with ``columns`` columns a block."""
     n1, m2, nh = _sizes(t)
     build.check(y, torch.complex64, (n1, m2), 'y')
     _check_tables(t)
     out = torch.empty(2 * nh, dtype=torch.float32, device=y.device)
     build.launch('irfft_phase_b', y.data_ptr(), out.data_ptr(), n1, m2,
-                 t.w_n1.data_ptr(), 1.0 / nh)
+                 t.w_n1.data_ptr(), 1.0 / nh, columns)
     return out
 
 
 def rfft_packed(x: torch.Tensor, t: PackedTables) -> torch.Tensor:
-    """(n,) f32 -> (n/2+1,) c64 through K1 and K2."""
+    """(valid,) f32, 1 <= valid <= n, zero-padded to n -> (n/2+1,) c64
+    through K1 and K2."""
     return rfft_phase_b(rfft_phase_a(x, t), t)
 
 

@@ -23,8 +23,9 @@ take the two kernels (config.py): the split ``factors`` and ``supported``
 with the batch grouping ``_group``. The grouping only sizes the TPU's
 copies; the kernels need none, but the rule stays the JAX package's. And
 here lives ``block_columns``, the choice of the block size C of the column
-pass that K6, K7, K8 and K10 share (csrc/stream_columns.cuh); the launcher
-derives the rest of the geometry from C.
+pass that K6, K7, K8, K10 and the packed K1, K4 share
+(csrc/stream_columns.cuh); the launcher derives the rest of the geometry
+from C.
 
 Each kernel has a plain PyTorch version (``*_plain``) with the same inputs
 and outputs; the wrappers launch the kernel for CUDA tensors and run the

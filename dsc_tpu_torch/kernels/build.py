@@ -45,12 +45,14 @@ _L = ctypes.c_longlong
 KERNELS = {
     # x, y, batch, n, w, rows a block
     'base_fft': ('dsc_base_fft', (_P, _P, _I, _I, _P, _I)),
-    'rfft_phase_a': ('dsc_rfft_phase_a', (_P, _P, _I, _I, _P, _P, _P, _I)),
+    # x, at, floats of x, n1, m2, w_n1, twiddle lo, hi, bits, columns a block
+    'rfft_phase_a': ('dsc_rfft_phase_a', (_P, _P, _L, _I, _I, _P, _P, _P, _I, _I)),
     # at, spec, n1, m2, w_m2, untangle lo, hi, bits, row pairs a block
     'rfft_phase_b': ('dsc_rfft_phase_b', (_P, _P, _I, _I, _P, _P, _P, _I, _I)),
     'irfft_phase_a': ('dsc_irfft_phase_a',
                       (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I)),
-    'irfft_phase_b': ('dsc_irfft_phase_b', (_P, _P, _I, _I, _P, _F)),
+    # y, out, n1, m2, w_n1, scale, columns a block
+    'irfft_phase_b': ('dsc_irfft_phase_b', (_P, _P, _I, _I, _P, _F, _I)),
     # op code; (pointer, re, im, kind, brow length) for three operands; out, n
     'stream_map': ('dsc_stream_map', (_I, *(_P, _F, _F, _I, _I) * 3, _P, _L)),
     # x, z, batch, n1, n2, real input, inverse, w_n1, twiddle lo, hi, bits,

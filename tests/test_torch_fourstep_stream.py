@@ -142,14 +142,24 @@ def _column_passes():
     return sorted(cases)
 
 
-@pytest.mark.parametrize('out_bytes', [8, 4])
-@pytest.mark.parametrize('L,M,batch', _column_passes())
+def _column_cases():
+    """(L, M, batch, output bytes): every pass of ``_column_passes`` with
+    complex64 and float32 output, and the packed real FFT's K1 and K4
+    (L = n1, M = m2 = n2/2, batch 1, complex64 output) at n = 2^20 ... 2^26
+    (fourier/packed_fused.py) where no streaming pass has the same case."""
+    cases = [(L, M, batch, out) for out in (8, 4) for L, M, batch in _column_passes()]
+    packed = [(n1, n2 // 2, 1, 8) for n1, n2 in (stream.factors(2**e) for e in range(20, 27))]
+    return cases + [case for case in packed if case not in cases]
+
+
+@pytest.mark.parametrize('L,M,batch,out_bytes', _column_cases())
 def test_column_schedule(L, M, batch, out_bytes):
     """The block size C of every column pass the routes launch, with
-    complex64 output and (K7, K10 real output) float32, against what the
-    kernel needs of it (csrc/stream_columns.cuh launch_columns: C a power
-    of two dividing M, C*L/16 <= 1024 threads a block, each 16 values of a
-    column in 64 registers at most) and what the timed candidates chose."""
+    complex64 output and (K7, K10 real output) float32, K1 and K4 among
+    them, against what the kernel needs of it (csrc/stream_columns.cuh
+    launch_columns: C a power of two dividing M, C*L/16 <= 1024 threads a
+    block, each 16 values of a column in 64 registers at most) and what the
+    timed candidates chose."""
     c = stream.block_columns(L, M, batch, out_bytes)
     assert c >= 1 and c & (c - 1) == 0 and M % c == 0
     assert c * L // 16 <= 1024

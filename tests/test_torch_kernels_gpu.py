@@ -96,6 +96,83 @@ def test_packed_kernels_phase_by_phase(e):
     assert float((back - x).abs().max()) < 2e-4
 
 
+def _launchable_columns(n1, m2):
+    """Every C the column pass's launcher takes for K1 and K4 at (n1, m2):
+    a power of two, C <= m2, C*n1/16 <= 1024 threads."""
+    return [c for c in (1, 2, 4, 8, 16) if c <= m2 and c * n1 // 16 <= 1024]
+
+
+@pytest.mark.parametrize('e', range(20, 27))
+def test_packed_column_pass_block_sizes(e):
+    """K1 and K4 with every C the launcher takes, the C of
+    stream.block_columns among them, against their plain versions; each
+    grid of m2/C blocks leaves a ragged last wave on 132 SMs. A C off the
+    launcher (not a power of two, or over 1024 threads) is refused."""
+    n = 2**e
+    t = plan.get_plan(n, 'packed', torch.complex64)[1]
+    n1, n2 = stream.factors(n)
+    m2 = n2 // 2
+    x = torch.from_numpy(np.random.default_rng(e).standard_normal(n).astype(np.float32)).cuda()
+    y = _cnormal((n1, m2), e)
+    ref_a, ref_b = pf.rfft_phase_a_plain(x, t), pf.irfft_phase_b_plain(y, t)
+    cols = _launchable_columns(n1, m2)
+    assert stream.block_columns(n1, m2, 1, 8) in cols
+    for c in cols:
+        assert _rel(pf._launch_phase_a(x, t, c), ref_a) < REL, c
+        assert _rel(pf._launch_inv_phase_b(y, t, c), ref_b) < REL, c
+    for c in (3, 2 * cols[-1]):
+        with pytest.raises(RuntimeError, match='dsc_rfft_phase_a'):
+            pf._launch_phase_a(x, t, c)
+        with pytest.raises(RuntimeError, match='dsc_irfft_phase_b'):
+            pf._launch_inv_phase_b(y, t, c)
+    del x, y, ref_a, ref_b
+    plan.clear_plans()
+
+
+@pytest.mark.parametrize('e', [21, 24])
+def test_rfft_phase_a_unpadded_signal(e):
+    """K1 on signals shorter than n (one sample, the filterFFT's taps and
+    signals, odd counts with one half pair) against its plain version on
+    the zero-padded signal, and on sliced views 4 and 8 bytes past an
+    aligned start, which the wrapper copies to aligned memory."""
+    n = 2**e
+    t = plan.get_plan(n, 'packed', torch.complex64)[1]
+    big = torch.from_numpy(np.random.default_rng(e).standard_normal(n + 2)
+                           .astype(np.float32)).cuda()
+    for length in (1, 255, 4097, n // 2 - 3, n // 2, n // 2 + 1, n - 1, n):
+        x = big[:length]
+        ref = pf.rfft_phase_a_plain(torch.nn.functional.pad(x, (0, n - length)), t)
+        before = build.launches['rfft_phase_a']
+        assert _rel(pf.rfft_phase_a(x, t), ref) < REL, length
+        assert build.launches['rfft_phase_a'] == before + 1
+    for offset in (1, 2):
+        x = big[offset:offset + n // 2 + 1]
+        assert x.data_ptr() % 16
+        ref = pf.rfft_phase_a_plain(torch.nn.functional.pad(x, (0, n - x.numel())), t)
+        assert _rel(pf.rfft_phase_a(x, t), ref) < REL, offset
+
+
+def test_filter_fft_2_24_against_float64():
+    """The filterFFT at n = 2^24 (2^23 samples, 4097 taps) through the
+    public API: K1 reads both operands unpadded; against a float64 FFT
+    convolution."""
+    n = 2**24
+    rng = np.random.default_rng(24)
+    sig = rng.standard_normal(n // 2).astype(np.float32)
+    taps = np.blackman(4097).astype(np.float32)
+    build.reset_launches()
+    spec = dt.rfft(dt.from_numpy(sig), n=n) * dt.rfft(dt.from_numpy(taps), n=n)
+    got = dt.irfft(spec)[: n // 2 + 4096].numpy()
+    torch.cuda.synchronize()
+    assert {k: build.launches[k] for k in ('rfft_phase_a', 'rfft_phase_b', 'irfft_phase_a',
+                                           'irfft_phase_b')} == {
+        'rfft_phase_a': 2, 'rfft_phase_b': 2, 'irfft_phase_a': 1, 'irfft_phase_b': 1}
+    spec64 = np.fft.rfft(sig.astype(np.float64), n) * np.fft.rfft(taps.astype(np.float64), n)
+    ref = np.fft.irfft(spec64, n)[: n // 2 + 4096]
+    assert got.shape == ref.shape and got.dtype == np.float32
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
+
+
 @pytest.mark.parametrize('e', range(20, 27))
 def test_rfft_phase_b_block_shapes(e):
     """K2 with every number of row pairs a block that 1024 threads allow,

@@ -3,6 +3,9 @@ the JAX package's fused packed engine run in interpret mode on the CPU
 (dsc_tpu/fourier/packed_fused.py), at (n1, n2) = (512, 1024), the smallest
 split the engine takes (tests/test_packed_fused.py)."""
 
+import functools
+import gc
+
 import numpy as np
 import pytest
 
@@ -182,3 +185,179 @@ def test_block_pairs(n1, m2):
 def test_block_pairs_refuses_lengths_off_the_kernel():
     with pytest.raises(ValueError, match='rfft_phase_b'):
         pf.block_pairs(8192)
+
+
+# ---------------------------------------------------------------------------
+# K1's pad fold and the column pass of K1 and K4 (csrc/stream_columns.cuh)
+# at n = 2^20, the smallest split of the packed route
+# ---------------------------------------------------------------------------
+
+N20 = 2**20
+SPLIT20 = (1024, 1024)
+# a single sample, an odd count (one half pair), an even count, no padding
+LENGTHS = [1, 2**19 + 1, 3 * 2**17, N20]
+
+
+@pytest.fixture(scope='module')
+def tables20():
+    return plan.packed_tables(*SPLIT20, torch.complex64, 'cpu')
+
+
+@pytest.fixture(scope='module')
+def long_sig():
+    return np.random.default_rng(43).standard_normal(N20).astype(np.float32)
+
+
+@pytest.mark.parametrize('length', LENGTHS)
+def test_phase_a_plain_reads_an_unpadded_signal(length, long_sig, tables20):
+    """K1's plain version on the first ``length`` samples equals it on
+    those samples zero-padded to n, exactly; the CPU wrapper runs it."""
+    x = torch.from_numpy(long_sig[:length])
+    got = pf.rfft_phase_a_plain(x, tables20)
+    ref = pf.rfft_phase_a_plain(torch.nn.functional.pad(x, (0, N20 - length)), tables20)
+    assert got.shape == (1024, 512) and got.dtype == torch.complex64
+    assert torch.equal(got, ref)
+    assert torch.equal(pf.rfft_phase_a(x, tables20), got)
+
+
+def test_phase_a_refuses_signals_off_the_split(tables20):
+    for x in (torch.zeros(0), torch.zeros(N20 + 1), torch.zeros(2, 8)):
+        with pytest.raises(RuntimeError, match='rfft_phase_a'):
+            pf.rfft_phase_a(x, tables20)
+
+
+@pytest.fixture(scope='module')
+def jax_unpadded(long_sig):
+    """dsc_tpu.rfft(x, n=2^20) of the odd and even unpadded lengths, and
+    dsc_tpu.models.fft_convolve of 2^19 samples with 255 taps."""
+    import dsc_tpu.models  # noqa: F401
+    out = {length: dsc_tpu.rfft(dsc_tpu.from_numpy(long_sig[:length]), n=N20).numpy()
+           for length in LENGTHS[1:3]}
+    taps = np.blackman(255).astype(np.float32)
+    out['conv'] = dsc_tpu.models.fft_convolve(dsc_tpu.from_numpy(long_sig[:2**19]),
+                                              dsc_tpu.from_numpy(taps)).numpy()
+    gc.freeze()
+    yield out
+    gc.unfreeze()
+
+
+@pytest.mark.parametrize('length', LENGTHS[1:3])
+def test_public_rfft_of_an_unpadded_signal(length, long_sig, jax_unpadded, monkeypatch):
+    """dt.rfft(x, n=2^20) of an odd and an even number of samples takes the
+    packed route with the unpadded signal, against np.fft.rfft in float64
+    and dsc_tpu.rfft."""
+    assert config.rfft_route(Dtype.F32, 1, N20) == 'packed'
+    seen = []
+    k1 = pf.rfft_phase_a
+    monkeypatch.setattr(pf, 'rfft_phase_a', lambda x, t: seen.append(x.numel()) or k1(x, t))
+    got = dt.rfft(dt.from_numpy(long_sig[:length]), n=N20).numpy()
+    assert seen == [length]
+    ref = np.fft.rfft(long_sig[:length].astype(np.float64), N20)
+    assert got.shape == ref.shape == (N20 // 2 + 1,) and got.dtype == np.complex64
+    assert _rel(got.astype(np.complex128), ref) < 1e-4
+    assert _rel(got, jax_unpadded[length]) < 1e-5
+
+
+def test_fft_convolve_on_the_packed_route(long_sig, jax_unpadded, monkeypatch):
+    """models.fft_convolve of 2^19 samples with 255 taps (n = 2^20, the
+    packed route: K1 reads both operands unpadded) against
+    dsc_tpu.models.fft_convolve and np.convolve."""
+    sig, taps = long_sig[:2**19], np.blackman(255).astype(np.float32)
+    seen = []
+    k1 = pf.rfft_phase_a
+    monkeypatch.setattr(pf, 'rfft_phase_a', lambda x, t: seen.append(x.numel()) or k1(x, t))
+    got = dt.models.fft_convolve(dt.from_numpy(sig), dt.from_numpy(taps)).numpy()
+    assert seen == [2**19, 255]
+    ref = np.convolve(sig.astype(np.float64), taps.astype(np.float64))
+    assert got.shape == ref.shape == jax_unpadded['conv'].shape
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
+    assert _rel(got, jax_unpadded['conv']) < 1e-5
+
+
+def emulate_column_pass(src, n1, m2, C, inverse, valid=None, tw=None, scale=1.0):
+    """stream_column_kernel (csrc/stream_columns.cuh) at batch 1 over every
+    block of C columns of an (L, M) = (n1, m2) matrix, thread by thread:
+    block b owns columns m0 = b*C ... m0 + C - 1; thread i of a block takes
+    column c = i mod C and index t = i div C of its column (T = L/16
+    threads a column), and register u holds value t + u*T of its column,
+    on load and, after the passes, of the column's transform. The passes
+    are np.fft here. K1 (``valid``): complex value j is pair j of the
+    signal ``src`` below its ``valid >> 1`` complete pairs, the odd last
+    float (or zero) at j = valid >> 1 and zero past it, loaded as the kernel
+    does (a clamped load of pair 0 and a select); it stores value k1 of
+    column m times W_nh^(k1*m) (``tw``: the Factored table) back in place.
+    K4: the inverse pass over the complex ``src``, stored in place times
+    ``scale``. Returns the output and how often each place was written."""
+    L, M = n1, m2
+    T, log2c = L // 16, C.bit_length() - 1
+    i = np.arange(C * T)
+    c, t = i & (C - 1), i >> log2c
+    u = np.arange(16)
+    m0 = np.arange(M // C)[:, None, None] * C
+    col = m0 + c[None, :, None]                              # (block, thread, 1)
+    k = t[None, :, None] + u[None, None, :] * T              # (1, thread, register)
+    idx = k * M + col                                        # the column's value k
+    if valid is None:
+        v = src.reshape(-1)[idx]
+    else:
+        pairs = valid >> 1
+        odd_last = src[valid - 1] if valid & 1 else 0.0
+        safe = np.where(idx < pairs, idx, 0)
+        q = src[2 * safe] + 1j * src[2 * safe + 1] if pairs > 0 else np.zeros(idx.shape)
+        v = np.where(idx < pairs, q, np.where(idx == pairs, odd_last, 0)).astype(complex)
+    cols = np.empty((M // C, C, L), complex)
+    blk = np.arange(M // C)[:, None, None]
+    cols[blk, c[None, :, None], k] = v
+    y = np.fft.ifft(cols, axis=2) * L if inverse else np.fft.fft(cols, axis=2)
+    v = y[blk, c[None, :, None], k] * scale
+    if tw is not None:
+        e = k * col
+        v = v * tw.hi.numpy()[e >> tw.bits] * tw.lo.numpy()[e & ((1 << tw.bits) - 1)]
+    out = np.zeros(L * M, complex)
+    written = np.zeros(L * M, int)
+    out[idx.ravel()] = v.ravel()
+    np.add.at(written, idx.ravel(), 1)
+    return out.reshape(L, M), written
+
+
+def _column_cases():
+    """(n1, m2, C) at the 2^20 and 2^21 splits, every C the launcher
+    accepts (C <= m2, C*n1/16 <= 1024 threads)."""
+    return [(n1, 512, c) for n1 in (1024, 2048) for c in (1, 2, 4, 8, 16)
+            if c * n1 // 16 <= 1024]
+
+
+@functools.lru_cache(maxsize=None)
+def _column_refs(n1, m2):
+    """K1's plain version on the full and the odd-length signal, and K4's
+    on a seeded Y, at the split (n1, m2)."""
+    t = plan.packed_tables(n1, 2 * m2, torch.complex64, 'cpu')
+    rng = np.random.default_rng(n1)
+    x = rng.standard_normal(2 * n1 * m2).astype(np.float32)
+    y = (rng.standard_normal((n1, m2)) + 1j * rng.standard_normal((n1, m2))).astype(np.complex64)
+    valid = {'K1': 2 * n1 * m2, 'K1_odd': n1 * m2 + 1, 'K1_one': 1}
+    refs = {k: pf.rfft_phase_a_plain(torch.from_numpy(x[:v]), t).numpy()
+            for k, v in valid.items()}
+    refs['K4'] = pf.irfft_phase_b_plain(torch.from_numpy(y), t).numpy()
+    return t, x, y, valid, refs
+
+
+@pytest.mark.parametrize('kernel', ['K1', 'K1_odd', 'K1_one', 'K4'])
+@pytest.mark.parametrize('n1,m2,C', _column_cases())
+def test_column_pass_index_maps(n1, m2, C, kernel):
+    """K1 and K4's loads (the zeros past an odd ``valid`` and past a single
+    sample, which leaves no complete pair, among them), the twiddle exponent
+    k1*(m0 + c), the in-place store (each place once) and the 1/nh scale,
+    emulated for every C the launcher takes, against the plain versions."""
+    t, x, y, valid, refs = _column_refs(n1, m2)
+    nh = n1 * m2
+    if kernel == 'K4':
+        got, written = emulate_column_pass(y.astype(complex), n1, m2, C, True, scale=1.0 / nh)
+        got = np.stack([got.real, got.imag], axis=-1).reshape(-1)
+    else:
+        got, written = emulate_column_pass(x.astype(np.float64), n1, m2, C, False,
+                                           valid[kernel], t.twiddle)
+    assert (written == 1).all()
+    ref = refs[kernel]
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-5
