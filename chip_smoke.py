@@ -58,12 +58,12 @@ Phases, each raising on failure (exit code 0 means all passed):
 5. CUDA-event timings of each kernel, its plain version and the one
    PyTorch call that computes the same function (a yardstick the port never
    calls), each as device time per call over 50 calls back to back, the
-   kernel also as the median of 25 single launches (K1 and K4 at 2^21,
+   kernel also as the median of 25 single launches (K1, K3 and K4 at 2^21,
    2^24 and 2^26, K1 also on the filterFFT's unpadded operands); the
    filterFFT step at n = 2^21 and 2^24 (median of 25); each batched-suite
    row through the public API beside the torch.fft call on the same shape; K12 at
    2048 x 1, 4096 x 1000 and 65536 x 256; and K8, K9, K10 at 2^24 (T and
-   half-T) and 2^19 (half-T).
+   half-T), 2^19 (half-T), 2^26 and 2^18 (T).
 
 The last lines are the kernels' JSON record, the card line and the result
 line. Without a CUDA device the script exits non-zero before any of them.
@@ -73,7 +73,9 @@ line. Without a CUDA device the script exits non-zero before any of them.
 runs phases 1-2 and then, in place of the checks, times K12 and the column
 pass of K6, K7, K8, K10, K1 and K4 (2^21, 2^24, 2^26, and K1 on 4097 taps
 at 2^24) with blocks of 4096, 8192 and 16384 points and the C its wrapper
-takes, and K2 with 2-16 row pairs a block, each side by side, and measures
+takes, K2 and K3 with 2-16 row pairs a block, and K9 (T layout) with
+blocks of 4096, 8192 and 16384 points and the R its wrapper takes, each
+side by side, and measures
 where the filterFFT step's time goes (the copies and fills among the
 kernels): the step at n = 2^21 on CUDA events and on the
 host clock over five repeats in one process, K1 timed one launch at a time
@@ -88,7 +90,8 @@ the single-vector ifft(fft(x)) at 2^24 and irfft(rfft(x)) at 2^19.
 runs phases 1-2 and then times the wrappers of K6, K8, K9 and K10 at 2^19
 (their host time) with the irfft(rfft(x)) call there, K6, K7, K8 and
 K10 at 2^24 in turns with torch.fft.fft and ifft, K1 and K4 at 2^21, 2^24
-and 2^26 in turns, and the filterFFT step at n = 2^21 and 2^24. It calls
+and 2^26 in turns, K3 and K9 at 2^24 and 2^26 in turns, and the filterFFT
+step at n = 2^21 and 2^24 with the single ifft(fft(x)) of 2^24 points. It calls
 only the wrappers and the public API, so it also runs from an earlier
 tree of the port.
 """
@@ -108,7 +111,8 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 REL_BOUND = 3e-5        # kernel vs plain version, relative to max |plain|
-T_BOUND = 1e-6          # K8, K9, K10 vs plain: the same float32 radix-2 arithmetic
+T_BOUND = 1e-6          # K8, K9, K10 vs plain: float32 FFTs of one length and the same
+                        # tables; K9's store twiddles are products within ~4e-7 of plain's
 NUMPY_BOUND = 1e-4      # vs np.fft / np.convolve in float64 (BASELINE.md)
 ORACLE = 1e-5           # elementwise vs NumPy, atol = rtol (tests/conftest.py)
 RUNS = 25
@@ -411,16 +415,19 @@ def column_candidates(card: str) -> None:
 
 
 ROW_CANDIDATES = (4096, 8192, 16384)      # R*n points a block of K12
-PAIR_CANDIDATES = (2, 4, 8, 16)           # row pairs a block of K2
+PAIR_CANDIDATES = (2, 4, 8, 16)           # row pairs a block of K2 and K3
 
 
 def row_candidates(card: str) -> None:
     """--profile: K12 with blocks of each size of ROW_CANDIDATES (R = points
     / n rows) at n = 256 ... 4096, over 2^24 values and over 1000 rows, and
-    K2 with each P of PAIR_CANDIDATES that 1024 threads allow at n = 2^21
-    ... 2^26, back to back in turns (a, b, c, c, b, a); the tables the
-    wrappers take R and P from are base_fft.ROWS and packed_fused.PAIRS."""
-    from dsc_tpu_torch.fourier import base_fft, packed_fused as pf, plan
+    K2 and K3 with each P of PAIR_CANDIDATES that 1024 threads allow at
+    n = 2^20 ... 2^26, K9 in the T layout with blocks of each size of
+    ROW_CANDIDATES and the R its wrapper takes at 2^18 ... 2^26, back to
+    back in turns (a, b, c, c, b, a); the tables the wrappers take R and P
+    from are base_fft.ROWS, packed_fused.PAIRS and INV_PAIRS and
+    stream_t.ROWS."""
+    from dsc_tpu_torch.fourier import base_fft, packed_fused as pf, plan, stream_t
     from dsc_tpu_torch.fourier.stream import factors
 
     gen = np.random.default_rng(6)
@@ -437,13 +444,31 @@ def row_candidates(card: str) -> None:
             cases.append((f'K12 {batch} x {n}', {
                 f'{p} points (R={p // n})': lambda r=p // n, x=x, w=w: base_fft._launch(x, w, r)
                 for p in ROW_CANDIDATES}))
-    for e in range(21, 27):
+    for e in range(20, 27):
         t = plan.get_plan(2**e, 'packed', torch.complex64)[1]
         n1, n2 = factors(2**e)
-        at = cnormal((n1, n2 // 2))
-        cases.append((f'K2 2^{e} (n1={n1}, m2={n2 // 2})', {
-            f'P={p}': lambda p=p, at=at, t=t: pf._launch_phase_b(at, t, p)
-            for p in PAIR_CANDIDATES if 2 * p * (n2 // 2) // 16 <= 1024 and n1 % (2 * p) == 0}))
+        m2 = n2 // 2
+        pairs = [p for p in PAIR_CANDIDATES if 2 * p * m2 // 16 <= 1024 and n1 % (2 * p) == 0]
+        at = cnormal((n1, m2))
+        spec = cnormal(n1 * m2 + 1)
+        cases.append((f'K2 2^{e} (n1={n1}, m2={m2})', {
+            f'P={p}': lambda p=p, at=at, t=t: pf._launch_phase_b(at, t, p) for p in pairs}))
+        cases.append((f'K3 2^{e} (n1={n1}, m2={m2}, the wrapper takes '
+                       f'P={pf.block_pairs(m2, inverse=True)})', {
+            f'P={p}': lambda p=p, spec=spec, t=t: pf._launch_inv_phase_a(spec, t, p)
+            for p in pairs}))
+        del at, spec
+    for e in range(18, 27):
+        t = plan.get_plan(2**e, 'stream', torch.complex64)[1]
+        n1, n2 = factors(2**e)
+        s = cnormal((n1, n2))
+        table = stream_t.block_rows(n2)
+        rows = sorted({max(1, p // n2) for p in ROW_CANDIDATES} | {table})
+        cases.append((f'K9 2^{e} T (n1={n1}, n2={n2}, the wrapper takes R={table})', {
+            f'R={r} ({r * n2} points)':
+                lambda r=r, s=s, t=t: stream_t._launch_inv_phase_a_t(s, t, False, r)
+            for r in rows if r * n2 // 16 <= 1024}))
+        del s
     print(f'row passes, block shape candidates, ms per launch, 50 launches back to back, '
           f'in turns [{card}]:')
     for what, launches in cases:
@@ -459,11 +484,12 @@ def wrapper_times(dsc, card: str) -> None:
     wrapper's Python, K6, K8, K9 and K10 back to back (the wrappers' host
     time) and the irfft(rfft(x)) call on the host clock; at 2^24, K6, K7,
     K8 and K10 in turns (a ... f f ... a) with torch.fft.fft and ifft of
-    the same vector; K1 and K4 at 2^21, 2^24 and 2^26 in turns; the
-    filterFFT step at n = 2^21 and 2^24 in turns. It calls only the
+    the same vector; K1 and K4 at 2^21, 2^24 and 2^26 in turns; K3 and K9
+    (T) at 2^24 and 2^26 in turns; the filterFFT step at n = 2^21 and 2^24
+    and the single ifft(fft(x)) of 2^24 points in turns. It calls only the
     wrappers, whose arguments have not changed since they were ported, and
     the public API, so an earlier tree of the port runs it too."""
-    from dsc_tpu_torch.fourier import plan, stream, stream_t
+    from dsc_tpu_torch.fourier import packed_fused as pf, plan, stream, stream_t
 
     gen = np.random.default_rng(7)
     n = 2**19
@@ -502,7 +528,6 @@ def wrapper_times(dsc, card: str) -> None:
         print(f'  {what}: {ms[0]:.4f} / {ms[1]:.4f} ms')
     del v, z, y
     # the packed column passes K1, K4 and the filterFFT step (public API)
-    from dsc_tpu_torch.fourier import packed_fused as pf
     rows = []
     for e in (21, 24, 26):
         n = 2**e
@@ -518,16 +543,40 @@ def wrapper_times(dsc, card: str) -> None:
     for what, ms in times.items():
         print(f'  {what}: {ms[0]:.4f} / {ms[1]:.4f} ms')
     del rows, x, y
+    # the inverse row passes K3 (packed) and K9 (T layout) at 2^24 and 2^26
+    rows = []
+    for e in (24, 26):
+        n = 2**e
+        t = plan.get_plan(n, 'packed', torch.complex64)[1]
+        spec = torch.from_numpy((gen.standard_normal(n // 2 + 1)
+                                 + 1j * gen.standard_normal(n // 2 + 1)).astype(np.complex64)).cuda()
+        rows.append((f'K3 2^{e}', lambda spec=spec, t=t: pf.irfft_phase_a(spec, t)))
+        ts = plan.get_plan(n, 'stream', torch.complex64)[1]
+        s = torch.from_numpy((gen.standard_normal(stream.factors(n))
+                              + 1j * gen.standard_normal(stream.factors(n)))
+                             .astype(np.complex64)).cuda()
+        rows.append((f'K9 2^{e} T', lambda s=s, t=ts: stream_t.inv_phase_a_t(s, t, False)))
+    times = {what: [] for what, _ in rows}
+    for what, fn in rows + rows[::-1]:
+        times[what].append(back_to_back_ms(fn, 50))
+    print(f'K3 and K9, ms per call, 50 calls back to back, in turns [{card}]:')
+    for what, ms in times.items():
+        print(f'  {what}: {ms[0]:.4f} / {ms[1]:.4f} ms')
+    del rows, spec, s
     steps = []
     for n, k in ((STEP_N, 255), (BIG_N, 4097)):
         sig = dsc.from_numpy(gen.standard_normal(n // 2).astype(np.float32))
         taps = dsc.from_numpy(np.blackman(k).astype(np.float32))
         steps.append((f'filterFFT step n=2^{n.bit_length() - 1}',
                       lambda sig=sig, taps=taps, k=k, n=n: filter_fft(dsc, sig, taps, k, n)))
+    v = dsc.from_numpy((gen.standard_normal(BIG_N) + 1j * gen.standard_normal(BIG_N))
+                       .astype(np.complex64))
+    steps.append(('single ifft(fft(x)) 2^24', lambda: dsc.ifft(dsc.fft(v))))
     times = {what: [] for what, _ in steps}
     for what, fn in steps + steps[::-1]:
         times[what].append(cuda_ms(fn))
-    print(f'filterFFT step, public API, median of {RUNS} on CUDA events, in turns [{card}]:')
+    print(f'filterFFT step and single pair, public API, median of {RUNS} on CUDA events, '
+          f'in turns [{card}]:')
     for what, ms in times.items():
         print(f'  {what}: {ms[0]:.4f} / {ms[1]:.4f} ms')
 
@@ -1086,14 +1135,14 @@ def main() -> int:
         timed('irfft_phase_b', what, lambda: pf.irfft_phase_b(y, t),
               lambda: pf.irfft_phase_b_plain(y, t), lambda: torch.fft.irfft(spec, n),
               nbytes(y, x) + tables, fft_ops(nh, n1) + 2 * n)
-        if n == 2**26:  # K2 and K3 at the filterFFT's two sizes only
+        timed('irfft_phase_a', what, lambda: pf.irfft_phase_a(spec, t),
+              lambda: pf.irfft_phase_a_plain(spec, t), lambda: torch.fft.irfft(spec, n),
+              nbytes(spec, y) + tables, fft_ops(nh, n2 // 2) + 16 * nh)
+        if n == 2**26:  # K2 and K1 on unpadded operands at the filterFFT's two sizes only
             continue
         timed('rfft_phase_b', what, lambda: pf.rfft_phase_b(at, t),
               lambda: pf.rfft_phase_b_plain(at, t), lambda: torch.fft.rfft(x),
               nbytes(at, spec) + tables, fft_ops(nh, n2 // 2) + 10 * nh)
-        timed('irfft_phase_a', what, lambda: pf.irfft_phase_a(spec, t),
-              lambda: pf.irfft_phase_a_plain(spec, t), lambda: torch.fft.irfft(spec, n),
-              nbytes(spec, y) + tables, fft_ops(nh, n2 // 2) + 16 * nh)
         # K1 on the filterFFT's operands, unpadded: it reads only their
         # samples (the bound counts those) and writes all of At
         for xs, kind in ((normal(n // 2), 'samples'),
@@ -1168,11 +1217,12 @@ def main() -> int:
         timed('reconstruct', f'n=2^{e} c64', lambda: reconstruct.reconstruct_spectrum(spec, n),
               lambda: reconstruct.reconstruct_plain(spec, n), None, nbytes(spec, full), 0)
     del spec, full
-    # K8, K9, K10 at the single-vector shapes; library: the torch.fft call
-    # computing the whole function of K6+K8 (fft, rfft) or K9+K10 (ifft,
-    # irfft) on the same vector; flops: 5 N log2 N of the pass's DFTs, plus
-    # ~6 per value of twiddle arithmetic in K9
-    for e, half in ((24, False), (24, True), (19, True)):
+    # K8, K9, K10 at the single-vector shapes, the largest (2^26, K9's
+    # 8192-point rows) and smallest (2^18) T splits among them; library: the
+    # torch.fft call computing the whole function of K6+K8 (fft, rfft) or
+    # K9+K10 (ifft, irfft) on the same vector; flops: 5 N log2 N of the
+    # pass's DFTs, plus ~6 per value of twiddle arithmetic in K9
+    for e, half in ((24, False), (24, True), (19, True), (26, False), (18, False)):
         n = 2**e
         n1, n2 = factors(n)
         t = plan.get_plan(n, 'stream', torch.complex64)[1]

@@ -1,7 +1,6 @@
 // Register-resident radix-2^k FFT building blocks for Hopper: the column
 // pass of stream_columns.cuh (K1, K4, K6, K7, K8, K10) and the row pass of
-// fft_rows_reg.cuh (K2, K12) are made of them; K3 and K9 are still on
-// fft_core.cuh's radix-2 stages in shared memory.
+// fft_rows_reg.cuh (K2, K3, K9, K12) are made of them.
 //
 // A thread holds R = kRadix values of one column in registers. A pass of
 // radix r (r | R) runs R/r DFT_r butterflies on them with the internal

@@ -15,13 +15,21 @@
 // column DFT: it is the column pass of stream_columns.cuh over Z as an
 // (L = n2, M = n1) matrix, storing column k1 as the contiguous row k1 of S
 // (or its first n2/2 + 1 values).
-// K9 reads rows k1 of S contiguously, rebuilds a half-T row's missing
-// columns from its mirror row, runs the inverse DFT_n2 along the row and
-// multiplies by the inverse four-step twiddle:
+// K9 runs the inverse DFT_n2 along each row k1 of S, a half-T row rebuilt
+// from its mirror row first, and multiplies by the inverse four-step twiddle
+// as it stores:
 //   Y[k1, j2] = W_n^(-k1*j2) * sum_k2 S[k1, k2] W_n2^(-k2*j2).
-// A block owns rows k1 and n1 - k1 (rows 0 and n1/2, each its own mirror,
-// share block 0), so each stored value is read once and both its places are
-// filled from one read.
+// It is the register-resident row pass of fft_rows_reg.cuh, T = n2/16
+// threads a row, n2 a template argument (512 ... 8192). In the T layout a
+// block owns R independent rows (R from the caller, fourier/stream_t.py
+// block_rows); thread t loads S[k1, t + u*T] straight into registers and
+// stores Y[k1, t + u*T], a warp a 256-byte run each way, and the store's
+// 16 twiddles are products of three table lookups (row_store_twiddled). In
+// the half-T layout block u owns rows u and n1 - u, each the other's
+// mirror (block 0: rows 0 and n1/2, each its own), so each stored value is
+// read from device memory once: both rows' n2/2 + 1 values go to shared
+// memory, and each thread gathers its 16 values from its row or, conjugated,
+// from the mirror row.
 // K10 is the in-place column pass over Y as an (L = n1, M = n2) matrix,
 // inverse, scaled by 1/n:
 //   x[n2*j1 + j2] = (1/n) * sum_k1 Y[k1, j2] W_n1^(-k1*j1),
@@ -35,74 +43,98 @@
 // writes 128 MiB of complex64 (the half-T side 64 MiB; K10's float32 output
 // 64 MiB) against ~5*n*log2(n2) flops.
 //
-// Known weaknesses of K9: a block holds two rows, so at n2 = 512 (n = 2^18)
-// it moves 8 KB and the grid has n1/2 = 256 blocks, under two a SM; at
-// n2 = 8192 the two rows take 128 KB of shared memory, one block per SM.
-// The column passes' weaknesses are listed in stream_columns.cuh.
+// Known weaknesses of K9: the half-T block holds one row pair, 2*n2/16
+// threads (64 at n2 = 512, the only half-T split the routing gives it);
+// a thread moves 8 bytes an access. The column passes' weaknesses are
+// listed in stream_columns.cuh.
 
+#include "fft_rows_reg.cuh"
 #include "stream_columns.cuh"
 
 using namespace dsc;
 
 namespace {
 
-constexpr int kRowThreads = 512;  // K9: threads a block at most
+constexpr int kRowThreads = 1024;  // K9: R*n2/16 (half-T: 2*n2/16) <= 1024
 
-// Block u < n1/2 owns rows u and n1 - u (block 0: rows 0 and n1/2); slot 0
-// holds the first row, slot 1 the second, each at smem + slot * (n2 + 1).
-template <bool HALF>
-__global__ void __launch_bounds__(kRowThreads)
-inv_phase_a_t_kernel(const float2* __restrict__ s, float2* __restrict__ y, int log2n1,
-                     int log2n2, const float2* __restrict__ w, const float2* __restrict__ tw_lo,
-                     const float2* __restrict__ tw_hi, int tw_bits) {
+// K9, n2 = 2^LOG2N2, T = n2/16 threads a row, the row's padded_row(n2)
+// float2 of shared memory at smem + r*padded_row(n2) for the block's row r.
+// T layout: block b owns rows bR ... bR + R - 1. Half-T: block b < n1/2
+// owns row b (r = 0) and its mirror row n1 - b (r = 1; block 0: n1/2).
+template <int LOG2N2, bool HALF>
+__global__ void __launch_bounds__(kRowThreads, 1)
+inv_phase_a_t_kernel(const float2* __restrict__ s, float2* __restrict__ y, int n1,
+                     int rows_per_block, const float2* __restrict__ w,
+                     const float2* __restrict__ tw_lo, const float2* __restrict__ tw_hi,
+                     int tw_bits) {
   extern __shared__ float2 smem[];
-  const int n1 = 1 << log2n1;
-  const int n2 = 1 << log2n2;
-  const int h = n2 / 2;
-  const int stride = n2 + 1;
-  const int u = blockIdx.x;
-  const int row_a = u;
-  const int row_b = u == 0 ? n1 / 2 : n1 - u;
-  const int width = HALF ? h + 1 : n2;  // stored values a row
-  for (int i = threadIdx.x; i < 2 * width; i += blockDim.x) {
-    const int slot = i >= width;
-    const int k2 = i - slot * width;
-    const int row = slot ? row_b : row_a;
-    const float2 v = s[(long)row * width + k2];
-    smem[slot * stride + bitrev(k2, log2n2)] = v;
-    if (HALF) {
-      // v is also conj of S[mirror row, mk2] for the mk2 > n2/2 it mirrors
-      // to; the mirror row of row 0 and of row n1/2 is the row itself
-      const int mslot = u == 0 ? slot : 1 - slot;
-      const int mk2 = row == 0 ? n2 - k2 : n2 - 1 - k2;
-      if (mk2 > h && mk2 < n2) smem[mslot * stride + bitrev(mk2, log2n2)] = conj2(v);
+  constexpr int log2n2 = LOG2N2;
+  constexpr int log2T = log2n2 - kLog2Radix;
+  constexpr int stride = padded_row(1 << log2n2);
+  const int r = threadIdx.x >> log2T;
+  const int t = threadIdx.x & ((1 << log2T) - 1);
+  float2* mine = smem + r * stride;
+  float2 v[kRadix];
+  int row;
+  if constexpr (HALF) {
+    constexpr int h = 1 << (log2n2 - 1);
+    const int b = blockIdx.x;
+    row = r ? (b == 0 ? n1 / 2 : n1 - b) : b;
+    // the row's h + 1 stored values, neighbouring threads on neighbouring
+    // values
+    const float2* src = s + (long)row * (h + 1);
+    for (int k2 = t; k2 <= h; k2 += 1 << log2T) mine[pad16(k2)] = src[k2];
+    __syncthreads();
+    // S[row, k2 > n2/2] = conj S[n1 - row, n2 - 1 - k2], and for row 0
+    // conj S[0, n2 - k2]; rows 0 and n1/2 are their own mirrors
+    const float2* mirror = smem + (b == 0 ? r : 1 - r) * stride;
+    const int flip = row == 0 ? 2 * h : 2 * h - 1;
+#pragma unroll
+    for (int u = 0; u < kRadix; ++u) {
+      const int k2 = t + (u << log2T);
+      if (k2 <= h) {
+        v[u] = mine[pad16(k2)];
+      } else {
+        v[u] = conj2(mirror[pad16(flip - k2)]);
+      }
     }
+    __syncthreads();  // the exchanges overwrite the mirror row's slot
+  } else {
+    row = blockIdx.x * rows_per_block + r;
+    const float2* src = s + ((long)row << log2n2);
+#pragma unroll
+    for (int u = 0; u < kRadix; ++u) v[u] = src[t + (u << log2T)];
   }
-  __syncthreads();
-  fft_rows<true>(smem, 2, stride, log2n2, w);
-  // neighbouring threads write neighbouring j2 of one row
-  for (int i = threadIdx.x; i < 2 * n2; i += blockDim.x) {
-    const int slot = i >> log2n2;
-    const int j2 = i & (n2 - 1);
-    const int row = slot ? row_b : row_a;
-    const float2 t = conj2(factored_twiddle(tw_lo, tw_hi, tw_bits, (unsigned)row * (unsigned)j2));
-    y[((long)row << log2n2) + j2] = cmul(smem[slot * stride + j2], t);
-  }
+  row_fft<true>(v, mine, t, log2n2, w);
+  row_store_twiddled(v, y + ((long)row << log2n2), t, log2T, tw_lo, tw_hi, tw_bits,
+                     (unsigned)row * (unsigned)t, (unsigned)row << log2T);
+}
+
+template <int LOG2N2, bool HALF>
+int launch_inv_phase_a_t(const void* s, void* y, int n1, int rows, const void* w,
+                         const void* tw_lo, const void* tw_hi, int tw_bits, void* stream) {
+  const int slots = HALF ? 2 : rows;
+  const size_t smem = (size_t)slots * padded_row(1 << LOG2N2) * sizeof(float2);
+  const void* kernel = (const void*)inv_phase_a_t_kernel<LOG2N2, HALF>;
+  int err = set_smem(kernel, smem);
+  if (err) return err;
+  inv_phase_a_t_kernel<LOG2N2, HALF>
+      <<<(unsigned)(HALF ? n1 / 2 : n1 / rows), slots << (LOG2N2 - kLog2Radix), smem,
+         (cudaStream_t)stream>>>((const float2*)s, (float2*)y, n1, rows, (const float2*)w,
+                                 (const float2*)tw_lo, (const float2*)tw_hi, tw_bits);
+  return (int)cudaGetLastError();
 }
 
 template <bool HALF>
-int launch_inv_phase_a_t(const void* s, void* y, int n1, int n2, const void* w,
+int dispatch_inv_phase_a_t(const void* s, void* y, int n1, int log2n2, int rows, const void* w,
                          const void* tw_lo, const void* tw_hi, int tw_bits, void* stream) {
-  int threads = n2;  // two rows of n2/2 butterflies a stage
-  if (threads > kRowThreads) threads = kRowThreads;
-  const size_t smem = (size_t)2 * (n2 + 1) * sizeof(float2);
-  const void* kernel = (const void*)inv_phase_a_t_kernel<HALF>;
-  int err = set_smem(kernel, smem);
-  if (err) return err;
-  inv_phase_a_t_kernel<HALF><<<(unsigned)(n1 / 2), threads, smem, (cudaStream_t)stream>>>(
-      (const float2*)s, (float2*)y, ilog2(n1), ilog2(n2), (const float2*)w,
-      (const float2*)tw_lo, (const float2*)tw_hi, tw_bits);
-  return (int)cudaGetLastError();
+  switch (log2n2) {
+    case 9: return launch_inv_phase_a_t<9, HALF>(s, y, n1, rows, w, tw_lo, tw_hi, tw_bits, stream);
+    case 10: return launch_inv_phase_a_t<10, HALF>(s, y, n1, rows, w, tw_lo, tw_hi, tw_bits, stream);
+    case 11: return launch_inv_phase_a_t<11, HALF>(s, y, n1, rows, w, tw_lo, tw_hi, tw_bits, stream);
+    case 12: return launch_inv_phase_a_t<12, HALF>(s, y, n1, rows, w, tw_lo, tw_hi, tw_bits, stream);
+    default: return launch_inv_phase_a_t<13, HALF>(s, y, n1, rows, w, tw_lo, tw_hi, tw_bits, stream);
+  }
 }
 
 }  // namespace
@@ -120,12 +152,21 @@ int dsc_stream_phase_b_t(const void* z, void* s, int n1, int n2, int half, const
                     z, s, 1, n2, n1, columns, w_n2, nullptr, nullptr, 0, 1.f, stream);
 }
 
-// K9: s (n1, n2), or (n1, n2/2 + 1) with half -> y (n1, n2) complex64;
-// w_n2: n2/2 stage twiddles W_n2^p; tw_lo/hi/bits: W_n factored.
+// K9: s (n1, n2), or (n1, n2/2 + 1) with half -> y (n1, n2) complex64,
+// 512 <= n2 <= 8192; w_n2: n2/2 stage twiddles W_n2^p; tw_lo/hi/bits: W_n
+// factored; rows: R, the rows a block of the T layout (R*n2/16 threads; a
+// half-T block holds one row pair, and rows is not read).
 int dsc_stream_inv_phase_a_t(const void* s, void* y, int n1, int n2, int half, const void* w_n2,
-                             const void* tw_lo, const void* tw_hi, int tw_bits, void* stream) {
-  return half ? launch_inv_phase_a_t<true>(s, y, n1, n2, w_n2, tw_lo, tw_hi, tw_bits, stream)
-              : launch_inv_phase_a_t<false>(s, y, n1, n2, w_n2, tw_lo, tw_hi, tw_bits, stream);
+                             const void* tw_lo, const void* tw_hi, int tw_bits, int rows,
+                             void* stream) {
+  const int log2n2 = ilog2(n2);
+  if (n2 < 512 || n2 > 8192 || (1 << log2n2) != n2 || n1 < 2 || n1 % 2 ||
+      (!half && (rows < 1 || n1 % rows || rows * (n2 / kRadix) > kRowThreads)))
+    return (int)cudaErrorInvalidValue;
+  return half ? dispatch_inv_phase_a_t<true>(s, y, n1, log2n2, rows, w_n2, tw_lo, tw_hi,
+                                             tw_bits, stream)
+              : dispatch_inv_phase_a_t<false>(s, y, n1, log2n2, rows, w_n2, tw_lo, tw_hi,
+                                              tw_bits, stream);
 }
 
 // K10: y (n1, n2) complex64 -> out (n1*n2,), complex64 or the float32 real

@@ -12,9 +12,9 @@
 // counterpart, and its bf16x3 DFT-matrix products become float32
 // butterflies in registers: K1 and K4 are the column pass of
 // stream_columns.cuh (batch 1, L = n1, M = m2, C columns a block from the
-// caller, fourier/stream.py block_columns), K2's row DFT runs the row pass
-// of fft_rows_reg.cuh, and only K3 still runs the radix-2 stages of
-// fft_core.cuh. K1 stores At in place with the four-step twiddle and
+// caller, fourier/stream.py block_columns), and K2 and K3 run their row
+// DFTs on the row pass of fft_rows_reg.cuh. K1 stores At in place with the
+// four-step twiddle and
 // reads the signal unpadded: floats past its end count as zeros (the
 // filterFFT's zero padding is never written); K4 is the inverse in-place
 // pass scaled by 1/nh, whose complex64 output read as float32 is the real
@@ -35,14 +35,13 @@
 //   (C = 1 at 2^20 and 2^21, 2 at 2^22, 2^23, 2^25, 2^26);
 // - the row passes (K2, K3) own P consecutive rows k1 and their mirrors
 //   n1-k1 and touch the natural spectrum X[k1 + n1*k2] in runs of P
-//   complex values at a stride of n1. K2 takes P from its caller
-//   (packed_fused.py block_pairs): P >= 4 (runs of 32 B or more) up to
-//   m2 = 2048, but at m2 = 4096 (n = 2^26) 1024 threads cap P at 2 and
-//   its stores are 16-byte runs, half a sector wasted. The runs of rows
-//   k = bP+1 .. bP+P start one value past a P-aligned row, so each spans
-//   two 32-byte sectors whose other parts the neighbouring blocks write.
-//   K3 keeps P = 8192 / (2*m2): 16-byte runs from n = 2^24;
-// - K3's in-place radix-2 stages bank-conflict in shared memory.
+//   complex values at a stride of n1, each value once (K2 stores it, K3
+//   loads it). Both take P from their caller (packed_fused.py
+//   block_pairs): P >= 4 (runs of 32 B or more) up to m2 = 2048, but at
+//   m2 = 4096 (n = 2^26) 1024 threads cap P at 2, 16-byte runs, half a
+//   sector wasted. The runs of rows k = bP+1 .. bP+P start one value past a
+//   P-aligned row, so each spans two 32-byte sectors whose other parts the
+//   neighbouring blocks touch.
 //
 // The TPU phase B needs a boundary-row DFT and precomputed k1 = 0 rows
 // (packed_fused.py:856-883, :913-921) because its tile pairs cannot see
@@ -59,9 +58,7 @@ using namespace dsc;
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kRowPoints = 8192;      // K3: 2 * P * m2 <= 8192 (64 KB)
-constexpr int kRowThreads = 1024;     // K2: 2 * P * m2 / 16 <= 1024, at most 64 registers
+constexpr int kRowThreads = 1024;     // K2, K3: 2 * P * m2 / 16 <= 1024, at most 64 registers
 
 // ---------------------------------------------------------------------------
 // row passes (K2, K3): block b < npairs holds 2P rows, slot i < P is row
@@ -157,48 +154,93 @@ rfft_phase_b_kernel(const float2* __restrict__ at, float2* __restrict__ spec, in
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-irfft_phase_a_kernel(const float2* __restrict__ spec, float2* __restrict__ y, int n1,
-                     int log2m2, int P, int log2P, const float2* __restrict__ w_m2,
+// cos(pi k / 16), 0 <= k <= 8
+__device__ __forceinline__ float cos_pi16(int k) {
+  switch (k) {
+    case 0: return 1.f;
+    case 1: return 0.98078528040323043f;
+    case 2: return 0.92387953251128674f;
+    case 3: return 0.83146961230254524f;
+    case 4: return 0.70710678118654752f;
+    case 5: return 0.55557023301960218f;
+    case 6: return 0.38268343236508978f;
+    case 7: return 0.19509032201612825f;
+    default: return 0.f;
+  }
+}
+
+// W_32^u = exp(-2 pi i u / 32), 0 <= u < 16 (INV: its conjugate); u is a
+// constant once the callers' loops unroll, so the switches fold
+template <bool INV>
+__device__ __forceinline__ float2 w32(int u) {
+  const float re = u <= 8 ? cos_pi16(u) : -cos_pi16(16 - u);
+  const float im = u <= 8 ? cos_pi16(8 - u) : cos_pi16(u - 8);  // sin(pi u / 16)
+  return make_float2(re, INV ? im : -im);
+}
+
+// K3, K2 run backwards: 2P*m2/16 threads, slot s at smem + s*sstride as in
+// K2. The load reads each bin once, slots fastest (runs of P), into
+// shared memory; the row threads then entangle their 16 values from their
+// slot and the mirror slot into registers, run the inverse row DFT, and
+// store Y[row, j2] = v * W_nh^-(row*j2). The row-0 block keeps X[nh] as
+// value m2 of slot 0, where the mirror of k2 = 0 lies.
+template <int LOG2M2>
+__global__ void __launch_bounds__(kRowThreads, 1)
+irfft_phase_a_kernel(const float2* __restrict__ spec, float2* __restrict__ y, int n1, int P,
+                     int log2P, int sstride, const float2* __restrict__ w_m2,
                      const float2* __restrict__ un_lo, const float2* __restrict__ un_hi,
                      int un_bits, const float2* __restrict__ tw_lo,
                      const float2* __restrict__ tw_hi, int tw_bits) {
   extern __shared__ float2 smem[];
-  const int m2 = 1 << log2m2;
+  constexpr int log2m2 = LOG2M2;
+  constexpr int m2 = 1 << log2m2;
+  constexpr int log2T = log2m2 - kLog2Radix;
   const int npairs = n1 / (2 * P);
   const int b = blockIdx.x;
-  const int slots = b == npairs ? 1 : 2 * P;
-  const unsigned nh = (unsigned)n1 << log2m2;
-  // entangle while loading: Z[k] = (A + B)/2 + i*W^-k*(A - B)/2 with
-  // A = X[k], B = conj X[nh - k]; the mirror rows are this block's own.
-  // As np.fft.irfft, only the real parts of X[0] and X[nh] count: both
-  // meet in the k = 0 slot alone.
-  for (int t = threadIdx.x; t < slots * m2; t += blockDim.x) {
+  const bool row0 = b == npairs;
+  for (int i = threadIdx.x; i < (row0 ? m2 : 2 * P * m2); i += blockDim.x) {
     int s, k2;
-    slot_k2(b, npairs, P, log2P, m2, t, &s, &k2);
-    const int row = slot_row(b, npairs, P, n1, s);
-    const unsigned k = (unsigned)row + (unsigned)n1 * (unsigned)k2;
-    float2 a = spec[k];
-    float2 bc = conj2(spec[nh - k]);
-    if (k == 0) {
+    slot_k2(b, npairs, P, log2P, m2, i, &s, &k2);
+    const unsigned k = (unsigned)slot_row(b, npairs, P, n1, s) + (unsigned)n1 * (unsigned)k2;
+    smem[s * sstride + pad16(k2)] = spec[k];
+  }
+  if (row0 && threadIdx.x == 0) smem[pad16(m2)] = spec[(long)n1 << log2m2];  // X[nh]
+  __syncthreads();
+  // the row pass: T = m2/16 neighbouring threads a slot, 16 values a thread
+  // (the row-0 block runs row 0 in every slot, from slot 0, and keeps slot 0)
+  const int s = threadIdx.x >> log2T;
+  const int t = threadIdx.x & ((1 << log2T) - 1);
+  const int row = slot_row(b, npairs, P, n1, s);
+  const float2* own = smem + (row0 ? 0 : s * sstride);
+  const float2* mirror = row0 ? smem : smem + (s < P ? s + P : s - P) * sstride;
+  // X[nh - k] lies at k2' = flip - k2 of the mirror slot: n1 - row, m2 - 1 - k2
+  // (row 0: row 0, m2 - k2, X[nh] at k2' = m2)
+  const int flip = row0 ? m2 : m2 - 1;
+  // Z[k] = (A + B)/2 + i*W_n^-k*(A - B)/2 with A = X[k], B = conj X[nh - k],
+  // k = row + n1*k2, k2 = t + u*T: W_n^k = W_n^(row + n1*t) * W_32^u, as
+  // n1*T = n/32
+  const float2 wt = conj2(factored_twiddle(un_lo, un_hi, un_bits,
+                                           (unsigned)row + (unsigned)n1 * (unsigned)t));
+  float2 v[kRadix];
+#pragma unroll
+  for (int u = 0; u < kRadix; ++u) {
+    const int k2 = t + (u << log2T);
+    float2 a = own[pad16(k2)];
+    float2 bc = conj2(mirror[pad16(flip - k2)]);
+    // as np.fft.irfft, only the real parts of X[0] and X[nh] count: both
+    // meet in the k = 0 slot alone
+    if (row == 0 && k2 == 0) {
       a.y = 0.f;
       bc.y = 0.f;
     }
-    const float2 e = cscale(cadd(a, bc), 0.5f);
-    const float2 d = cmul(conj2(factored_twiddle(un_lo, un_hi, un_bits, k)),
-                          cscale(csub(a, bc), 0.5f));
-    smem[(s << log2m2) + bitrev(k2, log2m2)] = cadd(e, times_i(d));
+    const float2 d = cmul(cmul(wt, w32<true>(u)), cscale(csub(a, bc), 0.5f));
+    v[u] = cadd(cscale(cadd(a, bc), 0.5f), times_i(d));
   }
-  __syncthreads();
-  fft_rows<true>(smem, slots, m2, log2m2, w_m2);
-  for (int i = threadIdx.x; i < slots * m2; i += blockDim.x) {
-    const int s = i >> log2m2;
-    const int j2 = i & (m2 - 1);
-    const int row = slot_row(b, npairs, P, n1, s);
-    if (duplicate_slot(s, P, row, n1)) continue;
-    const float2 tw = conj2(factored_twiddle(tw_lo, tw_hi, tw_bits, (unsigned)row * (unsigned)j2));
-    y[((long)row << log2m2) + j2] = cmul(smem[i], tw);
-  }
+  __syncthreads();  // every thread has read the mirror slot the exchanges overwrite
+  row_fft<true>(v, smem + s * sstride, t, log2m2, w_m2);
+  if ((row0 && s > 0) || duplicate_slot(s, P, row, n1)) return;
+  row_store_twiddled(v, y + ((long)row << log2m2), t, log2T, tw_lo, tw_hi, tw_bits,
+                     (unsigned)row * (unsigned)t, (unsigned)row << log2T);
 }
 
 template <int LOG2M2>
@@ -215,11 +257,20 @@ int launch_rfft_phase_b(const void* at, void* spec, int n1, int P, const void* w
   return (int)cudaGetLastError();
 }
 
-// K3's rows per block half: 2P rows of m2 points within kRowPoints
-int pairs_per_block(int m2) {
-  int P = kRowPoints / (2 * m2);
-  if (P > 8) P = 8;
-  return P < 1 ? 1 : P;
+template <int LOG2M2>
+int launch_irfft_phase_a(const void* spec, void* y, int n1, int P, const void* w_m2,
+                         const void* un_lo, const void* un_hi, int un_bits, const void* tw_lo,
+                         const void* tw_hi, int tw_bits, void* stream) {
+  const int sstride = column_stride(1 << LOG2M2, P);
+  const size_t smem = (size_t)2 * P * sstride * sizeof(float2);
+  int err = set_smem((const void*)irfft_phase_a_kernel<LOG2M2>, smem);
+  if (err) return err;
+  irfft_phase_a_kernel<LOG2M2><<<n1 / (2 * P) + 1, 2 * P << (LOG2M2 - kLog2Radix), smem,
+                                 (cudaStream_t)stream>>>(
+      (const float2*)spec, (float2*)y, n1, P, ilog2(P), sstride, (const float2*)w_m2,
+      (const float2*)un_lo, (const float2*)un_hi, un_bits, (const float2*)tw_lo,
+      (const float2*)tw_hi, tw_bits);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -253,19 +304,25 @@ int dsc_rfft_phase_b(const void* at, void* spec, int n1, int m2, const void* w_m
   }
 }
 
-// spec (n1*m2 + 1,) complex64 -> y (n1, m2) complex64
+// spec (n1*m2 + 1,) complex64 -> y (n1, m2) complex64, 512 <= m2 <= 4096;
+// P row pairs a block (2P*m2/16 threads), n1/(2P) + 1 blocks
 int dsc_irfft_phase_a(const void* spec, void* y, int n1, int m2, const void* w_m2,
                       const void* un_lo, const void* un_hi, int un_bits, const void* tw_lo,
-                      const void* tw_hi, int tw_bits, void* stream) {
-  const int P = pairs_per_block(m2);
-  const size_t smem = (size_t)2 * P * m2 * sizeof(float2);
-  int err = set_smem((const void*)irfft_phase_a_kernel, smem);
-  if (err) return err;
-  irfft_phase_a_kernel<<<n1 / (2 * P) + 1, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float2*)spec, (float2*)y, n1, ilog2(m2), P, ilog2(P), (const float2*)w_m2,
-      (const float2*)un_lo, (const float2*)un_hi, un_bits, (const float2*)tw_lo,
-      (const float2*)tw_hi, tw_bits);
-  return (int)cudaGetLastError();
+                      const void* tw_hi, int tw_bits, int P, void* stream) {
+  const int log2m2 = ilog2(m2);
+  if (m2 < 512 || m2 > 4096 || (1 << log2m2) != m2 || P < 1 || (1 << ilog2(P)) != P ||
+      n1 % (2 * P) || 2 * P * (m2 / kRadix) > kRowThreads)
+    return (int)cudaErrorInvalidValue;
+  switch (log2m2) {
+    case 9: return launch_irfft_phase_a<9>(spec, y, n1, P, w_m2, un_lo, un_hi, un_bits, tw_lo,
+                                           tw_hi, tw_bits, stream);
+    case 10: return launch_irfft_phase_a<10>(spec, y, n1, P, w_m2, un_lo, un_hi, un_bits, tw_lo,
+                                             tw_hi, tw_bits, stream);
+    case 11: return launch_irfft_phase_a<11>(spec, y, n1, P, w_m2, un_lo, un_hi, un_bits, tw_lo,
+                                             tw_hi, tw_bits, stream);
+    default: return launch_irfft_phase_a<12>(spec, y, n1, P, w_m2, un_lo, un_hi, un_bits, tw_lo,
+                                             tw_hi, tw_bits, stream);
+  }
 }
 
 // y (n1, m2) complex64 -> out (2*n1*m2,) float32 (even samples = real

@@ -29,8 +29,8 @@ K1 and K4 are the column pass that the streaming kernels share
 ``stream.block_columns(n1, m2, 1, 8)``. K1 reads the signal unpadded and
 zeros what lies past its end as it loads, so the filterFFT's zero padding
 is never written to device memory; K4 stores in place, scaled by 1/nh. K2
-runs the register-resident row pass (csrc/fft_rows_reg.cuh), K3 still the
-radix-2 stages of csrc/fft_core.cuh.
+and K3 run the register-resident row pass (csrc/fft_rows_reg.cuh), P row
+pairs a block from ``block_pairs``.
 
 The mirror operand of the untangle, Z[nh-k] = Z_T[n1-k1, m2-1-k2] (and
 Z_T[0, (m2-k2) mod m2] for k1 = 0), lies in row n1-k1, so the phase-B
@@ -71,22 +71,30 @@ def _sizes(t: PackedTables):
     return n1, m2, n1 * m2
 
 
-# K2 takes P row pairs a block (rows k, their mirrors n1 - k); the launcher
-# derives the rest (2P*m2/16 threads, at most 1024, and 2P padded rows of
-# shared memory) from P. PAIRS[m2] is the P of the fastest block shape that
-# chip_smoke.py --profile timed (PERF.md). K2 stores the spectrum in runs
-# of P values, and at P = 2 (16-byte runs) took 1.8-2.1x as long as at
-# P = 4, so P >= 4 (32 bytes) wherever 1024 threads allow it (not at
-# m2 = 4096); at m2 = 512 every P took the same host-bound time, and P = 4
-# keeps n1/(2P) >= 128 blocks at the smallest split, n1 = 1024.
+# K2 and K3 take P row pairs a block (rows k, their mirrors n1 - k); the
+# launcher derives the rest (2P*m2/16 threads, at most 1024, and 2P padded
+# rows of shared memory) from P. PAIRS[m2] (K2) and INV_PAIRS[m2] (K3) are
+# the P of the fastest block shape that chip_smoke.py --profile timed
+# (PERF.md). K2 stores the spectrum in runs of P values, and at P = 2
+# (16-byte runs) took 1.8-2.1x as long as at P = 4, so P >= 4 (32 bytes)
+# wherever 1024 threads allow it (not at m2 = 4096); at m2 = 512 every P
+# took the same host-bound time, and P = 4 keeps n1/(2P) >= 128 blocks at
+# the smallest split, n1 = 1024. K3 loads the spectrum in the same runs,
+# but loads of 16-byte runs cost it less: P = 2 took 7-8% less time than
+# P = 4 at m2 = 2048 (2^24, 2^25); at m2 = 1024 P = 4 was within 2% of the
+# fastest at 2^23 in two runs (2^22 and m2 = 512 read the host's time).
 PAIRS = {512: 4, 1024: 8, 2048: 4, 4096: 2}
+INV_PAIRS = {512: 4, 1024: 4, 2048: 2, 4096: 2}
 
 
-def block_pairs(m2: int) -> int:
-    """P, the row pairs a block of K2 over rows of m2 points."""
-    if m2 not in PAIRS:
-        raise ValueError(f'rfft_phase_b: m2 = {m2} not supported')
-    return PAIRS[m2]
+def block_pairs(m2: int, inverse: bool = False) -> int:
+    """P, the row pairs a block of K2 (K3 with ``inverse``) over rows of m2
+    points."""
+    table = INV_PAIRS if inverse else PAIRS
+    if m2 not in table:
+        raise ValueError(f'{"irfft_phase_a" if inverse else "rfft_phase_b"}: '
+                         f'm2 = {m2} not supported')
+    return table[m2]
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +225,11 @@ def irfft_phase_a(spec: torch.Tensor, t: PackedTables) -> torch.Tensor:
     """K3 on a CUDA tensor, its plain version on a CPU tensor."""
     if spec.device.type == 'cpu':
         return irfft_phase_a_plain(spec, t)
+    return _launch_inv_phase_a(spec, t, block_pairs(_sizes(t)[1], inverse=True))
+
+
+def _launch_inv_phase_a(spec: torch.Tensor, t: PackedTables, pairs: int) -> torch.Tensor:
+    """K3 with ``pairs`` row pairs a block."""
     n1, m2, nh = _sizes(t)
     build.check(spec, torch.complex64, (nh + 1,), 'spec')
     _check_tables(t)
@@ -225,7 +238,7 @@ def irfft_phase_a(spec: torch.Tensor, t: PackedTables) -> torch.Tensor:
                  t.w_m2.data_ptr(), t.untangle.lo.data_ptr(),
                  t.untangle.hi.data_ptr(), t.untangle.bits,
                  t.twiddle.lo.data_ptr(), t.twiddle.hi.data_ptr(),
-                 t.twiddle.bits)
+                 t.twiddle.bits, pairs)
     return y
 
 

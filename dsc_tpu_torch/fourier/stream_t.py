@@ -13,7 +13,10 @@ padding are not carried over. The kernels (csrc/fourstep_stream_t.cu):
                             forward: S[k1, k2] = sum_j2 Z[j2, k1] W_n2^(j2*k2)
   K9  stream_inv_phase_a_t  row inverse DFT_n2 of S (a half-T row rebuilt
                             from its mirror row first) and the inverse
-                            four-step twiddle:
+                            four-step twiddle, on the register-resident row
+                            pass (csrc/fft_rows_reg.cuh), R rows a block in
+                            the T layout (``block_rows``), a row pair a
+                            block in the half-T layout:
                             Y[k1, j2] = W_n^(-k1*j2) * sum_k2 S[k1, k2] W_n2^(-k2*j2)
   K10 stream_inv_phase_b_t  column inverse DFT_n1 of Y, 1/n:
                             x[n2*j1 + j2] = (1/n) sum_k1 Y[k1, j2] W_n1^(-k1*j1),
@@ -32,10 +35,26 @@ import torch
 from ..kernels import build
 from . import core, plan, stream
 
+# K9 takes R rows of n2 points a block in the T layout; the launcher derives
+# the rest (R*n2/16 threads, at most 1024, and R padded rows of shared
+# memory) from R. ROWS[n2] is the R of the fastest block size that
+# chip_smoke.py --profile timed (4096, 8192 and 16384 points a block;
+# PERF.md): 4096 points (R = 1 ahead of R = 2 by 2% at 2^24 and 2^25; at
+# n2 <= 1024 every R, 64 blocks at 2^18 among them, took the wrapper's
+# host time) and one 8192-point row (10% ahead of two at 2^26).
+ROWS = {512: 8, 1024: 4, 2048: 2, 4096: 1, 8192: 1}
+
 
 def width(n2: int, half: bool) -> int:
     """Stored columns of S: n2, or n2/2 + 1 in the half-T layout."""
     return n2 // 2 + 1 if half else n2
+
+
+def block_rows(n2: int) -> int:
+    """R, the rows a block of K9 over rows of n2 points in the T layout."""
+    if n2 not in ROWS:
+        raise ValueError(f'stream_inv_phase_a_t: n2 = {n2} not supported')
+    return ROWS[n2]
 
 
 def unhalf(s: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
@@ -107,13 +126,21 @@ def inv_phase_a_t(s: torch.Tensor, t: plan.StreamTables, half: bool) -> torch.Te
     """K9 on a CUDA tensor, its plain version on a CPU tensor."""
     if s.device.type == 'cpu':
         return inv_phase_a_t_plain(s, t, half)
+    n2 = stream._sizes(t)[1]
+    return _launch_inv_phase_a_t(s, t, half, 1 if half else block_rows(n2))
+
+
+def _launch_inv_phase_a_t(s: torch.Tensor, t: plan.StreamTables, half: bool,
+                          rows: int) -> torch.Tensor:
+    """K9 with ``rows`` rows a block (the T layout; a half-T block holds one
+    row pair whatever ``rows`` says)."""
     n1, n2, _ = stream._sizes(t)
     build.check(s, torch.complex64, (n1, width(n2, half)), 's')
     stream._check_tables(t)
     y = torch.empty((n1, n2), dtype=torch.complex64, device=s.device)
     build.launch('stream_inv_phase_a_t', s.data_ptr(), y.data_ptr(), n1, n2, int(half),
                  t.w_n2.data_ptr(), t.twiddle.lo.data_ptr(), t.twiddle.hi.data_ptr(),
-                 t.twiddle.bits)
+                 t.twiddle.bits, rows)
     return y
 
 

@@ -49,8 +49,10 @@ KERNELS = {
     'rfft_phase_a': ('dsc_rfft_phase_a', (_P, _P, _L, _I, _I, _P, _P, _P, _I, _I)),
     # at, spec, n1, m2, w_m2, untangle lo, hi, bits, row pairs a block
     'rfft_phase_b': ('dsc_rfft_phase_b', (_P, _P, _I, _I, _P, _P, _P, _I, _I)),
+    # spec, y, n1, m2, w_m2, untangle lo, hi, bits, twiddle lo, hi, bits,
+    # row pairs a block
     'irfft_phase_a': ('dsc_irfft_phase_a',
-                      (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I)),
+                      (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I)),
     # y, out, n1, m2, w_n1, scale, columns a block
     'irfft_phase_b': ('dsc_irfft_phase_b', (_P, _P, _I, _I, _P, _F, _I)),
     # op code; (pointer, re, im, kind, brow length) for three operands; out, n
@@ -63,8 +65,9 @@ KERNELS = {
     'stream_phase_b': ('dsc_stream_phase_b', (_P, _P, _I, _I, _I, _I, _I, _P, _F, _I)),
     # z, s, n1, n2, half, w_n2, columns a block
     'stream_phase_b_t': ('dsc_stream_phase_b_t', (_P, _P, _I, _I, _I, _P, _I)),
-    # s, y, n1, n2, half, w_n2, twiddle lo, hi, bits
-    'stream_inv_phase_a_t': ('dsc_stream_inv_phase_a_t', (_P, _P, _I, _I, _I, _P, _P, _P, _I)),
+    # s, y, n1, n2, half, w_n2, twiddle lo, hi, bits, rows a block
+    'stream_inv_phase_a_t': ('dsc_stream_inv_phase_a_t',
+                             (_P, _P, _I, _I, _I, _P, _P, _P, _I, _I)),
     # y, out, n1, n2, real output, w_n1, scale, columns a block
     'stream_inv_phase_b_t': ('dsc_stream_inv_phase_b_t', (_P, _P, _I, _I, _I, _P, _F, _I)),
     'reconstruct': ('dsc_reconstruct', (_P, _P, _L)),

@@ -18,7 +18,8 @@ from dsc_tpu_torch.ops import stream_map as sm  # noqa: E402
 pytestmark = pytest.mark.gpu
 
 REL = 3e-5  # kernel vs plain version, relative to max |plain|
-T_REL = 1e-6  # K8, K9, K10 vs plain: the same float32 radix-2 arithmetic
+T_REL = 1e-6  # K8, K9, K10 vs plain: float32 FFTs of one length, the same tables and
+# twiddle formula, K9's store twiddles within ~4e-7 of the plain version's
 
 
 @pytest.fixture(scope='module', autouse=True)
@@ -186,6 +187,28 @@ def test_rfft_phase_b_block_shapes(e):
     for pairs in (1, 2, 4, 8, 16):
         if 2 * pairs * m2 // 16 <= 1024:
             assert _rel(pf._launch_phase_b(at, t, pairs), ref) < REL, pairs
+    plan.clear_plans()
+
+
+@pytest.mark.parametrize('e', range(20, 27))
+def test_irfft_phase_a_block_shapes(e):
+    """K3 with every number of row pairs a block of chip_smoke.py
+    --profile's candidates (2-16) that 1024 threads allow, and P = 1,
+    against its plain version; the wrapper's P among them. A P off the
+    launcher (not a power of two, or over 1024 threads) is refused."""
+    n = 2**e
+    t = plan.get_plan(n, 'packed', torch.complex64)[1]
+    n1, n2 = stream.factors(n)
+    m2 = n2 // 2
+    spec = _cnormal(n // 2 + 1, e)
+    ref = pf.irfft_phase_a_plain(spec, t)
+    pairs = [p for p in (1, 2, 4, 8, 16) if 2 * p * m2 // 16 <= 1024]
+    assert pf.block_pairs(m2, inverse=True) in pairs
+    for p in pairs:
+        assert _rel(pf._launch_inv_phase_a(spec, t, p), ref) < REL, p
+    for p in (3, 2 * pairs[-1]):
+        with pytest.raises(RuntimeError, match='dsc_irfft_phase_a'):
+            pf._launch_inv_phase_a(spec, t, p)
     plan.clear_plans()
 
 
@@ -358,6 +381,31 @@ def test_stream_t_kernels(n1, n2, half):
     want = x.reshape(-1) if half else x.reshape(-1).real
     assert float((back - want).abs().max() / want.abs().max()) < 1e-5
     del x, z, s, y, back
+    plan.clear_plans()
+
+
+@pytest.mark.parametrize('n1,n2', T_CASES)
+def test_inv_phase_a_t_block_sizes(n1, n2):
+    """K9 in the T layout with every R of chip_smoke.py --profile's block
+    sizes (4096, 8192 and 16384 points) within 1024 threads, the
+    wrapper's R among them, and in the half-T layout (one row pair a
+    block), against its plain version. An R off the launcher (not dividing
+    n1, or over 1024 threads) is refused."""
+    n = n1 * n2
+    t = plan.get_plan(n, 'stream', torch.complex64)[1]
+    s = _cnormal((n1, n2), n1 + n2)
+    ref = stream_t.inv_phase_a_t_plain(s, t, False)
+    rows = [r for r in sorted({max(1, p // n2) for p in (4096, 8192, 16384)})
+            if r * n2 // 16 <= 1024]
+    for r in sorted({*rows, stream_t.block_rows(n2)}):
+        assert _rel(stream_t._launch_inv_phase_a_t(s, t, False, r), ref) < T_REL, r
+    for r in (3, 2 * rows[-1]):
+        with pytest.raises(RuntimeError, match='dsc_stream_inv_phase_a_t'):
+            stream_t._launch_inv_phase_a_t(s, t, False, r)
+    half = s[:, :stream_t.width(n2, True)].contiguous()
+    assert _rel(stream_t.inv_phase_a_t(half, t, True),
+                stream_t.inv_phase_a_t_plain(half, t, True)) < T_REL
+    del s, ref, half
     plan.clear_plans()
 
 

@@ -187,6 +187,24 @@ def test_block_pairs_refuses_lengths_off_the_kernel():
         pf.block_pairs(8192)
 
 
+@pytest.mark.parametrize('n1,m2', _packed_splits())
+def test_inv_block_pairs(n1, m2):
+    """P, the row pairs a block of K3, at every split of the packed route,
+    against what the kernel needs of it (csrc/packed_rfft.cu
+    dsc_irfft_phase_a: 2P*m2/16 <= 1024 threads, 2P padded rows within a
+    block's 227 KB of shared memory, 2P dividing n1) and one of the
+    candidates chip_smoke.py --profile times (2-16)."""
+    p = pf.block_pairs(m2, inverse=True)
+    assert p in (2, 4, 8, 16) and n1 % (2 * p) == 0
+    assert 2 * p * m2 // 16 <= 1024
+    assert 2 * p * (m2 + m2 // 16 + (1 if p >= 16 else 16 // p)) * 8 <= 227 * 1024
+
+
+def test_inv_block_pairs_refuses_lengths_off_the_kernel():
+    with pytest.raises(ValueError, match='irfft_phase_a'):
+        pf.block_pairs(256, inverse=True)
+
+
 # ---------------------------------------------------------------------------
 # K1's pad fold and the column pass of K1 and K4 (csrc/stream_columns.cuh)
 # at n = 2^20, the smallest split of the packed route

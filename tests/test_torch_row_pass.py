@@ -1,13 +1,16 @@
 """The index maps of the register-resident row pass (dsc_tpu_torch/csrc/
-fft_rows_reg.cuh) and of the two kernels built on it, K12 (csrc/base_fft.cu)
-and K2 (csrc/packed_rfft.cu rfft_phase_b_kernel), emulated thread by
+fft_rows_reg.cuh) and of the four kernels built on it, K12 (csrc/base_fft.cu),
+K2 and K3 (csrc/packed_rfft.cu rfft_phase_b_kernel, irfft_phase_a_kernel)
+and K9 (csrc/fourstep_stream_t.cu inv_phase_a_t_kernel), emulated thread by
 thread in numpy: each block's loads, the Stockham passes (fft_radix.cuh
 pass_store and pad16, the twiddle products of row_radix_pass), the
-shared-memory exchanges and the stores, against np.fft and K2's plain
-version. Every shared-memory access of a full warp must take the least
-wavefronts (two for 8-byte accesses), and K2 must store the spectrum in
-runs of P values. No CUDA compiler runs on a CPU machine: this checks the
-kernels' indexing before the card runs them."""
+shared-memory exchanges and the stores (K3 and K9 with the twiddle products
+of row_store_twiddled), against np.fft and the kernels' plain versions.
+Every shared-memory access of a full warp must take the least wavefronts
+(two for 8-byte accesses), K2 must store and K3 load the spectrum in runs
+of P values, and K3 and K9 must store each warp's values as one 256-byte
+run. No CUDA compiler runs on a CPU machine: this checks the kernels'
+indexing before the card runs them."""
 
 import numpy as np
 import pytest
@@ -15,7 +18,7 @@ import pytest
 torch = pytest.importorskip('torch')
 
 from dsc_tpu_torch.fourier import packed_fused as pf  # noqa: E402
-from dsc_tpu_torch.fourier import plan  # noqa: E402
+from dsc_tpu_torch.fourier import plan, stream_t  # noqa: E402
 
 RADIX, LOG2_RADIX = 16, 4
 
@@ -126,15 +129,25 @@ def row_exchange(sh, base, v, t, log2L, log2Ns):
         v[:, u] = sh.load(base + pad16(t + (u << log2T)))
 
 
-def row_fft(sh, base, v, t, log2L, w):
-    """fft_rows_reg.cuh row_fft."""
+def row_fft(sh, base, v, t, log2L, w, inverse=False):
+    """fft_rows_reg.cuh row_fft; ``inverse`` (INV, the conjugated table and
+    butterfly constants) as the conjugate of the forward transform of the
+    conjugate, over the same index maps."""
+    if inverse:
+        v[:] = np.conj(v)
     row_radix_pass(v, t, log2L, 0, w, 4)
     row_exchange(sh, base, v, t, log2L, 0)
     row_radix_pass(v, t, log2L, 4, w, 4)
-    if log2L == 8:
-        return
-    row_exchange(sh, base, v, t, log2L, 4)
-    row_radix_pass(v, t, log2L, 8, w, log2L - 8)
+    if log2L > 8:
+        row_exchange(sh, base, v, t, log2L, 4)
+        if log2L == 13:   # 16*16*16*2: a third exchange
+            row_radix_pass(v, t, log2L, 8, w, 4)
+            row_exchange(sh, base, v, t, log2L, 8)
+            row_radix_pass(v, t, log2L, 12, w, 1)
+        else:
+            row_radix_pass(v, t, log2L, 8, w, log2L - 8)
+    if inverse:
+        v[:] = np.conj(v)
 
 
 def emulate_k12(x, w, rows):
@@ -268,3 +281,241 @@ def test_k2_index_maps(m2, P):
     for pair_block, lengths in runs:
         if pair_block:
             assert (lengths == P).all(), lengths
+
+
+def warp_runs(addr, active):
+    """Run lengths of neighbouring addresses in each warp's access."""
+    runs = []
+    for warp in range(0, len(addr), 32):
+        a = np.unique(addr[warp:warp + 32][active[warp:warp + 32]])
+        if len(a):
+            cuts = np.flatnonzero(np.diff(a) != 1) + 1
+            runs.append(np.diff(np.r_[0, cuts, len(a)]))
+    return runs
+
+
+def factored(tab):
+    lo, hi = (x.numpy().astype(complex) for x in (tab.lo, tab.hi))
+    return lambda e: hi[e >> tab.bits] * lo[e & ((1 << tab.bits) - 1)]
+
+
+def store_twiddles(W, e0, d):
+    """fft_rows_reg.cuh row_store_twiddled: W^(e0 + u*d), u < 16, from the
+    three lookups W^e0, W^d, W^(4d)."""
+    base, s1, s4 = W(e0), W(d), W(4 * d)
+    s2, b1 = s1 * s1, base * s1
+    q = [base, b1, base * s2, b1 * s2]
+    m = [None, s4, s4 * s4]
+    m.append(m[2] * s4)
+    return [q[a] if c == 0 else q[a] * m[c] for c in range(4) for a in range(4)]
+
+
+def emulate_k9(s, t, half, rows, blocks):
+    """inv_phase_a_t_kernel<log2(n2), half> over ``blocks``, ``rows`` rows a
+    block (T layout): the rows they store, and the runs of each warp's
+    device loads and stores."""
+    n1, n2 = 2 * t.w_n1.shape[0], 2 * t.w_n2.shape[0]
+    log2n2 = n2.bit_length() - 1
+    log2T = log2n2 - LOG2_RADIX
+    stride = padded_row(n2)
+    w = t.w_n2.numpy().astype(complex)
+    W = factored(t.twiddle)
+    slots = 2 if half else rows
+    tid = np.arange(slots << log2T)
+    r, tt = tid >> log2T, tid & ((1 << log2T) - 1)
+    full = np.ones(len(tid), bool)
+    y, loads, stores = {}, [], []
+    for b in blocks:
+        sh = Shared(slots * stride)
+        v = np.zeros((len(tid), RADIX), complex)
+        if half:
+            h = n2 // 2
+            width = h + 1
+            row = np.where(r == 1, n1 // 2 if b == 0 else n1 - b, b)
+            for k0 in range(0, width, 1 << log2T):
+                k2 = k0 + tt
+                act = k2 < width
+                k2 = np.where(act, k2, 0)
+                loads += warp_runs(row * width + k2, act)
+                sh.store(r * stride + pad16(k2), s[row, k2], act)
+            mirror = r if b == 0 else 1 - r
+            flip = np.where(row == 0, n2, n2 - 1)
+            for u in range(RADIX):
+                k2 = tt + (u << log2T)
+                own = k2 <= h
+                a = sh.load(r * stride + pad16(np.where(own, k2, 0)), own)
+                # row 0's mirror S[0, n2 - k2] lies one value off the
+                # 16-value groups: up to three wavefronts a warp in block 0
+                m = sh.load(mirror * stride + pad16(np.where(own, 0, flip - k2)), ~own,
+                            least=b != 0)
+                v[:, u] = np.where(own, a, np.conj(m))
+        else:
+            row = b * rows + r
+            for u in range(RADIX):
+                k2 = tt + (u << log2T)
+                loads += warp_runs(row * n2 + k2, full)
+                v[:, u] = s[row, k2]
+        row_fft(sh, r * stride, v, tt, log2n2, w, inverse=True)
+        sh.check_wavefronts()
+        f = store_twiddles(W, row * tt, row << log2T)
+        for u in range(RADIX):
+            j2 = tt + (u << log2T)
+            stores += warp_runs(row * n2 + j2, full)
+            for rr in np.unique(row):
+                sel = row == rr
+                y.setdefault(int(rr), np.full(n2, np.nan + 0j))[j2[sel]] = v[sel, u] * np.conj(
+                    f[u][sel])
+    return y, loads, stores
+
+
+def _k9_cases():
+    """(n2, R): every R of the block sizes chip_smoke.py --profile times
+    (4096, 8192 and 16384 points a block) within 1024 threads."""
+    return [(n2, r) for n2 in (512, 1024, 2048, 4096, 8192)
+            for r in sorted({max(1, p // n2) for p in (4096, 8192, 16384)})
+            if r * n2 // 16 <= 1024]
+
+
+def _check_rows(y, ref):
+    for row, got in y.items():
+        assert not np.isnan(got).any(), row
+        assert np.abs(got - ref[row]).max() / np.abs(ref).max() < 1e-5, row
+
+
+@pytest.mark.parametrize('n2,R', _k9_cases())
+def test_k9_t_index_maps(n2, R):
+    """K9 in the T layout with R rows a block, its first and last blocks
+    (n1 = 4R rows), against its plain version; n2 = 8192 runs the row
+    pass's third exchange. Loads and stores are 256-byte runs a warp."""
+    n1 = 4 * R
+    rng = np.random.default_rng(n2 + R)
+    s = (rng.standard_normal((n1, n2)) + 1j * rng.standard_normal((n1, n2))).astype(np.complex64)
+    t = plan.stream_tables(n1, n2, torch.complex64, 'cpu')
+    y, loads, stores = emulate_k9(s.astype(complex), t, False, R, [0, n1 // R - 1])
+    assert sorted(y) == list(range(R)) + list(range(n1 - R, n1))
+    _check_rows(y, stream_t.inv_phase_a_t_plain(torch.from_numpy(s), t, False).numpy())
+    assert all((runs == [32]).all() for runs in loads + stores)
+
+
+@pytest.mark.parametrize('n1,n2', [(512, 512), (1024, 512)])
+def test_k9_half_t_index_maps(n1, n2):
+    """K9 in the half-T layout at the routed splits: block 0 (rows 0 and
+    n1/2, each its own mirror) and block n1/2 - 1 (rows n1/2 - 1 and
+    n1/2 + 1), against its plain version; each warp loads one run of its
+    row's stored values and stores one 256-byte run."""
+    rng = np.random.default_rng(n1 + n2)
+    width = stream_t.width(n2, True)
+    s = (rng.standard_normal((n1, width)) + 1j * rng.standard_normal((n1, width))).astype(
+        np.complex64)
+    t = plan.stream_tables(n1, n2, torch.complex64, 'cpu')
+    y, loads, stores = emulate_k9(s.astype(complex), t, True, 1, [0, n1 // 2 - 1])
+    assert sorted(y) == [0, n1 // 2 - 1, n1 // 2, n1 // 2 + 1]
+    _check_rows(y, stream_t.inv_phase_a_t_plain(torch.from_numpy(s), t, True).numpy())
+    assert all(len(runs) == 1 for runs in loads)
+    assert all((runs == [32]).all() for runs in stores)
+
+
+def emulate_k3(spec, t, P, blocks):
+    """irfft_phase_a_kernel<log2(m2)> over ``blocks``, P row pairs a block:
+    the rows they store, the runs of each warp's spectrum loads (pair blocks
+    only) and of its stores."""
+    n1, m2, nh = pf._sizes(t)
+    log2m2 = m2.bit_length() - 1
+    log2T = log2m2 - LOG2_RADIX
+    npairs = n1 // (2 * P)
+    sstride = column_stride(m2, P)
+    w = t.w_m2.numpy().astype(complex)
+    Wn, Wnh = factored(t.untangle), factored(t.twiddle)
+    threads = 2 * P << log2T
+    tid = np.arange(threads)
+    s, tt = tid >> log2T, tid & ((1 << log2T) - 1)
+    y, loads, stores = {}, [], []
+    for b in blocks:
+        row0 = b == npairs
+        sh = Shared(2 * P * sstride)
+        count = m2 if row0 else 2 * P * m2
+        for i0 in range(0, count, threads):
+            i = i0 + tid
+            act = i < count
+            sl, k2 = slot_k2(b, npairs, P, m2, np.where(act, i, 0))
+            k = slot_row(b, npairs, P, n1, sl) + n1 * k2
+            if not row0:
+                loads += warp_runs(k, act)
+            sh.store(sl * sstride + pad16(k2), spec[k], act)
+        if row0:   # X[nh], the mirror of k2 = 0, as value m2 of slot 0
+            sh.store(np.full(threads, pad16(m2)), np.full(threads, spec[nh]), tid == 0)
+        row = slot_row(b, npairs, P, n1, s)
+        own = np.zeros_like(s) if row0 else s * sstride
+        mirror = np.zeros_like(s) if row0 else np.where(s < P, s + P, s - P) * sstride
+        flip = m2 if row0 else m2 - 1
+        wt = np.conj(Wn(row + n1 * tt))
+        v = np.zeros((threads, RADIX), complex)
+        for u in range(RADIX):
+            k2 = tt + (u << log2T)
+            a = sh.load(own + pad16(k2))
+            # the row-0 block's mirror X[n1*(m2 - k2)] wraps at the row's end:
+            # up to three wavefronts a half warp in that one block
+            bc = np.conj(sh.load(mirror + pad16(flip - k2), least=not row0))
+            zero = (row == 0) & (k2 == 0)
+            a, bc = np.where(zero, a.real, a), np.where(zero, bc.real, bc)
+            d = wt * np.exp(2j * np.pi * u / 32) * 0.5 * (a - bc)
+            v[:, u] = 0.5 * (a + bc) + 1j * d
+        row_fft(sh, s * sstride, v, tt, log2m2, w, inverse=True)
+        sh.check_wavefronts()
+        keep = ~((row0 & (s > 0)) | ((s >= P) & (2 * row == n1)))
+        f = store_twiddles(Wnh, row * tt, row << log2T)
+        for u in range(RADIX):
+            j2 = tt + (u << log2T)
+            stores += warp_runs(row * m2 + j2, keep)
+            for rr in np.unique(row[keep]):
+                sel = keep & (row == rr)
+                out = y.setdefault(int(rr), np.full(m2, np.nan + 0j))
+                assert np.isnan(out[j2[sel]]).all()   # each value stored once
+                out[j2[sel]] = v[sel, u] * np.conj(f[u][sel])
+    return y, loads, stores
+
+
+@pytest.mark.parametrize('m2,P', _k2_cases())
+def test_k3_index_maps(m2, P):
+    """K3 with every P that 1024 threads allow, at each m2 the packed route
+    meets (n1 = 64 rows), over its first pair block, the last one (row
+    n1/2 twice, stored once) and the row-0 block (X[nh] as row 0's mirror
+    of k2 = 0), against its plain version, on a spectrum whose X[0] and
+    X[nh] are not real (only their real parts count, as in np.fft.irfft):
+    the spectrum loaded in runs of P bins a warp, each bin once, and each
+    warp's stores one 256-byte run."""
+    n1 = 64
+    nh = n1 * m2
+    rng = np.random.default_rng(m2 + P)
+    spec = (rng.standard_normal(nh + 1) + 1j * rng.standard_normal(nh + 1)).astype(np.complex64)
+    assert spec[0].imag != 0 and spec[nh].imag != 0
+    t = plan.packed_tables(n1, 2 * m2, torch.complex64, 'cpu')
+    npairs = n1 // (2 * P)
+    y, loads, stores = emulate_k3(spec.astype(complex), t, P, sorted({0, npairs - 1, npairs}))
+    first = list(range(1, P + 1)) + list(range(n1 - P, n1))
+    last = list(range(n1 // 2 - P + 1, n1 // 2 + P))
+    assert sorted(y) == sorted({0, *first, *last})
+    _check_rows(y, pf.irfft_phase_a_plain(torch.from_numpy(spec), t).numpy())
+    assert all((runs == P).all() for runs in loads)
+    assert all((runs == [32]).all() for runs in stores)
+
+
+@pytest.mark.parametrize('n1,n2', [(4096, 4096), (8192, 8192)])
+def test_store_twiddle_products_in_float32(n1, n2):
+    """row_store_twiddled's 16 factors, formed in float32 from the float32
+    tables (numpy complex64 arithmetic), stay within 5e-7 of the table's
+    own factor (the plain versions') over sampled rows of K9's 2^24 and
+    2^26 splits: the margin under K9's 1e-6 bound against its plain
+    version."""
+    t = plan.stream_tables(n1, n2, torch.complex64, 'cpu')
+    lo, hi, bits = t.twiddle.lo.numpy(), t.twiddle.hi.numpy(), t.twiddle.bits
+
+    def W(e):
+        return hi[e >> bits] * lo[e & ((1 << bits) - 1)]
+
+    T = n2 // 16
+    rows = np.random.default_rng(n1).choice(n1, 64, replace=False)[:, None].astype(np.int64)
+    tt = np.arange(T, dtype=np.int64)[None, :]
+    f = store_twiddles(W, rows * tt, rows * T + 0 * tt)
+    err = max(float(np.abs(f[u] - W(rows * (tt + u * T))).max()) for u in range(RADIX))
+    assert f[0].dtype == np.complex64 and err < 5e-7, err

@@ -186,3 +186,20 @@ def test_t_layout_takes_only_the_plan_split_and_real_half():
         stream_t.fourstep_to_t(torch.zeros(2**18, dtype=torch.complex64), 512, 512, True)
     with pytest.raises(RuntimeError, match='T layout'):
         dt.Tensor._from_t(torch.zeros((512, 512), dtype=torch.complex64), 512, 512, True)
+
+
+@pytest.mark.parametrize('e', range(18, 27))
+def test_k9_block_rows(e):
+    """R, the rows a block of K9 in the T layout, at every single-vector
+    split, against what the kernel takes (csrc/fourstep_stream_t.cu
+    dsc_stream_inv_phase_a_t: R dividing n1, R*n2/16 <= 1024 threads, R
+    padded rows within a block's 227 KB of shared memory)."""
+    n1, n2 = stream.factors(2**e)
+    r = stream_t.block_rows(n2)
+    assert r >= 1 and r & (r - 1) == 0 and n1 % r == 0
+    assert r * n2 // 16 <= 1024 and r * (n2 + n2 // 16) * 8 <= 227 * 1024
+
+
+def test_k9_block_rows_refuses_lengths_off_the_kernel():
+    with pytest.raises(ValueError, match='stream_inv_phase_a_t'):
+        stream_t.block_rows(256)
