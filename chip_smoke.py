@@ -21,7 +21,9 @@ Phases, each raising on failure (exit code 0 means all passed):
    version on the zero-padded signal; K5 streaming map: every float32
    body at 2^26, scalars on each side, a 1-element tensor, a broadcast
    row, clip with one and two bounds, a ragged count, the complex bodies
-   at 2^23 + 1; the
+   at 2^23 + 1, and every instantiation (body and operand kinds,
+   stream_map.INSTANTIATIONS) at 2^21, one 16-byte group past a block's
+   chunk, a chunk and a group on, and a ragged or odd count; the
    streaming four-step K6, K7 in every variant at the batched suite's
    shapes and a single 2^24 vector; the Hermitian reconstruction K11 at
    2^18, 2^19 and 2^24, exactly; K6 once more and K8, K9 and K10 (within
@@ -61,7 +63,10 @@ Phases, each raising on failure (exit code 0 means all passed):
    kernel also as the median of 25 single launches (K1, K3 and K4 at 2^21,
    2^24 and 2^26, K1 also on the filterFFT's unpadded operands); the
    filterFFT step at n = 2^21 and 2^24 (median of 25); each batched-suite
-   row through the public API beside the torch.fft call on the same shape; K12 at
+   row through the public API beside the torch.fft call on the same shape; K5 at
+   2^26 for every float32 body, mul by a scalar, add of a 1-element tensor,
+   clip with tensor bounds, the broadcast-row add and the complex bodies
+   at 2^23 + 1; K12 at
    2048 x 1, 4096 x 1000 and 65536 x 256; and K8, K9, K10 at 2^24 (T and
    half-T), 2^19 (half-T), 2^26 and 2^18 (T).
 
@@ -94,6 +99,16 @@ and 2^26 in turns, K3 and K9 at 2^24 and 2^26 in turns, and the filterFFT
 step at n = 2^21 and 2^24 with the single ifft(fft(x)) of 2^24 points. It calls
 only the wrappers and the public API, so it also runs from an earlier
 tree of the port.
+
+    python3 chip_smoke.py --map-candidates TREE [TREE ...]
+
+times K5 of each TREE (a checkout of the port, unpacked under the ignored
+build/) in a process of its own, in turns (the trees in order, then
+backwards): nvcc's time and ptxas's registers and spills for
+stream_map.cu alone, the device time per launch at 2^26 add, sin, clip,
+mul by a scalar and add of a 1-element tensor, the broadcast-row add and
+the 2^23 + 1 complex multiply beside the PyTorch call computing each, and
+the host time of an eager add, clip and mul by a scalar.
 """
 
 from __future__ import annotations
@@ -181,6 +196,13 @@ LIBRARY = {'add': torch.add, 'sub': torch.sub, 'mul': torch.mul, 'div': torch.di
            'sinc': torch.sinc, 'clip': torch.clamp}
 
 
+# K5: floats a block takes per operand (512 float4 groups); the counts every
+# instantiation is held to its plain version at: 2^21, one 16-byte group
+# past a block's chunk, a chunk and a group on
+K5_CHUNK = 4 * 512
+K5_COUNTS = (2**21, 2**21 + 4, 2**21 + K5_CHUNK + 4)
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
@@ -236,6 +258,21 @@ def host_ms(fn, runs: int = RUNS) -> float:
     return float(np.median(times))
 
 
+def call_ms(fn, runs: int = 100) -> float:
+    """Median host-clock time of the call of ``fn`` alone, the device idle
+    before it (a synchronize, then the clock around the call): the host
+    work of a wrapper and its launch."""
+    cuda_ms(fn, runs=1)
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
 def back_to_back_ms(fn, runs: int = 200) -> float:
     """Time of one call of ``fn`` when ``runs`` calls run between two CUDA
     events, so that launch latency hides behind the previous call."""
@@ -263,6 +300,36 @@ def copy_ceiling(card: str) -> float:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
+
+
+def draw(gen, shape, dtype=torch.float32):
+    """Normal values on the card from the torch.Generator ``gen``, with no
+    exact zeros (randn there draws some in 2^26: a division would give inf
+    in the kernel and its plain version alike, and inf - inf no error)."""
+    x = torch.randn(shape, generator=gen, device='cuda', dtype=dtype)
+    return torch.where(x == 0, 1.0, x)
+
+
+def k5_operands(gen, dtype, body, kinds, n):
+    """Operands of ``kinds`` for K5's ``body``, n elements drawn on the card
+    from the torch.Generator ``gen``: full operands of (n,), or of (rows, M)
+    beside a broadcast row of M (the longest that divides n, M % 4 == 0,
+    M <= 2^14); scalars as Python values and 1-element tensors in turn."""
+    shape = (n,)
+    if 'brow' in kinds:
+        m = max(m for m in range(4, 2**14 + 1, 4) if n % m == 0 and n // m >= 2)
+        shape = (n // m, m)
+    ops = []
+    for i, kind in enumerate(kinds):
+        if kind == 'scalar':
+            v = (0.25, -0.5, 0.75)[i] if dtype == torch.float32 else (0.5 - 1.25j, 2.0 - 0.5j)[i]
+            ops.append(v if (i + n) % 2 else torch.tensor([v], dtype=dtype, device='cuda'))
+            continue
+        x = draw(gen, shape if kind == 'full' else shape[-1:], dtype)
+        if body in ('logn', 'log2', 'log10', 'sqrt'):
+            x = x.abs() + 1e-3
+        ops.append(x)
+    return ops
 
 
 def filter_fft(dsc, sig, taps, n_taps: int, n: int = STEP_N):
@@ -581,6 +648,150 @@ def wrapper_times(dsc, card: str) -> None:
         print(f'  {what}: {ms[0]:.4f} / {ms[1]:.4f} ms')
 
 
+def ptxas_report(log: str) -> dict:
+    """K5's kernels in nvcc's ``-Xptxas -v`` output: template arguments ->
+    registers, stack frame and spill bytes."""
+    import re
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'|Function properties for (\S+)", line)
+        if m:
+            k = re.search(r'((?:c|real_|complex_)?map_kernel)I((?:Li\d+E)+)E', m.group(1) or m.group(2))
+            name = f'{k.group(1)}<{", ".join(re.findall(r"Li(\d+)E", k.group(2)))}>' if k else None
+            continue
+        if name is None:
+            continue
+        row = report.setdefault(name, {})
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads', line)
+        if m:
+            row.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r'Used (\d+) registers', line)
+        if m:
+            row['registers'] = int(m.group(1))
+    return report
+
+
+def map_times(tree: str) -> int:
+    """--map-times TREE: K5 of the port in TREE (a checkout of any PR), in
+    this process: nvcc's time and ptxas's registers and spills for
+    stream_map.cu alone; device time per launch (50 back to back) at 2^26
+    add, sin, clip, mul by a scalar and add of a 1-element tensor, the
+    broadcast-row add and the 2^23+1 complex multiply, each beside the
+    PyTorch call computing it; the host time of an eager add, clip and mul
+    by a scalar through ops/kernels.py (the call alone on the host clock,
+    and one launch between two events minus the time back to back); and
+    the host time of one ``classify``. Calls only the wrapper's public
+    signature, which every tree of the port shares. The last line is one
+    JSON object."""
+    root = os.path.abspath(tree)
+    sys.path.insert(0, root)
+    import dsc_tpu_torch as dsc
+    from dsc_tpu_torch.kernels import build
+    from dsc_tpu_torch.ops import kernels as ops_kernels, stream_map as sm
+    require(dsc.__file__.startswith(root + os.sep), f'{dsc.__file__} is not under {root}')
+    card = card_line()
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    out = subprocess.run([build.nvcc_path(), *build.COMPILE_FLAGS, '-Xptxas', '-v', '-c', '-o',
+                          str(build.BUILD_DIR / 'stream_map_alone.o'),
+                          str(build.CSRC_DIR / 'stream_map.cu')], capture_output=True, text=True)
+    nvcc_s = time.time() - t0
+    require(out.returncode == 0, f'nvcc stream_map.cu:\n{out.stdout}{out.stderr}')
+    registers = ptxas_report(out.stdout + out.stderr)
+    build.load()
+    dsc.init(2**34, device='cuda')
+    gen = torch.Generator(device='cuda').manual_seed(9)
+    x, y, rows, row = (draw(gen, shape) for shape in (MAP_N, MAP_N, (4096, 16384), 16384))
+    one = torch.tensor([1.75], device='cuda')
+    a, b = (draw(gen, BIG_N // 2 + 1, torch.complex64) for _ in range(2))
+    cases = (  # what, kernel, PyTorch call, bytes moved
+        ('add 2^26', lambda: sm.stream_map('add', x, y), lambda: torch.add(x, y), 3 * nbytes(x)),
+        ('sin 2^26', lambda: sm.stream_map('sin', x), lambda: torch.sin(x), 2 * nbytes(x)),
+        ('clip 2^26 [-0.5, 0.75]', lambda: sm.stream_map('clip', x, -0.5, 0.75),
+         lambda: torch.clamp(x, -0.5, 0.75), 2 * nbytes(x)),
+        ('mul 2^26 by 2.5', lambda: sm.stream_map('mul', x, 2.5), lambda: torch.mul(x, 2.5),
+         2 * nbytes(x)),
+        ('add 2^26 + 1-element tensor', lambda: sm.stream_map('add', x, one),
+         lambda: torch.add(x, one), 2 * nbytes(x) + nbytes(one)),
+        ('add (4096, 16384) + row (16384,)', lambda: sm.stream_map('add', rows, row),
+         lambda: torch.add(rows, row), 2 * nbytes(rows) + nbytes(row)),
+        ('complex mul 2^23+1', lambda: sm.stream_map('mul', a, b), lambda: torch.mul(a, b),
+         3 * nbytes(a)),
+    )
+    times = {}
+    for what, kernel, library, n_bytes in cases:
+        times[what] = {'ms': back_to_back_ms(kernel, 50), 'library_ms': back_to_back_ms(library, 50),
+                       'bound_ms': n_bytes / PEAK_BYTES_S * 1e3}
+    host = {}
+    for what, fn in (('add', lambda: ops_kernels.binary('add', x, y)),
+                     ('clip', lambda: ops_kernels.clip(x, -0.5, 0.75)),
+                     ('mul by 2.5', lambda: ops_kernels.binary('mul', x, 2.5))):
+        single, ms = cuda_ms(fn), back_to_back_ms(fn, 50)
+        host[what] = {'single_ms': single, 'ms': ms, 'host_ms': single - ms,
+                      'call_ms': call_ms(fn)}
+    shapes, reps = [tuple(x.shape), tuple(y.shape)], 20000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        sm.classify(shapes)
+    classify_ms = 1e3 * (time.perf_counter() - t0) / reps
+    print(json.dumps({'tree': tree, 'card': card, 'nvcc_s': nvcc_s, 'registers': registers,
+                      'times': times, 'host': host, 'classify_ms': classify_ms}))
+    return 0
+
+
+def map_candidates(trees) -> int:
+    """--map-candidates TREE...: --map-times of each tree in a process of
+    its own, in turns (the trees in order, then backwards: one reading
+    each way), and the table of them: ms per launch, share of the bytes'
+    bound and ratio to the PyTorch call of the same process."""
+    order = list(trees) + list(trees)[::-1]
+    runs = {tree: [] for tree in trees}
+    for tree in order:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), '--map-times', tree],
+                              capture_output=True, text=True, timeout=1200)
+        require(proc.returncode == 0,
+                f'--map-times {tree} failed:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}')
+        runs[tree].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(f'  --map-times {tree}: done')
+    card = runs[trees[0]][0]['card']
+    print(f'K5 candidates, ms per launch (50 back to back), readings in turns '
+          f'{" ".join(order)}; share of the bytes bound; ratio to the PyTorch call '
+          f'in the same process [{card}]:')
+    for what in runs[trees[0]][0]['times']:
+        bound = runs[trees[0]][0]['times'][what]['bound_ms']
+        cells = []
+        for tree in trees:
+            rs = [r['times'][what] for r in runs[tree]]
+            cells.append(f'{tree}: ' + ' / '.join(f'{r["ms"]:.4f}' for r in rs)
+                         + f' ms, {bound / np.mean([r["ms"] for r in rs]):.0%}, '
+                         + ' / '.join(f'{r["ms"] / r["library_ms"]:.2f}x' for r in rs))
+        lib = [r['times'][what]['library_ms'] for tree in trees for r in runs[tree]]
+        print(f'  {what} (bound {bound:.4f} ms; PyTorch {min(lib):.4f}-{max(lib):.4f} ms): '
+              + '; '.join(cells))
+    print(f'host time of an eager op through ops/kernels.py, ms: the call alone on the host '
+          f'clock (median of 100, the device idle before it); one launch between two events '
+          f'minus 50 back to back [{card}]:')
+    for what in runs[trees[0]][0]['host']:
+        print(f'  {what}: ' + '; '.join(
+            f'{tree}: ' + ' / '.join(f'{r["host"][what]["call_ms"]:.4f}' for r in runs[tree])
+            + '; ' + ' / '.join(f'{r["host"][what]["host_ms"]:.4f}' for r in runs[tree])
+            for tree in trees))
+    print('  one stream_map.classify of two operands on the host clock, ms: ' + '; '.join(
+        f'{tree}: ' + ' / '.join(f'{r["classify_ms"]:.4f}' for r in runs[tree]) for tree in trees))
+    print('stream_map.cu alone, nvcc -Xptxas -v: seconds; per kernel, registers '
+          '(stack frame / spill bytes where not 0):')
+    for tree in trees:
+        regs = runs[tree][0]['registers']
+        spilled = {k: v for k, v in regs.items()
+                   if v.get('stack') or v.get('spill_stores') or v.get('spill_loads')}
+        print(f'  {tree}: ' + ' / '.join(f'{r["nvcc_s"]:.1f} s' for r in runs[tree])
+              + f', {len(regs)} kernels, '
+              + ', '.join(f'{k} {v.get("registers")}' for k, v in sorted(regs.items()))
+              + (f'; stack or spills: {spilled}' if spilled else '; no stack frame, no spills'))
+    return 0
+
+
 def fft_ops(n: int, points: int) -> float:
     """Flops of complex FFTs of ``points`` points over ``n`` values in all
     (5 N log2 N each)."""
@@ -595,10 +806,18 @@ def main() -> int:
     parser.add_argument('--wrappers', action='store_true',
                         help='time the column-pass wrappers at 2^19 and 2^24 '
                              'in place of the checks')
+    parser.add_argument('--map-candidates', nargs='+', metavar='TREE',
+                        help='time K5 of each tree (a checkout of the port) in turns, '
+                             'in place of the checks')
+    parser.add_argument('--map-times', metavar='TREE', help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
+    if args.map_times:
+        return map_times(args.map_times)
+    if args.map_candidates:
+        return map_candidates(args.map_candidates)
     sys.path.insert(0, REPO)
     import dsc_tpu_torch as dsc
     from dsc_tpu_torch.fourier import (base_fft, packed_fused as pf, plan, reconstruct, stream,
@@ -654,10 +873,11 @@ def main() -> int:
     def taps_of(k):
         return torch.from_numpy(np.blackman(k).astype(np.float32)).to(dev)
 
+    map_gen = torch.Generator(device='cuda').manual_seed(1)
+
     def map_operands(body, n):
-        xs = [normal(n) for _ in range(sm.REAL_BODIES[body])]
-        if body in ('logn', 'log2', 'log10', 'sqrt'):
-            xs = [x.abs() + 1e-3 for x in xs]
+        # K5's operands drawn on the card: 2^26 values take ~1 s each in numpy
+        xs = k5_operands(map_gen, torch.float32, body, ['full'] * sm.REAL_BODIES[body], n)
         if body == 'clip':
             xs[1:] = [-0.5, 0.75]
         return xs
@@ -728,14 +948,16 @@ def main() -> int:
         xs = map_operands(body, MAP_N)
         compare('stream_map', sm.stream_map(body, *xs), sm.stream_map_plain(body, *xs),
                 f'{body} 2^26')
-    x, one = normal(MAP_N), torch.tensor([1.75], device=dev)
+    x = draw(map_gen, MAP_N)
+    one = torch.tensor([1.75], device=dev)
     for body in ('add', 'sub', 'mul', 'div'):
         for ops, what in (((x, 2.5), 'tensor, 2.5'), ((2.5, x), '2.5, tensor'),
                           ((x, one), 'tensor, 1-element tensor'),
                           ((one, x), '1-element tensor, tensor')):
             compare('stream_map', sm.stream_map(body, *ops), sm.stream_map_plain(body, *ops),
                     f'{body} 2^26 {what}')
-    rows, row = normal((4096, 16384)), normal(16384)
+    rows = draw(map_gen, (4096, 16384))
+    row = draw(map_gen, 16384)
     compare('stream_map', sm.stream_map('add', rows, row), sm.stream_map_plain('add', rows, row),
             'add (4096, 16384) + row (16384,)')
     compare('stream_map', sm.stream_map('mul', row, rows), sm.stream_map_plain('mul', row, rows),
@@ -743,6 +965,24 @@ def main() -> int:
     for lo, hi in ((-0.5, 0.75), (-math.inf, 0.25), (-0.25, math.inf)):
         compare('stream_map', sm.stream_map('clip', x, lo, hi),
                 sm.stream_map_plain('clip', x, lo, hi), f'clip 2^26 [{lo}, {hi}]')
+    # every instantiation (body, operand kinds) at K5_COUNTS, a ragged count
+    # where no broadcast row forbids it and an odd complex count
+    dgen = torch.Generator(device='cuda').manual_seed(5)
+    for (dtype, body, kinds), kernel in sm.INSTANTIATIONS.items():
+        counts = list(K5_COUNTS)
+        if 'brow' not in kinds:
+            counts.append(2**21 + (1 if dtype == torch.complex64 else 3))
+        worst = 0.0
+        for n in counts:
+            ops = k5_operands(dgen, dtype, body, kinds, n)
+            got, ref = sm.stream_map(body, *ops), sm.stream_map_plain(body, *ops)
+            e = rel_err(got, ref)
+            errs['stream_map'] = max(errs['stream_map'], float((got - ref).abs().max()))
+            require(e <= REL_BOUND, f'stream_map {kernel} n={n}: {e} > {REL_BOUND}')
+            worst = max(worst, e)
+        print(f'  stream_map     {kernel} at n = {", ".join(map(str, counts))}: '
+              f'rel err <= {worst:.3e}')
+    del ops, got, ref
     ragged = 2**21 + 4 * 1000 + 3
     for body in ('add', 'sin'):
         xs = map_operands(body, ragged)
@@ -1165,16 +1405,25 @@ def main() -> int:
         timed('stream_map', f'{body} 2^26 f32', lambda: sm.stream_map(body, *xs),
               lambda: sm.stream_map_plain(body, *xs), lambda: LIBRARY[body](*xs),
               nbytes(*xs) + 4 * MAP_N, MAP_OPS[body] * MAP_N)
-    rows, row = normal((4096, 16384)), normal(16384)
+    rows = draw(map_gen, (4096, 16384))
+    row = draw(map_gen, 16384)
     timed('stream_map', 'add (4096, 16384) + row (16384,) f32',
           lambda: sm.stream_map('add', rows, row), lambda: sm.stream_map_plain('add', rows, row),
           lambda: torch.add(rows, row), 2 * nbytes(rows) + nbytes(row), rows.numel())
     del rows, row
-    x = normal(MAP_N)
+    x = draw(map_gen, MAP_N)
     timed('stream_map', 'mul 2^26 f32 by 2.5', lambda: sm.stream_map('mul', x, 2.5),
           lambda: sm.stream_map_plain('mul', x, 2.5), lambda: torch.mul(x, 2.5),
           2 * nbytes(x), MAP_N)
-    del x
+    one = torch.tensor([1.75], device=dev)
+    timed('stream_map', 'add 2^26 f32 + 1-element tensor', lambda: sm.stream_map('add', x, one),
+          lambda: sm.stream_map_plain('add', x, one), lambda: torch.add(x, one),
+          2 * nbytes(x) + nbytes(one), MAP_N)
+    lo, hi = torch.tensor([-0.5], device=dev), torch.tensor([0.75], device=dev)
+    timed('stream_map', 'clip 2^26 f32, 1-element tensor bounds',
+          lambda: sm.stream_map('clip', x, lo, hi), lambda: sm.stream_map_plain('clip', x, lo, hi),
+          lambda: torch.clamp(x, lo, hi), 2 * nbytes(x) + nbytes(lo, hi), 2 * MAP_N)
+    del x, one, lo, hi
     a, b = cnormal(BIG_N // 2 + 1), cnormal(BIG_N // 2 + 1)
     for body in sm.COMPLEX_BODIES:
         timed('stream_map', f'complex {body} 2^23+1 c64', lambda: sm.stream_map(body, a, b),

@@ -5,49 +5,65 @@
 // and from planar.py _pp_jit/_sp_jit for complex arithmetic). The TPU
 // kernel streams (rows, 128) tiles HBM -> VMEM -> HBM with 2-8 static
 // buffer sets and DMA semaphores, replicates broadcast rows in VMEM and
-// keeps scalars in SMEM. None of that carries over: here every thread moves
-// four floats (two complex values) at a time, straight from device memory to
-// registers and back.
+// keeps scalars in SMEM.
 //
 // Bound on the H100: device memory. Each body does 1-20 flops per 8-12
 // bytes moved, far under the card's balance point: a 2^26-element add moves
-// 768 MiB, a 2^26 sin or clip 512 MiB, a 2^23+1 complex multiply 192 MiB.
-// The design moves each byte once with coalesced 16-byte loads and stores
-// (float4), keeps a broadcast row in L1/L2 (row[i % M], M % 4 == 0), reads a
-// 1-element tensor once per thread and takes a Python scalar by value. Each
-// block takes one chunk of kUnroll x 256 float4 groups and each thread
-// issues its kUnroll loads per operand before any arithmetic, so many loads
-// are in flight; the grid has one block per chunk, so blocks balance across
-// the SMs whatever a body's register count (a fixed grid-stride grid of
-// eight blocks per SM ran in two uneven waves where only six fit, PERF.md).
-// A ragged count ends in a scalar tail. One template instantiation per
-// body, selected by op code.
+// 768 MiB, a 2^26 sin or clip 512 MiB, a 2^23+1 complex multiply 192 MiB,
+// 10-15 times the 50 MB L2, each byte touched once.
+//
+// The design: one instantiation per body and operand kinds (full, broadcast
+// row, scalar), chosen at compile time, so the loop carries no branch on a
+// kind and keeps registers only for what it streams: a scalar is one
+// register, read once per thread (a Python scalar by value, a 1-element
+// tensor by one load); a broadcast row is read through L1/L2 at offsets
+// into the row computed once per thread, with one 64-bit division and
+// then 32-bit arithmetic. Each block takes one chunk of kVec x 256 float4
+// groups (8 KB an operand), and each thread issues its kVec 16-byte loads
+// per streamed operand before any arithmetic, so up to 2048 threads an SM
+// keep loads in flight; one block a chunk balances the blocks across the
+// SMs whatever a body's register count (a fixed grid of eight blocks per
+// SM ran in two uneven waves where only six fit). A ragged count (n % 4
+// floats, an odd number of complex values) ends in plain loads. Measured
+// against this design on the H100 (PERF.md): 16 KB a block was 0.6-1.7%
+// slower; the streaming cache hints (ld/st.global.cs) were no faster, and
+// up to 3% slower with two streamed inputs; the TPU kernel's buffer sets
+// carried over as a shared-memory ring filled by bulk copies (TMA) on a
+// persistent grid ran 3-6% slower at every case. None is used.
 //
 // Launch contract: PyTorch's current stream, no synchronisation, no
-// allocation; the entry point returns cudaGetLastError().
+// allocation; the entry point returns cudaGetLastError(), and
+// cudaErrorInvalidValue for a body or a combination of kinds it has no
+// instantiation for.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <utility>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kUnroll = 4;  // float4 groups per thread
-constexpr long long kChunk = (long long)kThreads * kUnroll;
+constexpr int kVec = 2;                  // float4 groups a thread
+constexpr int kChunk = kThreads * kVec;  // float4 groups a block: 8 KB an operand
 
-// operand kinds (ops/stream_map.py _FULL, _BROW, _VALUE, _POINTER)
-enum Kind { kFull = 0, kBrow = 1, kValue = 2, kPointer = 3 };
+// operand kinds as the host passes them (ops/stream_map.py _FULL, _BROW,
+// _VALUE, _POINTER)
+enum HostKind { kFull = 0, kBrow = 1, kValue = 2, kPointer = 3 };
+// operand kinds as the kernels are instantiated: full, broadcast row,
+// scalar, no operand (the slots a body does not take)
+enum Kind { kF = 0, kB = 1, kS = 2, kN = 3 };
 
 // op codes: the order of ops/stream_map.py REAL_BODIES, then COMPLEX_BODIES
 enum Body {
   kAdd = 0, kSub, kMul, kDiv, kSin, kCos, kExp, kLogn, kLog2, kLog10, kSqrt,
-  kSinc, kClip, kCAdd, kCSub, kCMul, kCDiv
+  kSinc, kClip, kCAdd, kCSub, kCMul, kCDiv, kBodies
 };
 
 struct Operand {
   const float* ptr;  // full, brow or 1-element data; null for a value
   float re, im;      // a Python scalar
-  int kind;
   int m;             // brow length in elements
 };
 
@@ -140,106 +156,212 @@ __device__ __forceinline__ float2 complex_body(float2 a, float2 b) {
   return make_float2(0.f, 0.f);
 }
 
-// -- operand loads -----------------------------------------------------------
-
-__device__ __forceinline__ float scalar_of(const Operand& o) {
-  return o.kind == kPointer ? __ldg(o.ptr) : o.re;
+template <int B>
+__device__ __forceinline__ float4 real_body4(float4 a, float4 b, float4 c) {
+  return make_float4(real_body<B>(a.x, b.x, c.x), real_body<B>(a.y, b.y, c.y),
+                     real_body<B>(a.z, b.z, c.z), real_body<B>(a.w, b.w, c.w));
 }
 
-// four consecutive elements from 4*g
-__device__ __forceinline__ float4 load4(const Operand& o, float s, long long g) {
-  if (o.kind == kFull) return __ldg(reinterpret_cast<const float4*>(o.ptr) + g);
-  if (o.kind == kBrow) return __ldg(reinterpret_cast<const float4*>(o.ptr + (4 * g) % o.m));
-  return make_float4(s, s, s, s);
+// two complex values a float4
+template <int B>
+__device__ __forceinline__ float4 complex_body2(float4 a, float4 b) {
+  const float2 lo = complex_body<B>(make_float2(a.x, a.y), make_float2(b.x, b.y));
+  const float2 hi = complex_body<B>(make_float2(a.z, a.w), make_float2(b.z, b.w));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-__device__ __forceinline__ float load1(const Operand& o, float s, long long i) {
-  if (o.kind == kFull) return __ldg(o.ptr + i);
-  if (o.kind == kBrow) return __ldg(o.ptr + i % o.m);
-  return s;
-}
+// -- the operands as a thread holds them --------------------------------------
+//
+// at(k): the float4 of the thread's k-th group for a broadcast row or a
+// scalar (a full operand is loaded by the kernel); one(i): element i, for
+// the tail.
 
-__device__ __forceinline__ float2 cscalar_of(const Operand& o) {
-  return o.kind == kPointer ? __ldg(reinterpret_cast<const float2*>(o.ptr))
-                            : make_float2(o.re, o.im);
-}
+template <int K>
+struct Real;
 
-// two consecutive complex values from 2*g (no brow: the wrapper refuses it)
-__device__ __forceinline__ float4 cload2(const Operand& o, float2 s, long long g) {
-  if (o.kind == kFull) return __ldg(reinterpret_cast<const float4*>(o.ptr) + g);
-  return make_float4(s.x, s.y, s.x, s.y);
-}
+template <>
+struct Real<kF> {
+  const float* p;
+  __device__ explicit Real(const Operand& o) : p(o.ptr) {}
+  __device__ void seek(long long) {}
+  __device__ float one(long long i) const { return __ldg(p + i); }
+};
 
-__device__ __forceinline__ float2 cload1(const Operand& o, float2 s, long long i) {
-  if (o.kind == kFull) return __ldg(reinterpret_cast<const float2*>(o.ptr) + i);
-  return s;
-}
+template <>
+struct Real<kB> {
+  const float* row;
+  uint32_t m;
+  uint32_t off[kVec];  // row offset of the thread's k-th group, in elements
+  __device__ explicit Real(const Operand& o) : row(o.ptr), m((uint32_t)o.m) {}
+  // the thread's groups g, g + kThreads, ...: one 64-bit division, then
+  // 32-bit ones
+  __device__ void seek(long long g) {
+    const uint32_t base = (uint32_t)((4 * g) % m);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) off[k] = (base + 4u * kThreads * k) % m;
+  }
+  __device__ float4 at(int k) const { return __ldg(reinterpret_cast<const float4*>(row + off[k])); }
+  __device__ float one(long long i) const { return __ldg(row + i % m); }
+};
+
+template <>
+struct Real<kS> {
+  float s;
+  __device__ explicit Real(const Operand& o) : s(o.ptr ? __ldg(o.ptr) : o.re) {}
+  __device__ void seek(long long) {}
+  __device__ float4 at(int) const { return make_float4(s, s, s, s); }
+  __device__ float one(long long) const { return s; }
+};
+
+template <>
+struct Real<kN> : Real<kS> {
+  __device__ explicit Real(const Operand&) : Real<kS>(Operand{nullptr, 0.f, 0.f, 0}) {}
+};
+
+template <int K>
+struct Cplx;
+
+template <>
+struct Cplx<kF> {
+  const float2* p;
+  __device__ explicit Cplx(const Operand& o) : p(reinterpret_cast<const float2*>(o.ptr)) {}
+  __device__ float2 one(long long i) const { return __ldg(p + i); }
+};
+
+template <>
+struct Cplx<kS> {
+  float2 s;
+  __device__ explicit Cplx(const Operand& o)
+      : s(o.ptr ? __ldg(reinterpret_cast<const float2*>(o.ptr)) : make_float2(o.re, o.im)) {}
+  __device__ float4 at(int) const { return make_float4(s.x, s.y, s.x, s.y); }
+  __device__ float2 one(long long) const { return s; }
+};
 
 // -- the kernels -------------------------------------------------------------
 
-template <int B>
-__global__ void __launch_bounds__(kThreads)
-real_map_kernel(Operands in, float* __restrict__ out, long long n) {
-  const Operand &o0 = in.op[0], &o1 = in.op[1], &o2 = in.op[2];
-  const float s0 = scalar_of(o0), s1 = scalar_of(o1), s2 = scalar_of(o2);
-  const long long n4 = n >> 2;
-  const long long g0 = blockIdx.x * kChunk + threadIdx.x;
-  float4 a[kUnroll], b[kUnroll], c[kUnroll];
-#pragma unroll
-  for (int k = 0; k < kUnroll; ++k) {
-    const long long g = g0 + k * kThreads;
-    if (g < n4) {
-      a[k] = load4(o0, s0, g);
-      b[k] = load4(o1, s1, g);
-      c[k] = load4(o2, s2, g);
-    }
-  }
-  float4* out4 = reinterpret_cast<float4*>(out);
-#pragma unroll
-  for (int k = 0; k < kUnroll; ++k) {
-    const long long g = g0 + k * kThreads;
-    if (g < n4) {
-      float4 r;
-      r.x = real_body<B>(a[k].x, b[k].x, c[k].x);
-      r.y = real_body<B>(a[k].y, b[k].y, c[k].y);
-      r.z = real_body<B>(a[k].z, b[k].z, c[k].z);
-      r.w = real_body<B>(a[k].w, b[k].w, c[k].w);
-      out4[g] = r;
-    }
-  }
-  const long long i = (n4 << 2) + g0;  // the ragged tail, < 4 elements, block 0
-  if (blockIdx.x == 0 && i < n)
-    out[i] = real_body<B>(load1(o0, s0, i), load1(o1, s1, i), load1(o2, s2, i));
+template <int K, class Op>
+__device__ __forceinline__ float4 load4(const Op& o, long long g, int k) {
+  if constexpr (K == kF) return __ldg(reinterpret_cast<const float4*>(o.p) + g);
+  else return o.at(k);
 }
 
-template <int B>
+template <int B, int K0, int K1, int K2>
 __global__ void __launch_bounds__(kThreads)
-complex_map_kernel(Operands in, float2* __restrict__ out, long long n) {
-  const Operand &o0 = in.op[0], &o1 = in.op[1];
-  const float2 s0 = cscalar_of(o0), s1 = cscalar_of(o1);
-  const long long n2 = n >> 1;
-  const long long g0 = blockIdx.x * kChunk + threadIdx.x;
-  float4 a[kUnroll], b[kUnroll];
+map_kernel(Operands in, float* __restrict__ out, long long n) {
+  const long long groups = n >> 2;
+  const long long g0 = blockIdx.x * (long long)kChunk + threadIdx.x;
+  Real<K0> o0(in.op[0]);
+  Real<K1> o1(in.op[1]);
+  Real<K2> o2(in.op[2]);
+  o0.seek(g0);
+  o1.seek(g0);
+  o2.seek(g0);
+  float4 a[kVec], b[kVec], d[kVec];
 #pragma unroll
-  for (int k = 0; k < kUnroll; ++k) {
+  for (int k = 0; k < kVec; ++k) {
     const long long g = g0 + k * kThreads;
-    if (g < n2) {
-      a[k] = cload2(o0, s0, g);
-      b[k] = cload2(o1, s1, g);
+    if (g < groups) {
+      a[k] = load4<K0>(o0, g, k);
+      b[k] = load4<K1>(o1, g, k);
+      d[k] = load4<K2>(o2, g, k);
     }
   }
   float4* out4 = reinterpret_cast<float4*>(out);
 #pragma unroll
-  for (int k = 0; k < kUnroll; ++k) {
+  for (int k = 0; k < kVec; ++k) {
     const long long g = g0 + k * kThreads;
-    if (g < n2) {
-      const float2 lo = complex_body<B>(make_float2(a[k].x, a[k].y), make_float2(b[k].x, b[k].y));
-      const float2 hi = complex_body<B>(make_float2(a[k].z, a[k].w), make_float2(b[k].z, b[k].w));
-      out4[g] = make_float4(lo.x, lo.y, hi.x, hi.y);
+    if (g < groups) out4[g] = real_body4<B>(a[k], b[k], d[k]);
+  }
+  const long long i = (groups << 2) + g0;  // the ragged tail, < 4 elements, block 0
+  if (blockIdx.x == 0 && i < n) out[i] = real_body<B>(o0.one(i), o1.one(i), o2.one(i));
+}
+
+template <int B, int K0, int K1>
+__global__ void __launch_bounds__(kThreads)
+cmap_kernel(Operands in, float2* __restrict__ out, long long n) {
+  const long long groups = n >> 1;  // two complex values a float4
+  const long long g0 = blockIdx.x * (long long)kChunk + threadIdx.x;
+  Cplx<K0> o0(in.op[0]);
+  Cplx<K1> o1(in.op[1]);
+  float4 a[kVec], b[kVec];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    const long long g = g0 + k * kThreads;
+    if (g < groups) {
+      a[k] = load4<K0>(o0, g, k);
+      b[k] = load4<K1>(o1, g, k);
     }
   }
-  const long long i = (n2 << 1) + g0;  // an odd count's last value, block 0
-  if (blockIdx.x == 0 && i < n) out[i] = complex_body<B>(cload1(o0, s0, i), cload1(o1, s1, i));
+  float4* out4 = reinterpret_cast<float4*>(out);
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    const long long g = g0 + k * kThreads;
+    if (g < groups) out4[g] = complex_body2<B>(a[k], b[k]);
+  }
+  const long long i = groups << 1;  // an odd count's last value, block 0
+  if (blockIdx.x == 0 && threadIdx.x == 0 && i < n) out[i] = complex_body<B>(o0.one(i), o1.one(i));
+}
+
+// -- dispatch ----------------------------------------------------------------
+
+constexpr int arity(int b) { return b >= kCAdd ? 2 : b == kClip ? 3 : b >= kSin ? 1 : 2; }
+
+// the kind combinations ops/stream_map.py's _layout admits (INSTANTIATIONS there)
+constexpr bool admitted(int b, int k0, int k1, int k2) {
+  if (b >= kCAdd)
+    return k2 == kN && ((k0 == kF && (k1 == kF || k1 == kS)) || (k0 == kS && k1 == kF));
+  if (arity(b) == 1) return k0 == kF && k1 == kN && k2 == kN;
+  if (arity(b) == 2)
+    return k2 == kN && ((k0 == kF && k1 != kN) || (k1 == kF && (k0 == kS || k0 == kB)));
+  return k0 != kN && k1 != kN && k2 != kN && (k0 == kF || k1 == kF || k2 == kF);
+}
+
+struct Launch {
+  Operands in;
+  int kind[3];
+  void* out;
+  long long n;
+  cudaStream_t stream;
+};
+
+// one block a chunk
+template <int B, int K0, int K1, int K2>
+cudaError_t run(const Launch& l) {
+  const long long chunks = ((B >= kCAdd ? l.n / 2 : l.n / 4) + kChunk - 1) / kChunk;
+  const int blocks = (int)(chunks < 1 ? 1 : chunks);
+  if constexpr (B >= kCAdd)
+    cmap_kernel<B, K0, K1><<<blocks, kThreads, 0, l.stream>>>(l.in, (float2*)l.out, l.n);
+  else
+    map_kernel<B, K0, K1, K2><<<blocks, kThreads, 0, l.stream>>>(l.in, (float*)l.out, l.n);
+  return cudaGetLastError();
+}
+
+// the host kinds of the operands a body takes, resolved one by one into
+// template arguments; only admitted combinations are instantiated
+template <int B, int... Ks>
+cudaError_t pick_kinds(const Launch& l) {
+  constexpr int i = sizeof...(Ks);
+  if constexpr (i == 3) {
+    if constexpr (admitted(B, Ks...)) return run<B, Ks...>(l);
+    else return cudaErrorInvalidValue;
+  } else if constexpr (i >= arity(B)) {
+    return pick_kinds<B, Ks..., kN>(l);
+  } else {
+    switch (l.kind[i]) {
+      case kFull: return pick_kinds<B, Ks..., kF>(l);
+      case kBrow: return pick_kinds<B, Ks..., kB>(l);
+      case kValue:
+      case kPointer: return pick_kinds<B, Ks..., kS>(l);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+}
+
+template <int... Bs>
+cudaError_t pick_body(int body, const Launch& l, std::integer_sequence<int, Bs...>) {
+  cudaError_t err = cudaErrorInvalidValue;
+  ((body == Bs ? (err = pick_kinds<Bs>(l), 0) : 0), ...);
+  return err;
 }
 
 }  // namespace
@@ -253,38 +375,19 @@ int dsc_stream_map(int body,
                    const void* p1, float re1, float im1, int kind1, int m1,
                    const void* p2, float re2, float im2, int kind2, int m2,
                    void* out, long long n, void* stream) {
+  if (body < 0 || body >= kBodies) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaSuccess;
-  Operands in;
-  in.op[0] = Operand{(const float*)p0, re0, im0, kind0, m0};
-  in.op[1] = Operand{(const float*)p1, re1, im1, kind1, m1};
-  in.op[2] = Operand{(const float*)p2, re2, im2, kind2, m2};
-  const long long vecs = body >= kCAdd ? n / 2 : n / 4;
-  const long long chunks = (vecs + kChunk - 1) / kChunk;
-  const int blocks = (int)(chunks < 1 ? 1 : chunks);
-  cudaStream_t s = (cudaStream_t)stream;
-  float* fo = (float*)out;
-  float2* co = (float2*)out;
-  switch (body) {
-    case kAdd: real_map_kernel<kAdd><<<blocks, kThreads, 0, s>>>(in, fo, n); break;
-    case kSub: real_map_kernel<kSub><<<blocks, kThreads, 0, s>>>(in, fo, n); break;
-    case kMul: real_map_kernel<kMul><<<blocks, kThreads, 0, s>>>(in, fo, n); break;
-    case kDiv: real_map_kernel<kDiv><<<blocks, kThreads, 0, s>>>(in, fo, n); break;
-    case kSin: real_map_kernel<kSin><<<blocks, kThreads, 0, s>>>(in, fo, n); break;
-    case kCos: real_map_kernel<kCos><<<blocks, kThreads, 0, s>>>(in, fo, n); break;
-    case kExp: real_map_kernel<kExp><<<blocks, kThreads, 0, s>>>(in, fo, n); break;
-    case kLogn: real_map_kernel<kLogn><<<blocks, kThreads, 0, s>>>(in, fo, n); break;
-    case kLog2: real_map_kernel<kLog2><<<blocks, kThreads, 0, s>>>(in, fo, n); break;
-    case kLog10: real_map_kernel<kLog10><<<blocks, kThreads, 0, s>>>(in, fo, n); break;
-    case kSqrt: real_map_kernel<kSqrt><<<blocks, kThreads, 0, s>>>(in, fo, n); break;
-    case kSinc: real_map_kernel<kSinc><<<blocks, kThreads, 0, s>>>(in, fo, n); break;
-    case kClip: real_map_kernel<kClip><<<blocks, kThreads, 0, s>>>(in, fo, n); break;
-    case kCAdd: complex_map_kernel<kCAdd><<<blocks, kThreads, 0, s>>>(in, co, n); break;
-    case kCSub: complex_map_kernel<kCSub><<<blocks, kThreads, 0, s>>>(in, co, n); break;
-    case kCMul: complex_map_kernel<kCMul><<<blocks, kThreads, 0, s>>>(in, co, n); break;
-    case kCDiv: complex_map_kernel<kCDiv><<<blocks, kThreads, 0, s>>>(in, co, n); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  Launch l;
+  l.in.op[0] = Operand{kind0 == kValue ? nullptr : (const float*)p0, re0, im0, m0};
+  l.in.op[1] = Operand{kind1 == kValue ? nullptr : (const float*)p1, re1, im1, m1};
+  l.in.op[2] = Operand{kind2 == kValue ? nullptr : (const float*)p2, re2, im2, m2};
+  l.kind[0] = kind0;
+  l.kind[1] = kind1;
+  l.kind[2] = kind2;
+  l.out = out;
+  l.n = n;
+  l.stream = (cudaStream_t)stream;
+  return (int)pick_body(body, l, std::make_integer_sequence<int, kBodies>());
 }
 
 }  // extern "C"

@@ -4,9 +4,9 @@ Each function takes torch tensors (and Python scalars) already in the
 result dtype and returns a torch tensor. Where the JAX package streams an
 op through its TPU kernel K5, the port calls ``stream_map`` (kernel on a
 CUDA tensor, plain version on a CPU tensor): float32 ops that
-``stream_map.eligible`` admits, and complex64 add/sub/mul/div that
-``stream_map.eligible_complex`` admits. Everything the JAX package leaves
-to XLA is plain PyTorch on both devices.
+``stream_map.route`` admits, and complex64 add/sub/mul/div that
+``stream_map.route_complex`` admits, each op classifying its operands once.
+Everything the JAX package leaves to XLA is plain PyTorch on both devices.
 
 Semantics kept from the reference (SURVEY Appendix B):
 
@@ -49,14 +49,20 @@ def _dtype_of(a, b) -> torch.dtype:
     return a.dtype if isinstance(a, torch.Tensor) else b.dtype
 
 
-def streams(name: str, a, b) -> bool:
-    """Whether ``a <name> b`` runs K5 (operands in the result dtype)."""
+def _route(name: str, a, b):
+    """The (shape, kinds) K5 takes ``a <name> b`` with (operands in the
+    result dtype), or None where the op is plain torch."""
     if name not in _PLAIN_BINARY:
-        return False
+        return None
     dtype = _dtype_of(a, b)
     if dtype == torch.complex64:
-        return sm.eligible_complex(_shape(a), _shape(b))
-    return sm.eligible([_shape(a) or (), _shape(b) or ()], [dtype, dtype])
+        return sm.route_complex(_shape(a), _shape(b))
+    return sm.route([_shape(a) or (), _shape(b) or ()], [dtype, dtype])
+
+
+def streams(name: str, a, b) -> bool:
+    """Whether ``a <name> b`` runs K5 (operands in the result dtype)."""
+    return _route(name, a, b) is not None
 
 
 def binary(name: str, a, b) -> torch.Tensor:
@@ -64,8 +70,9 @@ def binary(name: str, a, b) -> torch.Tensor:
     the result dtype."""
     if name == 'pow':
         return power(a, b)
-    if streams(name, a, b):
-        return sm.stream_map(name, a, b)
+    layout = _route(name, a, b)
+    if layout is not None:
+        return sm.stream_map(name, a, b, layout=layout)
     return _PLAIN_BINARY[name](a, b)
 
 
@@ -179,8 +186,9 @@ def unary(name: str, x: torch.Tensor) -> torch.Tensor:
     real_fn, complex_fn = UNARY[name]
     if x.dtype.is_complex:
         return complex_fn(x)
-    if sm.eligible([tuple(x.shape)], [x.dtype]):
-        return sm.stream_map(name, x)
+    layout = sm.route([tuple(x.shape)], [x.dtype])
+    if layout is not None:
+        return sm.stream_map(name, x, layout=layout)
     return real_fn(x)
 
 
@@ -212,8 +220,9 @@ def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
         hi_c = torch.full((), complex(hi), dtype=x.dtype, device=x.device)
         y = torch.where(x.real < lo_c.real, lo_c, x)
         return torch.where(y.real > hi_c.real, hi_c, y)
-    if sm.eligible([tuple(x.shape), (), ()], [x.dtype] * 3):
-        return sm.stream_map('clip', x, float(lo), float(hi))
+    layout = sm.route([tuple(x.shape), (), ()], [x.dtype] * 3)
+    if layout is not None:
+        return sm.stream_map('clip', x, float(lo), float(hi), layout=layout)
     return torch.clamp(x, float(lo), float(hi))
 
 

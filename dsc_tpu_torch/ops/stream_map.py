@@ -6,7 +6,7 @@ leaves every other op to XLA. The port keeps that routing rule exactly
 (``classify``/``eligible``) and replaces the kernel with
 ``csrc/stream_map.cu``: one pass over device memory with 16-byte loads and
 stores, each block one short chunk of the output, one instantiation per
-body.
+body and operand kinds (``INSTANTIATIONS``).
 
 Operands are tensors or Python scalars. Their kinds (``classify``):
 
@@ -32,11 +32,14 @@ The JAX package streams complex arithmetic on planar spectra
 elements whose operands have one shape, or one of which is a Python scalar.
 
 ``stream_map`` launches the kernel for CUDA tensors and runs
-``stream_map_plain``, the same formulas in torch ops, for CPU tensors.
+``stream_map_plain``, the same formulas in torch ops, for CPU tensors. The
+op layer (ops/kernels.py) classifies its operands once, with ``route`` or
+``route_complex``, and hands the result down as ``layout``.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 
 import numpy as np
@@ -60,6 +63,53 @@ COMPLEX_BODIES = ('add', 'sub', 'mul', 'div')
 
 # operand kinds as the kernel reads them
 _FULL, _BROW, _VALUE, _POINTER = 0, 1, 2, 3
+_HOST_KIND = {'full': _FULL, 'brow': _BROW, 'scalar': _POINTER}
+
+# the kernel's op codes
+_CODES = {**{(torch.float32, b): i for i, b in enumerate(REAL_BODIES)},
+          **{(torch.complex64, b): len(REAL_BODIES) + i for i, b in enumerate(COMPLEX_BODIES)}}
+
+_KIND_ARG = {'full': 'kF', 'brow': 'kB', 'scalar': 'kS'}
+
+
+def _instantiations():
+    """(dtype, body, kinds) -> the kernel template csrc/stream_map.cu
+    instantiates for it (its ``admitted``): a unary body on a full operand;
+    a binary body on (full, full), a scalar or a broadcast row on either
+    side of a full operand; clip on every placement of full, brow and scalar
+    with at least one full; a complex body on (full, full) or a scalar on
+    either side. These are exactly the combinations ``_layout`` admits."""
+    table = {}
+    binary = [('full', 'full'), ('full', 'scalar'), ('scalar', 'full'),
+              ('full', 'brow'), ('brow', 'full')]
+    for body, arity in REAL_BODIES.items():
+        name = 'k' + body.capitalize()
+        if arity == 1:
+            combos = [('full',)]
+        elif arity == 2:
+            combos = binary
+        else:
+            combos = [ks for ks in itertools.product(_KIND_ARG, repeat=3) if 'full' in ks]
+        for ks in combos:
+            args = [_KIND_ARG[k] for k in ks] + ['kN'] * (3 - arity)
+            table[(torch.float32, body, ks)] = f'map_kernel<{name}, {", ".join(args)}>'
+    for body in COMPLEX_BODIES:
+        for ks in binary[:3]:
+            table[(torch.complex64, body, ks)] = (
+                f'cmap_kernel<kC{body.capitalize()}, {", ".join(_KIND_ARG[k] for k in ks)}>')
+    return table
+
+
+INSTANTIATIONS = _instantiations()
+
+
+def instantiation(body: str, dtype: torch.dtype, kinds) -> str:
+    """The kernel template ``body`` over operands of ``kinds`` runs; raises
+    on a combination the kernel has no instantiation for."""
+    key = (dtype, body, tuple(kinds))
+    if key not in INSTANTIATIONS:
+        raise ValueError(f'stream_map: no {dtype} {body} kernel for kinds {list(kinds)}')
+    return INSTANTIATIONS[key]
 
 
 # ---------------------------------------------------------------------------
@@ -95,36 +145,49 @@ def classify(shapes):
     return tgt, kinds
 
 
-def eligible(shapes, dtypes) -> bool:
-    """The JAX package's rule (pallas_map.eligible): float32, every operand
+def route(shapes, dtypes):
+    """(shape, kinds) of the operands when the JAX package's rule
+    (pallas_map.eligible) streams them, else None: float32, every operand
     full-shape, 1-element or a broadcast row, at least MIN_ELEMS elements,
     a count that is a multiple of 128, and a broadcast row of M % 128 == 0
     and M/128 <= CHUNK_ROWS. ``dtypes`` are torch dtypes."""
     cl = classify(shapes)
     if cl is None:
-        return False
+        return None
     tgt, kinds = cl
     ne = math.prod(tgt)
     if ne < MIN_ELEMS or ne % LANES:
-        return False
+        return None
     if any(d != torch.float32 for d in dtypes):
-        return False
+        return None
     if 'brow' in kinds:
         m = tgt[-1]
         if m % LANES or m // LANES > CHUNK_ROWS:
-            return False
-    return True
+            return None
+    return cl
+
+
+def eligible(shapes, dtypes) -> bool:
+    """Whether ``route`` streams the operands."""
+    return route(shapes, dtypes) is not None
+
+
+def route_complex(shape_a, shape_b):
+    """(shape, kinds) of the port's complex64 route for add/sub/mul/div,
+    else None: operands of one shape, or one of them a Python scalar (shape
+    None), at least MIN_ELEMS elements. At power-of-two spectra this is the
+    decision of the JAX package's planar route."""
+    shapes = [tuple(s) for s in (shape_a, shape_b) if s is not None]
+    if len(shapes) == 2 and shapes[0] != shapes[1]:
+        return None
+    if math.prod(shapes[0]) < MIN_ELEMS:
+        return None
+    return shapes[0], ['scalar' if s is None else 'full' for s in (shape_a, shape_b)]
 
 
 def eligible_complex(shape_a, shape_b) -> bool:
-    """The port's complex64 route for add/sub/mul/div: operands of one
-    shape, or one of them a Python scalar (shape None), at least MIN_ELEMS
-    elements. At power-of-two spectra this is the decision of the JAX
-    package's planar route."""
-    shapes = [tuple(s) for s in (shape_a, shape_b) if s is not None]
-    if len(shapes) == 2 and shapes[0] != shapes[1]:
-        return False
-    return math.prod(shapes[0]) >= MIN_ELEMS
+    """Whether ``route_complex`` streams the operands."""
+    return route_complex(shape_a, shape_b) is not None
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +246,10 @@ def _sinc(x):
 
 
 def _clip(x, lo, hi):
-    y = torch.where(x < lo, lo, x)
+    if isinstance(x, torch.Tensor) or isinstance(lo, torch.Tensor):
+        y = torch.where(x < lo, lo, x)
+    else:  # two scalars: torch.where takes no Python bool
+        y = lo if x < lo else x
     return torch.where(y > hi, hi, y)
 
 
@@ -250,11 +316,9 @@ def _layout(body: str, operands):
     if cl is None:
         raise ValueError('stream_map: operands are not full, brow or scalar')
     shape, kinds = cl
-    if dtype == torch.complex64:
-        if body not in COMPLEX_BODIES or 'brow' in kinds:
-            raise ValueError(f'stream_map: no complex64 {body} with kinds {kinds}')
-    elif any(isinstance(x, complex) for x in operands):
+    if dtype == torch.float32 and any(isinstance(x, complex) for x in operands):
         raise ValueError('stream_map: a complex scalar needs complex64 tensors')
+    instantiation(body, dtype, kinds)
     return shape, kinds, dtype
 
 
@@ -280,10 +344,13 @@ def stream_map_plain(body: str, *operands) -> torch.Tensor:
     return _REAL_FNS[body](*args).reshape(shape)
 
 
-def stream_map(body: str, *operands) -> torch.Tensor:
-    """K5 on CUDA tensors, its plain version on CPU tensors."""
-    shape, kinds, dtype = _layout(body, operands)
-    device = next(x.device for x in operands if isinstance(x, torch.Tensor))
+def stream_map(body: str, *operands, layout=None) -> torch.Tensor:
+    """K5 on CUDA tensors, its plain version on CPU tensors. ``layout``:
+    the (shape, kinds) that ``route`` or ``route_complex`` returned for
+    these operands, which then are not classified again."""
+    shape, kinds = _layout(body, operands)[:2] if layout is None else layout
+    first = next(x for x in operands if isinstance(x, torch.Tensor))
+    device, dtype = first.device, first.dtype
     if device.type == 'cpu':
         return stream_map_plain(body, *operands)
     args = []
@@ -302,13 +369,10 @@ def stream_map(body: str, *operands) -> torch.Tensor:
         if kind == 'brow' and shape[-1] % 4:
             raise RuntimeError(f'stream_map: a broadcast row of {shape[-1]} '
                                'elements is not a multiple of 4')
-        code = {'full': _FULL, 'brow': _BROW, 'scalar': _POINTER}[kind]
-        args += [x.data_ptr(), 0.0, 0.0, code, shape[-1] if kind == 'brow' else 0]
+        args += [x.data_ptr(), 0.0, 0.0, _HOST_KIND[kind], shape[-1] if kind == 'brow' else 0]
     out = torch.empty(shape, dtype=dtype, device=device)
     n = out.numel()
     if n == 0:
         return out
-    code = (len(REAL_BODIES) + COMPLEX_BODIES.index(body)
-            if dtype == torch.complex64 else list(REAL_BODIES).index(body))
-    build.launch('stream_map', code, *args, out.data_ptr(), n)
+    build.launch('stream_map', _CODES[dtype, body], *args, out.data_ptr(), n)
     return out

@@ -486,3 +486,77 @@ def test_stream_map_refuses_misaligned_data():
     x = torch.zeros(2**21 + 1, device='cuda')[1:]
     with pytest.raises(RuntimeError, match='aligned'):
         sm.stream_map('sin', x)
+
+
+# K5, every instantiation (stream_map.INSTANTIATIONS): 2^21 elements, one
+# 16-byte group past a block's chunk (512 float4 groups an operand), a
+# chunk and a group on; complex also an odd count
+K5_CHUNK = 4 * 512  # floats a block takes per operand
+K5_COUNTS = (2**21, 2**21 + 4, 2**21 + K5_CHUNK + 4)
+
+
+def _brow_split(n):
+    """(rows, M) of n elements with the longest row the kernel takes (M % 4
+    == 0) of at most 2^14 elements."""
+    m = max(m for m in range(4, 2**14 + 1, 4) if n % m == 0 and n // m >= 2)
+    return n // m, m
+
+
+def _k5_kind_operands(dtype, body, kinds, n, seed):
+    rng = np.random.default_rng(seed)
+    shape = _brow_split(n) if 'brow' in kinds else (n,)
+    ops = []
+    for i, kind in enumerate(kinds):
+        if kind == 'scalar':
+            v = (0.25, -0.5, 0.75)[i] if dtype == torch.float32 else (0.5 - 1.25j, 2.0 - 0.5j)[i]
+            # a Python value and a 1-element tensor in turn
+            ops.append(v if (i + n) % 2 else torch.tensor([v], dtype=dtype, device='cuda'))
+            continue
+        sub = shape if kind == 'full' else shape[-1:]
+        x = rng.standard_normal(sub).astype(np.float32)
+        if dtype == torch.complex64:
+            x = (x + 1j * rng.standard_normal(sub)).astype(np.complex64)
+        elif body in ('logn', 'log2', 'log10', 'sqrt'):
+            x = np.abs(x) + np.float32(1e-3)
+        ops.append(torch.from_numpy(x).cuda())
+    return ops
+
+
+@pytest.mark.parametrize('n', K5_COUNTS)
+@pytest.mark.parametrize('key', list(sm.INSTANTIATIONS), ids=lambda k: '-'.join(
+    [str(k[0]).split('.')[-1], k[1], *k[2]]))
+def test_stream_map_every_instantiation(key, n):
+    dtype, body, kinds = key
+    ops = _k5_kind_operands(dtype, body, kinds, n, n + len(kinds))
+    before = build.launches['stream_map']
+    got = sm.stream_map(body, *ops)
+    assert build.launches['stream_map'] == before + 1
+    assert _rel(got, sm.stream_map_plain(body, *ops)) < REL
+
+
+@pytest.mark.parametrize('kinds', [('full', 'full'), ('full', 'scalar'), ('scalar', 'full')])
+@pytest.mark.parametrize('body', sm.COMPLEX_BODIES)
+def test_stream_map_complex_odd_count(body, kinds):
+    ops = _k5_kind_operands(torch.complex64, body, kinds, 2**21 + 1, 7)
+    assert _rel(sm.stream_map(body, *ops), sm.stream_map_plain(body, *ops)) < REL
+
+
+def test_stream_map_refuses_combinations_outside_the_dispatch():
+    """The C entry point returns cudaErrorInvalidValue for a body or a
+    combination of kinds it has no instantiation for, and build.launch
+    raises on it."""
+    x = torch.ones(2**21, device='cuda')
+    out = torch.empty_like(x)
+    full = [x.data_ptr(), 0.0, 0.0, sm._FULL, 0]
+    value = [None, 1.0, 0.0, sm._VALUE, 0]
+    brow = [x.data_ptr(), 0.0, 0.0, sm._BROW, 1024]
+    code = sm._CODES
+    for args in ((code[torch.float32, 'sin'], *value, *value, *value),           # a scalar sine
+                 (code[torch.float32, 'add'], *brow, *brow, *value),             # no full operand
+                 (code[torch.complex64, 'mul'], *full, *brow, *value),           # a complex row
+                 (code[torch.float32, 'add'], *full, 0, 0.0, 0.0, 7, 0, *value),  # no such kind
+                 (len(code), *full, *full, *value)):                              # no such body
+        before = build.launches['stream_map']
+        with pytest.raises(RuntimeError, match='dsc_stream_map failed'):
+            build.launch('stream_map', *args, out.data_ptr(), x.numel())
+        assert build.launches['stream_map'] == before

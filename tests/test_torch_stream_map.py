@@ -7,6 +7,10 @@ version on CPU tensors. Also: the routing rule case by case against
 ``pallas_map.eligible``, and the README filterFFT at n = 2^21 with the
 spectrum multiply on K5's complex body."""
 
+import itertools
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -250,3 +254,207 @@ def test_filter_fft_spectrum_multiply_on_k5(monkeypatch):
     ref = dsc_tpu.irfft(jspec)[: 2**20 + 254].numpy()
     assert got.shape == ref.shape and got.dtype == ref.dtype == np.float32
     assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
+
+
+# -- every instantiation of the kernel (csrc/stream_map.cu) -----------------
+
+ROWS_M = (17, 1024)  # NE elements: two full JAX chunks and a remainder tile
+SCALARS = {torch.float32: (0.25, -0.5, 0.75), torch.complex64: (0.5 - 1.25j, 2.0 - 0.5j)}
+K5_CASES = [(key, form) for key in sm.INSTANTIATIONS
+            for form in (('value', 'tensor') if 'scalar' in key[2] else ('',))]
+
+
+def _case_id(case):
+    (dtype, body, kinds), form = case
+    return '-'.join([str(dtype).split('.')[-1], body, *kinds] + ([form] if form else []))
+
+
+def _kind_operands(dtype, body, kinds, form, seed):
+    """(JAX operands, port operands) of ``kinds`` for ``body``: full
+    operands of shape ROWS_M, broadcast rows of (M,), scalars as Python
+    values or 1-element tensors (``form``)."""
+    rng = np.random.default_rng(seed)
+    positive = body in ('logn', 'log2', 'log10', 'sqrt')
+    jax_ops, port_ops = [], []
+    for i, kind in enumerate(kinds):
+        if kind == 'scalar':
+            v = SCALARS[dtype][i]
+            jax_ops.append(np.complex64(v) if dtype == torch.complex64 else np.float32(v))
+            port_ops.append(v if form == 'value' else torch.tensor([v], dtype=dtype))
+            continue
+        shape = ROWS_M if kind == 'full' else ROWS_M[-1:]
+        x = rng.standard_normal(shape).astype(np.float32)
+        if dtype == torch.complex64:
+            x = (x + 1j * rng.standard_normal(shape)).astype(np.complex64)
+        elif positive:
+            x = np.abs(x) + np.float32(1e-3)
+        jax_ops.append(x)
+        port_ops.append(torch.from_numpy(x))
+    return jax_ops, port_ops
+
+
+@pytest.mark.parametrize('case', K5_CASES, ids=_case_id)
+def test_every_instantiation_matches_jax_kernel(jax_kernel, case):
+    """Each (body, kinds) the kernel is instantiated for: its plain version
+    against the JAX kernel on the same operands, scalars both by value and
+    as 1-element tensors."""
+    (dtype, body, kinds), form = case
+    jax_ops, port_ops = _kind_operands(dtype, body, kinds, form, len(kinds) + 20)
+    if dtype == torch.complex64:
+        planes = []
+        for x in jax_ops:
+            planes += (_planes(x) if x.ndim else (np.float32(x.real), np.float32(x.imag)))
+        yr, yi = pm.stream_map_multi(
+            lambda w, x, y, z: planar._complex_math(w, x, y, z, body), planes,
+            (np.float32, np.float32))
+        ref = (np.asarray(yr) + 1j * np.asarray(yi)).astype(np.complex64)
+    else:
+        assert pm.eligible([np.shape(x) for x in jax_ops], [np.float32] * len(jax_ops))
+        ref = pm.stream_map(JAX_BODIES[body], *jax_ops)
+    assert sm._layout(body, port_ops)[1] == list(kinds)
+    _same(sm.stream_map(body, *port_ops), ref, TOL.get(body, EXACT))
+
+
+def test_instantiations_are_what_the_wrapper_admits():
+    """The dispatch table holds exactly the kind combinations _layout
+    admits: 8 unary, 20 binary, 19 clip, 12 complex instantiations."""
+    counts = {}
+    for dtype, bodies in ((torch.float32, sm.REAL_BODIES),
+                          (torch.complex64, dict.fromkeys(sm.COMPLEX_BODIES, 2))):
+        for body, arity in bodies.items():
+            for kinds in itertools.product(('full', 'brow', 'scalar'), repeat=arity):
+                if 'full' not in kinds:
+                    continue
+                ops = [torch.ones((2, 8) if k == 'full' else (8,) if k == 'brow' else (1,),
+                              dtype=dtype) for k in kinds]
+                assert sm.classify([tuple(x.shape) for x in ops])[1] == list(kinds)
+                known = (dtype, body, kinds) in sm.INSTANTIATIONS
+                if known:
+                    assert sm._layout(body, ops)[1] == list(kinds)
+                    counts[dtype, arity] = counts.get((dtype, arity), 0) + 1
+                else:
+                    with pytest.raises(ValueError, match='no .* kernel for kinds'):
+                        sm._layout(body, ops)
+    assert counts == {(torch.float32, 1): 8, (torch.float32, 2): 20, (torch.float32, 3): 19,
+                      (torch.complex64, 2): 12}
+    assert len(sm.INSTANTIATIONS) == 59
+
+
+@pytest.mark.parametrize('dtype,body,kinds,kernel', [
+    (torch.float32, 'sin', ('full',), 'map_kernel<kSin, kF, kN, kN>'),
+    (torch.float32, 'add', ('full', 'full'), 'map_kernel<kAdd, kF, kF, kN>'),
+    (torch.float32, 'mul', ('full', 'scalar'), 'map_kernel<kMul, kF, kS, kN>'),
+    (torch.float32, 'sub', ('brow', 'full'), 'map_kernel<kSub, kB, kF, kN>'),
+    (torch.float32, 'clip', ('full', 'scalar', 'scalar'), 'map_kernel<kClip, kF, kS, kS>'),
+    (torch.float32, 'clip', ('scalar', 'brow', 'full'), 'map_kernel<kClip, kS, kB, kF>'),
+    (torch.complex64, 'mul', ('full', 'full'), 'cmap_kernel<kCMul, kF, kF>'),
+    (torch.complex64, 'div', ('scalar', 'full'), 'cmap_kernel<kCDiv, kS, kF>'),
+])
+def test_instantiation_names(dtype, body, kinds, kernel):
+    assert sm.instantiation(body, dtype, kinds) == kernel
+
+
+@pytest.mark.parametrize('dtype,body,kinds', [
+    (torch.float32, 'sin', ('scalar',)),
+    (torch.float32, 'sin', ('full', 'full')),
+    (torch.float32, 'add', ('brow', 'brow')),
+    (torch.float32, 'add', ('scalar', 'scalar')),
+    (torch.float32, 'clip', ('brow', 'scalar', 'brow')),
+    (torch.complex64, 'mul', ('full', 'brow')),
+    (torch.complex64, 'sin', ('full',)),
+    (torch.float64, 'add', ('full', 'full')),
+    (torch.float32, 'pow', ('full', 'full')),
+])
+def test_instantiation_refuses_unknown_combinations(dtype, body, kinds):
+    with pytest.raises(ValueError, match='no .* kernel for kinds'):
+        sm.instantiation(body, dtype, kinds)
+
+
+# -- the op layer classifies its operands once -------------------------------
+
+
+@pytest.mark.parametrize('op,classified', [
+    ('add', 1), ('mul by a scalar', 1), ('clip', 1), ('sin', 1), ('complex mul', 0)])
+def test_op_layer_classifies_once(monkeypatch, op, classified):
+    """The op layer routes with ``route`` / ``route_complex`` and hands the
+    classification down, so the wrapper does not classify again."""
+    monkeypatch.setattr(sm, 'MIN_ELEMS', 1024)
+    calls = {'classify': 0, 'plain': 0}
+    classify, plain = sm.classify, sm.stream_map_plain
+
+    def count_classify(shapes):
+        calls['classify'] += 1
+        return classify(shapes)
+
+    def count_plain(body, *ops):
+        # the plain version classifies for itself; on the card the wrapper
+        # launches the kernel in its place
+        calls['plain'] += 1
+        before = calls['classify']
+        out = plain(body, *ops)
+        calls['classify'] = before
+        return out
+
+    monkeypatch.setattr(sm, 'classify', count_classify)
+    monkeypatch.setattr(sm, 'stream_map_plain', count_plain)
+    x, y = (torch.from_numpy(_rand((4, 512), s)) for s in (1, 2))
+    c = torch.from_numpy(_complex(2048, 3))
+    run, ref = {
+        'add': (lambda: K.binary('add', x, y), lambda: x + y),
+        'mul by a scalar': (lambda: K.binary('mul', x, 2.5), lambda: x * 2.5),
+        'clip': (lambda: K.clip(x, -0.5, 0.75), lambda: torch.clamp(x, -0.5, 0.75)),
+        'sin': (lambda: K.unary('sin', x), lambda: sm.fast_sin_f32(x)),
+        'complex mul': (lambda: K.binary('mul', c, 2.0 - 1j), lambda: c * (2.0 - 1j)),
+    }[op]
+    got = run()
+    assert calls == {'classify': classified, 'plain': 1}
+    assert torch.equal(got, ref())
+
+
+def test_route_is_eligible_with_the_classification():
+    for shapes, dt in ROUTES:
+        torch_dt = {'f32': torch.float32, 'f64': torch.float64, 'c64': torch.complex64}[dt]
+        layout = sm.route(shapes, [torch_dt] * len(shapes))
+        assert (layout is not None) == sm.eligible(shapes, [torch_dt] * len(shapes))
+        if layout is not None:
+            assert layout == sm.classify(shapes)
+    assert sm.route_complex((BIG,), None) == ((BIG,), ['full', 'scalar'])
+    assert sm.route_complex(None, (BIG,)) == ((BIG,), ['scalar', 'full'])
+    assert sm.route_complex((BIG,), (BIG,)) == ((BIG,), ['full', 'full'])
+    assert sm.route_complex((BIG,), (1,)) is None
+
+
+# -- the broadcast row's offsets, thread by thread ---------------------------
+
+K5_SOURCE = (Path(sm.__file__).resolve().parents[1] / 'csrc' / 'stream_map.cu').read_text()
+K5_THREADS = int(re.search(r'constexpr int kThreads = (\d+);', K5_SOURCE).group(1))
+K5_VEC = int(re.search(r'constexpr int kVec = (\d+);', K5_SOURCE).group(1))
+K5_CHUNK = K5_THREADS * K5_VEC  # float4 groups a block
+
+
+def emulate_brow_offsets(m, groups):
+    """csrc/stream_map.cu ``Real<kB>::seek`` for every thread of a grid of
+    one block a chunk: one 64-bit division for the thread's first group g0,
+    then its kVec groups g0 + k * kThreads by 32-bit arithmetic. Returns
+    each float4 group's row offset in elements (-1 where no thread took
+    it)."""
+    got = np.full(groups, -1, np.int64)
+    t = np.arange(K5_THREADS)
+    for block in range(-(-groups // K5_CHUNK)):
+        g0 = block * K5_CHUNK + t
+        base = (4 * g0) % m
+        for k in range(K5_VEC):
+            off = base + 4 * K5_THREADS * k
+            assert off.max() < 2**32
+            g = g0 + k * K5_THREADS
+            took = g < groups
+            assert (got[g[took]] == -1).all()
+            got[g[took]] = (off % m)[took]
+    return got
+
+
+@pytest.mark.parametrize('m', [4, 12, 128, 1004, 4096, 16384, 3 * 2**19, 2**21])
+@pytest.mark.parametrize('groups', [K5_CHUNK * 5, K5_CHUNK * 5 + 1, 7])
+def test_brow_offsets_of_each_thread(m, groups):
+    got = emulate_brow_offsets(m, groups)
+    np.testing.assert_array_equal(got, (4 * np.arange(groups)) % m)
