@@ -1,7 +1,9 @@
 """On-GPU smoke test of the dsc_tpu_torch port on one CUDA card: the
 filterFFT main path (rfft -> spectrum multiply -> irfft), the eager
-elementwise tier, the batched FFT suite and the single-vector transforms
-into and out of the T spectrum layout.
+elementwise tier, the batched FFT suite, the single-vector transforms
+into and out of the T spectrum layout, and the fusion tier (dsc.compile
+as CUDA graphs, dsc.map as generated kernels) with the STFT and
+OverlapSave models.
 
     python3 chip_smoke.py
 
@@ -68,7 +70,30 @@ Phases, each raising on failure (exit code 0 means all passed):
    clip with tensor bounds, the broadcast-row add and the complex bodies
    at 2^23 + 1; K12 at
    2048 x 1, 4096 x 1000 and 65536 x 256; and K8, K9, K10 at 2^24 (T and
-   half-T), 2^19 (half-T), 2^26 and 2^18 (T).
+   half-T), 2^19 (half-T), 2^26 and 2^18 (T);
+6. the fusion tier and the models that ride it, every call with the counts
+   set to 0 before it and read after it:
+   a. dsc.compile: FilterFFT(129 random taps, block 2^20) (n = 2^21),
+      entry() (2^20 samples, 4097 Blackman taps) and FilterFFT(4097 taps,
+      block 2^23) (n = 2^24, whose spectrum multiply is K5), each held to a
+      float64 FFT convolution (1e-4 of the largest value) and to its eager
+      chain (1e-6), with the launches of the trace run and the capture
+      counted (each kernel twice) and a replay's (none); torch.profiler over
+      20 replays shows the graph's kernels (K1-K4, K5 at n = 2^24) and no
+      kernel launched from the host (cudaLaunchKernel 0, cudaGraphLaunch
+      20); each compiled step against its eager step on the host clock, with
+      the device's busy share of each;
+   b. dsc.map at 2^26 float32 of clip(x * y + 0.5, -1, 1), a broadcast row
+      and a 1-element tensor (t * row + k) and a two-output body: K5g
+      (a source generated on K5's skeleton, built with nvcc) against its
+      plain interpreter (3e-5) and against the eager chain of K5 launches,
+      timed beside its bound and the eager chain, with nvcc's seconds;
+   c. STFT(1024, 256, 'hann') log power of 1 x 2^20 and 16 x 2^18 inside
+      dsc.profile(xprof_dir=...), whose trace must hold the stft op events
+      and K12's device events; STFT complex -> ISTFT of 4 x 2^18;
+      OverlapSave(129 taps, fft_n = 8192) of 1 x 2^22 and 8 x 2^20; each
+      against NumPy in float64 with the tolerances of the JAX package's
+      tests, and timed with its device busy share.
 
 The last lines are the kernels' JSON record, the card line and the result
 line. Without a CUDA device the script exits non-zero before any of them.
@@ -99,6 +124,10 @@ and 2^26 in turns, K3 and K9 at 2^24 and 2^26 in turns, and the filterFFT
 step at n = 2^21 and 2^24 with the single ifft(fft(x)) of 2^24 points. It calls
 only the wrappers and the public API, so it also runs from an earlier
 tree of the port.
+
+    python3 chip_smoke.py --fusion
+
+runs phases 1-2 and then phase 6 alone.
 
     python3 chip_smoke.py --map-candidates TREE [TREE ...]
 
@@ -165,6 +194,9 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                              'dsc_tpu/fourier/pallas_stream_t.py:202'),
     'stream_inv_phase_b_t': ('dsc_tpu_torch/csrc/fourstep_stream_t.cu',
                              'dsc_tpu/fourier/pallas_stream_t.py:469'),
+    # K5g: K5's skeleton with a body generated from a dsc.map function
+    'stream_map_gen': ('dsc_tpu_torch/csrc/stream_map.cuh',
+                       'dsc_tpu/ops/pallas_map.py:83'),
 }
 # the launches the filterFFT path must make (fourier/config.py): K1 + K2 for
 # each packed rfft (two per filterFFT, one for the 2^24 round trip), K3 + K4
@@ -339,11 +371,47 @@ def filter_fft(dsc, sig, taps, n_taps: int, n: int = STEP_N):
     return dsc.irfft(spec)[: sig.shape[0] + n_taps - 1]
 
 
-def profile_step(dsc, card: str) -> None:
-    """--profile: where the filterFFT step's time goes on the card."""
+def device_profile(fn, what: str, steps: int = 20):
+    """torch.profiler over ``steps`` calls of ``fn``: [(device ms per call,
+    launches per call, kernel or copy name)], largest first, and the profile.
+    A kernel recorded a number of times that is no multiple of the calls
+    means the trace lost events: the calls are profiled again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if all(e.count % steps == 0 for e in events):
+            break
+        print(f'  torch.profiler lost events ({what}: '
+              f'{sorted(e.count for e in events)} over {steps} calls), profiling again')
+    rows = sorted(((e.self_device_time_total / steps / 1e3, e.count // steps, e.key)
+                   for e in events), reverse=True)
+    return rows, prof
+
+
+def print_profile(rows, what: str, wall: float, card: str, steps: int = 20) -> float:
+    """Print ``device_profile``'s rows and the busy share of a ``wall`` ms
+    call; returns the device ms per call."""
+    print(f'torch.profiler, {what}, {steps} calls, device time per call [{card}]:')
+    for dev_ms, count, key in rows:
+        print(f'  {dev_ms:9.4f} ms  x{count:<3d} {key[:100]}')
+    busy = sum(r[0] for r in rows)
+    if busy:
+        print(f'  all device work {busy:.4f} ms of a {wall:.4f} ms call (host clock + '
+              f'synchronize): busy share {busy / wall:.3f} [{card}]')
+    else:
+        print('  torch.profiler recorded no device time: busy share not measured')
+    return busy
+
+
+def profile_step(dsc, card: str) -> None:
+    """--profile: where the filterFFT step's time goes on the card."""
     from dsc_tpu_torch.fourier import packed_fused as pf, plan
 
     gen = np.random.default_rng(0)
@@ -387,32 +455,8 @@ def profile_step(dsc, card: str) -> None:
                      ('fft2 (256, 2^16)', lambda: dsc.fft2(f)),
                      ('single ifft(fft(x)) 2^24', lambda: dsc.ifft(dsc.fft(v))),
                      ('single irfft(rfft(x)) 2^19', lambda: dsc.irfft(dsc.rfft(w)))):
-        steps = 20
         wall = host_ms(fn)
-        for attempt in range(3):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(steps):
-                    fn()
-                torch.cuda.synchronize()
-            events = [e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-            # a kernel recorded a number of times that is no multiple of the
-            # calls: the trace lost events, and its sums undercount
-            if all(e.count % steps == 0 for e in events):
-                break
-            print(f'  torch.profiler lost events ({what}: '
-                  f'{sorted(e.count for e in events)} over {steps} calls), profiling again')
-        rows = sorted(((e.self_device_time_total / steps / 1e3, e.count // steps, e.key)
-                       for e in events), reverse=True)
-        print(f'torch.profiler, {what}, {steps} calls, device time per call [{card}]:')
-        for dev_ms, count, key in rows:
-            print(f'  {dev_ms:9.4f} ms  x{count:<3d} {key[:100]}')
-        busy = sum(r[0] for r in rows)
-        if busy:
-            print(f'  all device work {busy:.4f} ms of a {wall:.4f} ms call (host clock + '
-                  f'synchronize): busy share {busy / wall:.3f} [{card}]')
-        else:
-            print('  torch.profiler recorded no device time: busy share not measured')
+        print_profile(device_profile(fn, what)[0], what, wall, card)
 
 
 COLUMN_CANDIDATES = (4096, 8192, 16384)   # C*L points a block of the column pass
@@ -656,8 +700,10 @@ def ptxas_report(log: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'|Function properties for (\S+)", line)
         if m:
-            k = re.search(r'((?:c|real_|complex_)?map_kernel)I((?:Li\d+E)+)E', m.group(1) or m.group(2))
-            name = f'{k.group(1)}<{", ".join(re.findall(r"Li(\d+)E", k.group(2)))}>' if k else None
+            mangled = m.group(1) or m.group(2)
+            k = re.search(r'(c?map_kernel)I', mangled)
+            name = (f'{k.group(1)}<{", ".join(re.findall(r"Li(\d+)E", mangled[k.end():]))}>'
+                    if k else None)
             continue
         if name is None:
             continue
@@ -792,6 +838,232 @@ def map_candidates(trees) -> int:
     return 0
 
 
+# the kernels of a compiled filterFFT step, by a part of their names in
+# torch.profiler: K1 and K4 are the column pass (stream_columns.cuh)
+GRAPH_KERNELS = {'K1+K4': 'stream_column_kernel', 'K2': 'rfft_phase_b_kernel',
+                 'K3': 'irfft_phase_a_kernel', 'K5': 'map_kernel'}
+
+
+def fusion_phase(dsc, card: str, compare, timed) -> dict:
+    """Phase 6: the fusion tier and the models that ride it. Each of its
+    three paths runs with every launch count set to 0 just before each call
+    and read just after; returns the launches of each kernel over them."""
+    from dsc_tpu_torch.entry import entry
+    from dsc_tpu_torch.kernels import build
+    from dsc_tpu_torch.models import ISTFT, STFT, FilterFFT, OverlapSave
+
+    gen = np.random.default_rng(6)
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def counted(fn, what, want=None):
+        build.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        got = {name: count for name, count in build.launches.items() if count}
+        require(want is None or got == want, f'{what}: launches {got}, want {want}')
+        for name, count in got.items():
+            launches[name] += count
+        return res, got
+
+    def conv64(sig, taps, n):
+        """The full convolution of each row of ``sig`` with ``taps`` by a
+        float64 FFT of ``n`` points."""
+        spec = np.fft.rfft(sig.astype(np.float64), n) * np.fft.rfft(taps.astype(np.float64), n)
+        return np.fft.irfft(spec, n)[..., :sig.shape[-1] + taps.shape[-1] - 1]
+
+    def held(what, got, ref, bound=NUMPY_BOUND):
+        out = got.numpy() if hasattr(got, 'numpy') else got
+        require(out.shape == ref.shape and bool(np.isfinite(out).all()),
+                f'{what}: shape {out.shape} (want {ref.shape}) or not finite')
+        e = float(np.abs(out - ref).max() / max(np.abs(ref).max(), 1.0))
+        print(f'  {what}: {e:.3e}')
+        require(e <= bound, f'{what}: {e} > {bound}')
+
+    # -- 6a. dsc.compile ----------------------------------------------------
+    print('phase 6a: dsc.compile, one captured CUDA graph per signature')
+    taps_np = gen.standard_normal(129).astype(np.float32)
+    blk_np = gen.standard_normal(2**20).astype(np.float32)
+    ff = FilterFFT(taps_np, 2**20)
+    blk = dsc.from_numpy(blk_np)
+    # the trace run and the capture each launch every kernel once; a replay
+    # runs no Python and counts nothing
+    packed = {'rfft_phase_a': 2, 'rfft_phase_b': 2, 'irfft_phase_a': 2, 'irfft_phase_b': 2}
+    out, _ = counted(lambda: ff(blk), 'FilterFFT 2^20 x 129 taps, trace + capture', packed)
+    counted(lambda: ff(blk), 'FilterFFT 2^20 x 129 taps, a replay', {})
+    eager = dsc.irfft(dsc.mul(dsc.rfft(blk, n=ff.fft_n), ff.kernel_spec))[:ff.out_len]
+    held('compiled FilterFFT 2^20 x 129 taps, n=2^21, vs float64 FFT convolution', out,
+         conv64(blk_np, taps_np, ff.fft_n))
+    held('  the same, vs the eager chain', out, eager.numpy(), 1e-6)
+    fn, args = entry()
+    out, _ = counted(lambda: fn(*args), 'entry() trace + capture',
+                     {'rfft_phase_a': 4, 'rfft_phase_b': 4, 'irfft_phase_a': 2,
+                      'irfft_phase_b': 2})
+    held('entry() (2^20 x 4097 Blackman taps, n=2^21) vs float64 FFT convolution', out,
+         conv64(args[0].numpy(), args[1].numpy(), STEP_N))
+    held('  the same, vs the eager chain', out, fn._fn(*args).numpy(), 1e-6)
+    big_np = gen.standard_normal(BIG_N // 2).astype(np.float32)
+    big_taps = np.blackman(4097).astype(np.float32)
+    big_ff = FilterFFT(big_taps, BIG_N // 2)
+    big = dsc.from_numpy(big_np)
+    out, _ = counted(lambda: big_ff(big), 'FilterFFT 2^23 x 4097 taps, trace + capture',
+                     {**packed, 'stream_map': 2})
+    held('compiled FilterFFT 2^23 x 4097 taps, n=2^24, vs float64 FFT convolution', out,
+         conv64(big_np, big_taps, BIG_N))
+    eager = dsc.irfft(dsc.mul(dsc.rfft(big, n=BIG_N), big_ff.kernel_spec))[:big_ff.out_len]
+    held('  the same, vs the eager chain', out, eager.numpy(), 1e-6)
+    del eager, out
+    steps = (('entry() step, n=2^21', lambda: fn(*args), lambda: fn._fn(*args),
+              {'K1+K4': 3, 'K2': 2, 'K3': 1}),
+             ('FilterFFT 2^20 x 129 taps, n=2^21', lambda: ff(blk),
+              lambda: ff._step._fn(blk), {'K1+K4': 2, 'K2': 1, 'K3': 1}),
+             ('FilterFFT 2^23 x 4097 taps, n=2^24', lambda: big_ff(big),
+              lambda: big_ff._step._fn(big),
+              {'K1+K4': 2, 'K2': 1, 'K3': 1, 'K5': 1}))
+    for what, compiled, eager_fn, want in steps:
+        rows, prof = device_profile(compiled, what)
+        got = {tag: sum(count for _, count, key in rows if part in key)
+               for tag, part in GRAPH_KERNELS.items()}
+        got = {tag: count for tag, count in got.items() if count}
+        host = {e.key: e.count for e in prof.key_averages()}
+        print(f'  {what}, 20 replays: kernels per call {got}, host calls '
+              f'cudaGraphLaunch {host.get("cudaGraphLaunch", 0)}, '
+              f'cudaLaunchKernel {host.get("cudaLaunchKernel", 0)}')
+        require(got == want, f'{what}: the graph ran {got}, want {want}')
+        require(host.get('cudaGraphLaunch', 0) == 20 and host.get('cudaLaunchKernel', 0) == 0,
+                f'{what}: kernels launched from the host between the graph\'s')
+        wall, eager_wall = host_ms(compiled), host_ms(eager_fn)
+        busy = print_profile(rows, f'compiled {what}', wall, card)
+        eager_busy = print_profile(device_profile(eager_fn, what)[0], f'eager {what}',
+                                   eager_wall, card)
+        print(f'  {what}: compiled {wall:.4f} ms, busy share {busy / wall:.3f}; eager '
+              f'{eager_wall:.4f} ms, busy share {eager_busy / eager_wall:.3f}; '
+              f'{eager_wall / wall:.2f}x [{card}]')
+    del big, big_ff, ff, blk, fn, args
+
+    # -- 6b. dsc.map --------------------------------------------------------
+    print('phase 6b: dsc.map, bodies generated on the skeleton of K5 (K5g)')
+    mg = torch.Generator(device='cuda').manual_seed(6)
+    x, y = dsc.Tensor(draw(mg, MAP_N)), dsc.Tensor(draw(mg, MAP_N))
+    t = dsc.Tensor(draw(mg, (4096, 16384)))
+    row, k = dsc.Tensor(draw(mg, 16384)), dsc.Tensor(np.array([0.25], np.float32))
+    # (what, fn, arguments, float operations per element, the one PyTorch
+    # call of the same function where there is one)
+    bodies = (('clip(x * y + 0.5, -1, 1)', lambda a, b: dsc.clip(a * b + 0.5, -1.0, 1.0),
+               (x, y), 6, None),
+              ('t * row + k, a broadcast row and a 1-element tensor',
+               lambda a, r, s: a * r + s, (t, row, k), 2,
+               lambda: torch.addcmul(k.torch, t.torch, row.torch)),
+              ('(x + y, x * y), two outputs', lambda a, b: (a + b, a * b), (x, y), 2, None))
+    for what, fn, fargs, ops, library_fn in bodies:
+        mapped = dsc.map(fn)
+        res, _ = counted(lambda: mapped(*fargs), f'dsc.map {what}', {'stream_map_gen': 1})
+        kind, kernel, _ = next(iter(mapped._programs.values()))
+        require(kind == 'stream', f'dsc.map {what}: route {kind}')
+        nvcc_s = build.gen_build_seconds.get(build.source_hash(kernel.source))
+        operands = [a.torch for a in fargs]
+        outs = kernel(operands)
+        for q, (o, p) in enumerate(zip(outs, kernel.plain(operands))):
+            compare('stream_map_gen', o, p, f'{what} 2^26, output {q}')
+        chain = fn(*fargs)
+        chain = chain if isinstance(chain, tuple) else (chain,)
+        res = res if isinstance(res, tuple) else (res,)
+        for q, (o, c) in enumerate(zip(res, chain)):
+            e = rel_err(o.torch, c.torch)
+            print(f'  dsc.map {what}, output {q} vs the eager chain (K5 op by op): {e:.3e}')
+            require(e <= REL_BOUND, f'dsc.map {what} vs eager: {e}')
+        n_bytes = nbytes(*operands) + nbytes(*outs)
+        row_ = timed('stream_map_gen', f'{what} 2^26 f32', lambda: kernel(operands),
+                     lambda: kernel.plain(operands), library_fn, n_bytes, ops * MAP_N)
+        row_['eager_ms'] = back_to_back_ms(lambda: fn(*fargs), 50)
+        row_['nvcc_s'] = nvcc_s
+        print(f'    eager chain {row_["eager_ms"]:.4f} ms ({row_["eager_ms"] / row_["ms"]:.2f}x '
+              f'K5g), nvcc {nvcc_s if nvcc_s is None else round(nvcc_s, 2)} s [{card}]')
+    del x, y, t, row, k, res, chain, outs, operands
+
+    # -- 6c. the models -----------------------------------------------------
+    print('phase 6c: models: STFT, STFT -> ISTFT, OverlapSave')
+    model_rows = []
+    st = STFT(1024, 256, 'hann')
+    win = np.hanning(1024)
+
+    def np_stft(sig):
+        frames = np.lib.stride_tricks.sliding_window_view(sig.astype(np.float64), 1024, axis=-1)
+        return np.fft.rfft(frames[..., ::256, :] * win, axis=-1)
+
+    # every K12 launch of the models' runs below, by (batch, n), to hold
+    # the kernel to its plain version at those launch shapes after them
+    from dsc_tpu_torch.fourier import base_fft, plan
+    fft_base, k12_shapes = base_fft.fft_base, set()
+
+    def spy(x, w):
+        k12_shapes.add(tuple(x.shape))
+        return fft_base(x, w)
+
+    base_fft.fft_base = spy
+    trace = os.path.join(REPO, 'build', 'chip_smoke_stft_traces.json')
+    xprof = os.path.join(REPO, 'build', 'chip_smoke_xprof')
+    sigs = {'1 x 2^20': gen.standard_normal(2**20).astype(np.float32),
+            '16 x 2^18': gen.standard_normal((16, 2**18)).astype(np.float32)}
+    tens = {what: dsc.from_numpy(v) for what, v in sigs.items()}
+    with dsc.profile(trace, serve=False, xprof_dir=xprof):
+        got = {what: counted(lambda t=t: st(t), f'STFT {what}')[0] for what, t in tens.items()}
+    with open(trace) as f:
+        events = json.load(f)['traceEvents']
+    n_stft = sum(ev.get('name') == 'stft' and ev.get('ph') == 'B' for ev in events)
+    k12 = [ev for ev in events if ev.get('pid', 0) >= 1 << 22 and 'base_fft_kernel' in
+           ev.get('name', '')]
+    print(f'  STFT trace ({trace}): {len(events)} events, {n_stft} stft op events, '
+          f'{len(k12)} K12 device events')
+    require(n_stft == 2 and len(k12) >= 2, 'the STFT trace lacks op or K12 device events')
+    for what, sig in sigs.items():
+        # the power, exp(log(p + eps)) - eps, held as tests/test_models.py
+        # holds the JAX package's (atol = rtol = 1e-3): the log of a bin
+        # near 0 magnifies float32 rounding without bound
+        ref = np.abs(np_stft(sig)) ** 2
+        out = np.exp(got[what].numpy().astype(np.float64)) - 1e-10
+        ok = out.shape == ref.shape and np.allclose(out, ref, atol=1e-3, rtol=1e-3)
+        print(f'  STFT(1024, 256, hann) log power {what}: the power vs NumPy float64, max abs '
+              f'err {float(np.abs(out - ref).max()):.3e} of a largest {float(ref.max()):.1f}')
+        require(ok, f'STFT {what}: the power not within atol = rtol = 1e-3 of NumPy')
+        model_rows.append((f'STFT log power {what}', lambda t=tens[what]: st(t)))
+    del got, tens, sigs
+    four = gen.standard_normal((4, 2**18)).astype(np.float32)
+    t4 = dsc.from_numpy(four)
+    stc, ist = STFT(1024, 256, 'hann', mode='complex'), ISTFT(1024, 256, 'hann')
+    z, _ = counted(lambda: stc(t4), 'STFT complex 4 x 2^18')
+    held('STFT complex 4 x 2^18 vs NumPy float64', z.numpy(), np_stft(four), 1e-3)
+    back, _ = counted(lambda: ist(z, length=2**18), 'ISTFT 4 x 2^18')
+    e = float(np.abs(back.numpy()[:, 1024:-1024] - four[:, 1024:-1024]).max())
+    print(f'  ISTFT(STFT(x)) 4 x 2^18, interior max abs err: {e:.3e}')
+    require(e < 1e-4, f'ISTFT round trip: {e}')
+    model_rows.append(('STFT complex -> ISTFT 4 x 2^18', lambda: ist(stc(t4), length=2**18)))
+    ola = OverlapSave(taps_np, fft_n=8192)
+    for what, shape in (('1 x 2^22', 2**22), ('8 x 2^20', (8, 2**20))):
+        sig = gen.standard_normal(shape).astype(np.float32)
+        ts = dsc.from_numpy(sig)
+        out, _ = counted(lambda: ola(ts), f'OverlapSave {what}')
+        held(f'OverlapSave 129 taps, fft_n=8192, {what} vs float64 FFT convolution', out,
+             conv64(sig, taps_np, 2 * sig.shape[-1]))
+        model_rows.append((f'OverlapSave 129 taps fft_n=8192 {what}', lambda ts=ts: ola(ts)))
+    base_fft.fft_base = fft_base
+    require(launches['base_fft'] > 0, 'K12 was not launched by the models')
+    print(f'  K12 at the models\' launch shapes (batch, n): {sorted(k12_shapes)}')
+    kg = torch.Generator(device='cuda').manual_seed(12)
+    for b, n in sorted(k12_shapes):
+        w = plan.get_plan(n, 'complex', torch.complex64)[1]
+        z = torch.complex(draw(kg, (b, n)), draw(kg, (b, n)))
+        compare('base_fft', base_fft.fft_base(z, w), base_fft.fft_base_plain(z, w),
+                f'n={n} batch={b} (R={base_fft.block_rows(n, b)}), a models\' shape')
+    del z
+    for what, model_fn in model_rows:
+        wall = host_ms(model_fn)
+        busy = print_profile(device_profile(model_fn, what, steps=10)[0], what, wall, card, 10)
+        print(f'  {what}: {wall:.4f} ms a call, device {busy:.4f} ms, busy share '
+              f'{busy / wall:.3f} [{card}]')
+    print(f'  launches on the fusion and models path: {launches}')
+    return launches
+
+
 def fft_ops(n: int, points: int) -> float:
     """Flops of complex FFTs of ``points`` points over ``n`` values in all
     (5 N log2 N each)."""
@@ -806,6 +1078,8 @@ def main() -> int:
     parser.add_argument('--wrappers', action='store_true',
                         help='time the column-pass wrappers at 2^19 and 2^24 '
                              'in place of the checks')
+    parser.add_argument('--fusion', action='store_true',
+                        help='run phase 6 (the fusion tier and the models) alone after the build')
     parser.add_argument('--map-candidates', nargs='+', metavar='TREE',
                         help='time K5 of each tree (a checkout of the port) in turns, '
                              'in place of the checks')
@@ -881,6 +1155,34 @@ def main() -> int:
         if body == 'clip':
             xs[1:] = [-0.5, 0.75]
         return xs
+
+    cases = {name: [] for name in KERNELS}
+
+    def timed(name, what, kernel_fn, plain_fn, library_fn, n_bytes, n_ops):
+        """Time the kernel, its plain version and the library call, each
+        as device time per call over 50 calls back to back (host dispatch
+        hidden behind the previous call), and the kernel also one launch at
+        a time (host dispatch included); the bounds from this run's bytes
+        and operations."""
+        ms, single_ms = back_to_back_ms(kernel_fn, 50), cuda_ms(kernel_fn)
+        plain_ms = back_to_back_ms(plain_fn, 50)
+        library_ms = None if library_fn is None else back_to_back_ms(library_fn, 50)
+        t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_S * 1e3
+        row = {'what': what, 'ms': ms, 'single_ms': single_ms, 'plain_ms': plain_ms,
+               'bound_ms': max(t_bytes, t_ops),
+               'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
+               'copy_bound_ms': n_bytes / ceiling, 'library_ms': library_ms}
+        cases[name].append(row)
+        library = 'none' if library_ms is None else f'{library_ms:.4f} ms'
+        print(f'  {name:14s} {what}: kernel {ms:.4f} ms (one launch {single_ms:.4f}), '
+              f'plain {plain_ms:.4f} ms, library {library}, bound '
+              f'{row["bound_ms"]:.4f} ms ({row["bound_by"]}), copy-ceiling bound '
+              f'{row["copy_bound_ms"]:.4f} ms [{card}]')
+        return row
+
+    if args.fusion:
+        fusion_phase(dsc, card, compare, timed)
+        return 0
 
     # -- 3. kernels vs plain versions --------------------------------------
     print('phase 3: kernels vs plain versions')
@@ -1331,29 +1633,6 @@ def main() -> int:
 
     # -- 5. timings --------------------------------------------------------
     print(f'phase 5: timings, CUDA events [{card}]')
-    cases = {name: [] for name in KERNELS}
-
-    def timed(name, what, kernel_fn, plain_fn, library_fn, n_bytes, n_ops):
-        """Time the kernel, its plain version and the library call, each
-        as device time per call over 50 calls back to back (host dispatch
-        hidden behind the previous call), and the kernel also one launch at
-        a time (host dispatch included); the bounds from this run's bytes
-        and operations."""
-        ms, single_ms = back_to_back_ms(kernel_fn, 50), cuda_ms(kernel_fn)
-        plain_ms = back_to_back_ms(plain_fn, 50)
-        library_ms = None if library_fn is None else back_to_back_ms(library_fn, 50)
-        t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_S * 1e3
-        row = {'what': what, 'ms': ms, 'single_ms': single_ms, 'plain_ms': plain_ms,
-               'bound_ms': max(t_bytes, t_ops),
-               'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
-               'copy_bound_ms': n_bytes / ceiling, 'library_ms': library_ms}
-        cases[name].append(row)
-        library = 'none' if library_ms is None else f'{library_ms:.4f} ms'
-        print(f'  {name:14s} {what}: kernel {ms:.4f} ms (one launch {single_ms:.4f}), '
-              f'plain {plain_ms:.4f} ms, library {library}, bound '
-              f'{row["bound_ms"]:.4f} ms ({row["bound_by"]}), copy-ceiling bound '
-              f'{row["copy_bound_ms"]:.4f} ms [{card}]')
-        return row
 
     for n in (STEP_N, BIG_N, 2**26):
         t = plan.get_plan(n, 'packed', torch.complex64)[1]
@@ -1525,11 +1804,19 @@ def main() -> int:
     print(f'  filterFFT step (2^20 x 255 taps, n=2^21, public API): {step_ms:.4f} ms [{card}]')
     big_ms = cuda_ms(lambda: filter_fft(dsc, long_sig, long_taps, 4097, BIG_N))
     print(f'  filterFFT step (2^23 x 4097 taps, n=2^24, public API): {big_ms:.4f} ms [{card}]')
+    del sig, taps, long_sig, long_taps
+
+    # -- 6. the fusion tier and the models -----------------------------------
+    fusion_launches = fusion_phase(dsc, card, compare, timed)
+    launches['stream_map_gen'] = fusion_launches['stream_map_gen']
+    for name in KERNELS:
+        by_path[name]['fusion'] = fusion_launches[name]
 
     # the main path's shape of each kernel: the filterFFT at n = 2^21 for the
     # packed passes, the n = 4096 pair's 2048 x 1 for K12, bench's fma for K5,
     # the suite's 16 x 2^20 for K6/K7 (where they lose most to torch.fft),
-    # the 2^19 irfft for K11, the 2^24 single fft -> ifft for K8, K9, K10
+    # the 2^19 irfft for K11, the 2^24 single fft -> ifft for K8, K9, K10,
+    # the clip chain of phase 6 for K5g
     main_case = {name: rows_[0] for name, rows_ in cases.items()}
     main_case['stream_map'] = next(r for r in cases['stream_map'] if r['what'].startswith('add 2^26'))
     for name in ('stream_phase_a', 'stream_phase_b'):

@@ -15,11 +15,16 @@ transforms run the streaming four-step K6/K7 with the Hermitian
 reconstruction K11, and whose single-vector transforms in the streaming
 range go into and out of the T spectrum layout through K6/K8 and K9/K10
 (the chirp-z transform, models.czt, rides them). Large float32 and
-complex64 elementwise ops run kernel K5 (ops/stream_map.py). ROADMAP.md
-lists what remains.
+complex64 elementwise ops run kernel K5 (ops/stream_map.py). The fusion
+tier (fuse.py): ``dsc.compile`` captures one CUDA graph per argument
+signature, and ``dsc.map`` runs an elementwise function as one generated
+streaming kernel, K5g (ops/map_gen.py). The window generators
+(windows.py), ``profile(xprof_dir=)`` and the FilterFFT, OverlapSave and
+STFT models ride them. ROADMAP.md lists what remains.
 """
 
-from . import models
+from . import models, windows
+from .fuse import compile, map  # noqa: A004
 from .context import clear, init, manual_seed, print_mem_usage, shutdown, used_mem
 from .dtype import Dtype
 from .fourier import (fft, fft2, fftfreq, ifft, ifft2, irfft, irfft2, plan_fft, rfft, rfft2,
@@ -69,6 +74,7 @@ from .tensor import (
     zeros,
     zeros_like,
 )
+from .windows import bartlett, blackman, get_window, hamming, hanning, kaiser, tukey
 
 __version__ = '0.1.0'
 
@@ -79,6 +85,8 @@ __all__ = [
     'used_mem',
     'print_mem_usage',
     'manual_seed',
+    'compile',
+    'map',
     'Tensor',
     'Dtype',
     'from_numpy',
@@ -138,4 +146,12 @@ __all__ = [
     'start_recording',
     'stop_recording',
     'models',
+    'windows',
+    'hanning',
+    'hamming',
+    'blackman',
+    'kaiser',
+    'bartlett',
+    'tukey',
+    'get_window',
 ]

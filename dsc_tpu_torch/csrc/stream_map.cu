@@ -13,18 +13,18 @@
 // 10-15 times the 50 MB L2, each byte touched once.
 //
 // The design: one instantiation per body and operand kinds (full, broadcast
-// row, scalar), chosen at compile time, so the loop carries no branch on a
-// kind and keeps registers only for what it streams: a scalar is one
+// row, scalar), chosen at compile time, on the skeleton of stream_map.cuh,
+// which the generated bodies of dsc.map (K5g) share: a scalar is one
 // register, read once per thread (a Python scalar by value, a 1-element
-// tensor by one load); a broadcast row is read through L1/L2 at offsets
-// into the row computed once per thread, with one 64-bit division and
-// then 32-bit arithmetic. Each block takes one chunk of kVec x 256 float4
-// groups (8 KB an operand), and each thread issues its kVec 16-byte loads
-// per streamed operand before any arithmetic, so up to 2048 threads an SM
-// keep loads in flight; one block a chunk balances the blocks across the
-// SMs whatever a body's register count (a fixed grid of eight blocks per
-// SM ran in two uneven waves where only six fit). A ragged count (n % 4
-// floats, an odd number of complex values) ends in plain loads. Measured
+// tensor by one load); a broadcast row is read through L1/L2; each block
+// takes one chunk of kVec x 256 float4 groups (8 KB an operand), and each
+// thread issues its kVec 16-byte loads per streamed operand before any
+// arithmetic, so up to 2048 threads an SM keep loads in flight; one block
+// a chunk balances the blocks across the SMs whatever a body's register
+// count (a fixed grid of eight blocks per SM ran in two uneven waves where
+// only six fit). A ragged count (n % 4 floats, an odd number of complex
+// values) ends in plain loads. The complex bodies run their own kernel
+// (cmap_kernel) on the same chunking. Measured
 // against this design on the H100 (PERF.md): 16 KB a block was 0.6-1.7%
 // slower; the streaming cache hints (ld/st.global.cs) were no faster, and
 // up to 3% slower with two streamed inputs; the TPU kernel's buffer sets
@@ -36,39 +36,20 @@
 // cudaErrorInvalidValue for a body or a combination of kinds it has no
 // instantiation for.
 
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
-#include <utility>
+#include "stream_map.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kVec = 2;                  // float4 groups a thread
-constexpr int kChunk = kThreads * kVec;  // float4 groups a block: 8 KB an operand
 
 // operand kinds as the host passes them (ops/stream_map.py _FULL, _BROW,
 // _VALUE, _POINTER)
 enum HostKind { kFull = 0, kBrow = 1, kValue = 2, kPointer = 3 };
-// operand kinds as the kernels are instantiated: full, broadcast row,
-// scalar, no operand (the slots a body does not take)
-enum Kind { kF = 0, kB = 1, kS = 2, kN = 3 };
 
 // op codes: the order of ops/stream_map.py REAL_BODIES, then COMPLEX_BODIES
 enum Body {
   kAdd = 0, kSub, kMul, kDiv, kSin, kCos, kExp, kLogn, kLog2, kLog10, kSqrt,
   kSinc, kClip, kCAdd, kCSub, kCMul, kCDiv, kBodies
-};
-
-struct Operand {
-  const float* ptr;  // full, brow or 1-element data; null for a value
-  float re, im;      // a Python scalar
-  int m;             // brow length in elements
-};
-
-struct Operands {
-  Operand op[3];
 };
 
 // -- the bodies --------------------------------------------------------------
@@ -156,11 +137,16 @@ __device__ __forceinline__ float2 complex_body(float2 a, float2 b) {
   return make_float2(0.f, 0.f);
 }
 
+// a real body as the skeleton's functor: the operands the body takes
 template <int B>
-__device__ __forceinline__ float4 real_body4(float4 a, float4 b, float4 c) {
-  return make_float4(real_body<B>(a.x, b.x, c.x), real_body<B>(a.y, b.y, c.y),
-                     real_body<B>(a.z, b.z, c.z), real_body<B>(a.w, b.w, c.w));
-}
+struct RealBody {
+  template <int N>
+  __device__ __forceinline__ void operator()(const float (&a)[N], float (&o)[1]) const {
+    if constexpr (N == 1) o[0] = real_body<B>(a[0], 0.f, 0.f);
+    else if constexpr (N == 2) o[0] = real_body<B>(a[0], a[1], 0.f);
+    else o[0] = real_body<B>(a[0], a[1], a[2]);
+  }
+};
 
 // two complex values a float4
 template <int B>
@@ -170,53 +156,7 @@ __device__ __forceinline__ float4 complex_body2(float4 a, float4 b) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-// -- the operands as a thread holds them --------------------------------------
-//
-// at(k): the float4 of the thread's k-th group for a broadcast row or a
-// scalar (a full operand is loaded by the kernel); one(i): element i, for
-// the tail.
-
-template <int K>
-struct Real;
-
-template <>
-struct Real<kF> {
-  const float* p;
-  __device__ explicit Real(const Operand& o) : p(o.ptr) {}
-  __device__ void seek(long long) {}
-  __device__ float one(long long i) const { return __ldg(p + i); }
-};
-
-template <>
-struct Real<kB> {
-  const float* row;
-  uint32_t m;
-  uint32_t off[kVec];  // row offset of the thread's k-th group, in elements
-  __device__ explicit Real(const Operand& o) : row(o.ptr), m((uint32_t)o.m) {}
-  // the thread's groups g, g + kThreads, ...: one 64-bit division, then
-  // 32-bit ones
-  __device__ void seek(long long g) {
-    const uint32_t base = (uint32_t)((4 * g) % m);
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) off[k] = (base + 4u * kThreads * k) % m;
-  }
-  __device__ float4 at(int k) const { return __ldg(reinterpret_cast<const float4*>(row + off[k])); }
-  __device__ float one(long long i) const { return __ldg(row + i % m); }
-};
-
-template <>
-struct Real<kS> {
-  float s;
-  __device__ explicit Real(const Operand& o) : s(o.ptr ? __ldg(o.ptr) : o.re) {}
-  __device__ void seek(long long) {}
-  __device__ float4 at(int) const { return make_float4(s, s, s, s); }
-  __device__ float one(long long) const { return s; }
-};
-
-template <>
-struct Real<kN> : Real<kS> {
-  __device__ explicit Real(const Operand&) : Real<kS>(Operand{nullptr, 0.f, 0.f, 0}) {}
-};
+// -- complex operands as a thread holds them ----------------------------------
 
 template <int K>
 struct Cplx;
@@ -237,48 +177,11 @@ struct Cplx<kS> {
   __device__ float2 one(long long) const { return s; }
 };
 
-// -- the kernels -------------------------------------------------------------
-
-template <int K, class Op>
-__device__ __forceinline__ float4 load4(const Op& o, long long g, int k) {
-  if constexpr (K == kF) return __ldg(reinterpret_cast<const float4*>(o.p) + g);
-  else return o.at(k);
-}
-
-template <int B, int K0, int K1, int K2>
-__global__ void __launch_bounds__(kThreads)
-map_kernel(Operands in, float* __restrict__ out, long long n) {
-  const long long groups = n >> 2;
-  const long long g0 = blockIdx.x * (long long)kChunk + threadIdx.x;
-  Real<K0> o0(in.op[0]);
-  Real<K1> o1(in.op[1]);
-  Real<K2> o2(in.op[2]);
-  o0.seek(g0);
-  o1.seek(g0);
-  o2.seek(g0);
-  float4 a[kVec], b[kVec], d[kVec];
-#pragma unroll
-  for (int k = 0; k < kVec; ++k) {
-    const long long g = g0 + k * kThreads;
-    if (g < groups) {
-      a[k] = load4<K0>(o0, g, k);
-      b[k] = load4<K1>(o1, g, k);
-      d[k] = load4<K2>(o2, g, k);
-    }
-  }
-  float4* out4 = reinterpret_cast<float4*>(out);
-#pragma unroll
-  for (int k = 0; k < kVec; ++k) {
-    const long long g = g0 + k * kThreads;
-    if (g < groups) out4[g] = real_body4<B>(a[k], b[k], d[k]);
-  }
-  const long long i = (groups << 2) + g0;  // the ragged tail, < 4 elements, block 0
-  if (blockIdx.x == 0 && i < n) out[i] = real_body<B>(o0.one(i), o1.one(i), o2.one(i));
-}
+// -- the complex kernel --------------------------------------------------------
 
 template <int B, int K0, int K1>
 __global__ void __launch_bounds__(kThreads)
-cmap_kernel(Operands in, float2* __restrict__ out, long long n) {
+cmap_kernel(const Operands<2> in, float2* __restrict__ out, long long n) {
   const long long groups = n >> 1;  // two complex values a float4
   const long long g0 = blockIdx.x * (long long)kChunk + threadIdx.x;
   Cplx<K0> o0(in.op[0]);
@@ -307,17 +210,21 @@ cmap_kernel(Operands in, float2* __restrict__ out, long long n) {
 constexpr int arity(int b) { return b >= kCAdd ? 2 : b == kClip ? 3 : b >= kSin ? 1 : 2; }
 
 // the kind combinations ops/stream_map.py's _layout admits (INSTANTIATIONS there)
-constexpr bool admitted(int b, int k0, int k1, int k2) {
-  if (b >= kCAdd)
-    return k2 == kN && ((k0 == kF && (k1 == kF || k1 == kS)) || (k0 == kS && k1 == kF));
-  if (arity(b) == 1) return k0 == kF && k1 == kN && k2 == kN;
-  if (arity(b) == 2)
-    return k2 == kN && ((k0 == kF && k1 != kN) || (k1 == kF && (k0 == kS || k0 == kB)));
-  return k0 != kN && k1 != kN && k2 != kN && (k0 == kF || k1 == kF || k2 == kF);
+template <int B, int... Ks>
+constexpr bool admitted() {
+  constexpr int k[] = {Ks...};
+  if constexpr (B >= kCAdd)
+    return (k[0] == kF && (k[1] == kF || k[1] == kS)) || (k[0] == kS && k[1] == kF);
+  else if constexpr (arity(B) == 1)
+    return k[0] == kF;
+  else if constexpr (arity(B) == 2)
+    return k[0] == kF || (k[1] == kF && (k[0] == kS || k[0] == kB));
+  else
+    return k[0] == kF || k[1] == kF || k[2] == kF;
 }
 
 struct Launch {
-  Operands in;
+  Operand op[3];
   int kind[3];
   void* out;
   long long n;
@@ -325,15 +232,18 @@ struct Launch {
 };
 
 // one block a chunk
-template <int B, int K0, int K1, int K2>
+template <int B, int... Ks>
 cudaError_t run(const Launch& l) {
-  const long long chunks = ((B >= kCAdd ? l.n / 2 : l.n / 4) + kChunk - 1) / kChunk;
-  const int blocks = (int)(chunks < 1 ? 1 : chunks);
-  if constexpr (B >= kCAdd)
-    cmap_kernel<B, K0, K1><<<blocks, kThreads, 0, l.stream>>>(l.in, (float2*)l.out, l.n);
-  else
-    map_kernel<B, K0, K1, K2><<<blocks, kThreads, 0, l.stream>>>(l.in, (float*)l.out, l.n);
-  return cudaGetLastError();
+  Operands<sizeof...(Ks)> in;
+  for (int i = 0; i < (int)sizeof...(Ks); ++i) in.op[i] = l.op[i];
+  if constexpr (B >= kCAdd) {
+    const long long chunks = (l.n / 2 + kChunk - 1) / kChunk;
+    const int blocks = (int)(chunks < 1 ? 1 : chunks);
+    cmap_kernel<B, Ks...><<<blocks, kThreads, 0, l.stream>>>(in, (float2*)l.out, l.n);
+    return cudaGetLastError();
+  } else {
+    return launch_map<RealBody<B>, 1, Ks...>(in, Outputs<1>{{(float*)l.out}}, l.n, l.stream);
+  }
 }
 
 // the host kinds of the operands a body takes, resolved one by one into
@@ -341,11 +251,9 @@ cudaError_t run(const Launch& l) {
 template <int B, int... Ks>
 cudaError_t pick_kinds(const Launch& l) {
   constexpr int i = sizeof...(Ks);
-  if constexpr (i == 3) {
-    if constexpr (admitted(B, Ks...)) return run<B, Ks...>(l);
+  if constexpr (i == arity(B)) {
+    if constexpr (admitted<B, Ks...>()) return run<B, Ks...>(l);
     else return cudaErrorInvalidValue;
-  } else if constexpr (i >= arity(B)) {
-    return pick_kinds<B, Ks..., kN>(l);
   } else {
     switch (l.kind[i]) {
       case kFull: return pick_kinds<B, Ks..., kF>(l);
@@ -378,9 +286,9 @@ int dsc_stream_map(int body,
   if (body < 0 || body >= kBodies) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaSuccess;
   Launch l;
-  l.in.op[0] = Operand{kind0 == kValue ? nullptr : (const float*)p0, re0, im0, m0};
-  l.in.op[1] = Operand{kind1 == kValue ? nullptr : (const float*)p1, re1, im1, m1};
-  l.in.op[2] = Operand{kind2 == kValue ? nullptr : (const float*)p2, re2, im2, m2};
+  l.op[0] = Operand{kind0 == kValue ? nullptr : (const float*)p0, re0, im0, m0};
+  l.op[1] = Operand{kind1 == kValue ? nullptr : (const float*)p1, re1, im1, m1};
+  l.op[2] = Operand{kind2 == kValue ? nullptr : (const float*)p2, re2, im2, m2};
   l.kind[0] = kind0;
   l.kind[1] = kind1;
   l.kind[2] = kind2;

@@ -6,7 +6,9 @@ the context's device plus a static *spec* of how the transform is
 factorized. Tables are computed on the host in float64 and rounded once
 to the working precision, which keeps 2^24-point float32 transforms within
 1e-4 of NumPy. The cache is an LRU bounded by DSC_MAX_FFT_PLANS (default
-16, as in the reference).
+16, as in the reference). A compiled function's trace run fills the cache
+before its CUDA graph is captured; a plan missing during the capture
+raises (``get_plan``).
 
 Besides the reference's 'complex' and 'real' plans, a 'packed' plan holds
 the tables of the packed half-size real FFT (packed_fused.py): the
@@ -26,6 +28,7 @@ from typing import Any, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..capture import capturing
 from . import stream
 
 MAX_FFT_PLANS = int(os.environ.get('DSC_MAX_FFT_PLANS', '16'))
@@ -203,6 +206,13 @@ def get_plan(n: int, fft_type: str, dtype: torch.dtype, device=None) -> Tuple[Tu
         if key in _plans:
             _plans.move_to_end(key)
             return _plans[key]
+    if capturing():
+        # the upload of new tables cannot be captured into a CUDA graph
+        raise RuntimeError(
+            f'dsc.compile: the {fft_type} FFT plan of {n} points was evicted from the plan '
+            f'cache between the compiled function\'s trace run and its CUDA graph capture: '
+            f'the function needs more than DSC_MAX_FFT_PLANS={MAX_FFT_PLANS} plans; '
+            'raise DSC_MAX_FFT_PLANS')
     spec, tables = _build_plan(n, fft_type, dtype, device)
     with _lock:
         _plans[key] = (spec, tables)

@@ -11,16 +11,26 @@ CUDA stream, launches without synchronising, and returns
 
 ``launches`` counts, per kernel, the launches made since the last
 ``reset_launches()``: a run can show which kernels its path went through.
+A launch captured into a CUDA graph (dsc.compile) counts once, at the
+capture; the graph's replays run no Python and count nothing.
+
+``build_generated`` compiles a generated source (dsc.map's bodies, K5g:
+ops/map_gen.py) on its own into ``build/kernels/gen/<hash>.so``, keyed by
+the hash of the source and the headers it includes, and loads it the same
+way; ``launch_generated`` launches its entry point and counts it under
+``'stream_map_gen'``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Optional, Sequence
 
@@ -32,7 +42,11 @@ BUILD_DIR = PACKAGE_DIR.parent / 'build' / 'kernels'
 LIB_PATH = BUILD_DIR / 'libdsc_tpu_torch_kernels.so'
 SOURCES = ('base_fft.cu', 'packed_rfft.cu', 'stream_map.cu', 'fourstep_stream.cu',
            'fourstep_stream_t.cu', 'reconstruct.cu')
-HEADERS = ('fft_core.cuh', 'fft_radix.cuh', 'fft_rows_reg.cuh', 'stream_columns.cuh')
+HEADERS = ('fft_core.cuh', 'fft_radix.cuh', 'fft_rows_reg.cuh', 'stream_columns.cuh',
+           'stream_map.cuh')
+GEN_DIR = BUILD_DIR / 'gen'
+# the headers a generated source includes
+GEN_HEADERS = ('stream_map.cuh',)
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 COMPILE_FLAGS = (*ARCH_FLAGS, '-std=c++17', '-O3', '-Xcompiler', '-fPIC')
 
@@ -73,10 +87,14 @@ KERNELS = {
     'reconstruct': ('dsc_reconstruct', (_P, _P, _L)),
 }
 
-launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+launches: Dict[str, int] = dict.fromkeys((*KERNELS, 'stream_map_gen'), 0)
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
+# hash of a generated source -> its loaded library
+_generated: Dict[str, ctypes.CDLL] = {}
+# nvcc seconds of each generated source built in this process
+gen_build_seconds: Dict[str, float] = {}
 
 
 def reset_launches() -> None:
@@ -149,6 +167,60 @@ def load() -> ctypes.CDLL:
             lib.dsc_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def source_hash(source: str) -> str:
+    """The cache key of a generated source: its text and the headers it
+    includes."""
+    h = hashlib.sha256(source.encode())
+    for name in GEN_HEADERS:
+        h.update((CSRC_DIR / name).read_bytes())
+    return h.hexdigest()[:24]
+
+
+def build_generated(source: str) -> ctypes.CDLL:
+    """The library of a generated source, built with nvcc on first use into
+    GEN_DIR/<hash>.so (one nvcc process for this source and the headers it
+    includes, not the main library's sources) and loaded once a process."""
+    key = source_hash(source)
+    with _lib_lock:
+        lib = _generated.get(key)
+        if lib is not None:
+            return lib
+        so = GEN_DIR / f'{key}.so'
+        if not so.exists():
+            GEN_DIR.mkdir(parents=True, exist_ok=True)
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory(dir=GEN_DIR) as tmp_dir:
+                src = os.path.join(tmp_dir, f'{key}.cu')
+                with open(src, 'w') as f:
+                    f.write(source)
+                tmp = os.path.join(tmp_dir, so.name)
+                _run_all([[nvcc_path(), *COMPILE_FLAGS, '-shared', '-I', str(CSRC_DIR),
+                           '-o', tmp, src]])
+                os.replace(tmp, so)
+            gen_build_seconds[key] = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(so))
+        lib.dsc_map_gen.argtypes = [_P, _P, _P, _L, _P]
+        lib.dsc_map_gen.restype = _I
+        _generated[key] = lib
+    return lib
+
+
+def launch_generated(lib: ctypes.CDLL, inputs: Sequence[torch.Tensor], rows: Sequence[int],
+                     outputs: Sequence[torch.Tensor], n: int) -> None:
+    """Launch a generated source's entry point on the current stream:
+    ``inputs`` and ``outputs`` are CUDA tensors, ``rows`` the broadcast-row
+    length of each input (0 for the other kinds); raise if the launch was
+    refused."""
+    ins = (_P * len(inputs))(*[t.data_ptr() for t in inputs])
+    row_arr = (_I * len(rows))(*rows)
+    outs = (_P * len(outputs))(*[t.data_ptr() for t in outputs])
+    err = lib.dsc_map_gen(ins, row_arr, outs, n, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        msg = load().dsc_error_string(err).decode()
+        raise RuntimeError(f'dsc_map_gen failed: CUDA error {err} ({msg})')
+    launches['stream_map_gen'] += 1
 
 
 def check(t: torch.Tensor, dtype: torch.dtype, shape, name: str) -> None:

@@ -98,7 +98,9 @@ def power(a, b) -> torch.Tensor:
     real-plane formula."""
     dtype = _dtype_of(a, b)
     device = (a if isinstance(a, torch.Tensor) else b).device
-    a, b = (torch.as_tensor(x, dtype=dtype, device=device) for x in (a, b))
+    # a Python scalar as a fill, not an upload: a CUDA graph can capture it
+    a, b = (x if isinstance(x, torch.Tensor) else torch.full((), x, dtype=dtype, device=device)
+            for x in (a, b))
     if dtype.is_complex:
         yr, yi = cpow_planes(a.real, a.imag, b.real, b.imag)
         return torch.complex(yr, yi)

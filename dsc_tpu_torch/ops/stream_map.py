@@ -32,7 +32,8 @@ The JAX package streams complex arithmetic on planar spectra
 elements whose operands have one shape, or one of which is a Python scalar.
 
 ``stream_map`` launches the kernel for CUDA tensors and runs
-``stream_map_plain``, the same formulas in torch ops, for CPU tensors. The
+``stream_map_plain``, the same formulas in torch ops, for CPU tensors (and
+for the meta tensors of dsc.map's shape trace, ops/map_gen.py). The
 op layer (ops/kernels.py) classifies its operands once, with ``route`` or
 ``route_complex``, and hands the result down as ``layout``.
 """
@@ -69,7 +70,8 @@ _HOST_KIND = {'full': _FULL, 'brow': _BROW, 'scalar': _POINTER}
 _CODES = {**{(torch.float32, b): i for i, b in enumerate(REAL_BODIES)},
           **{(torch.complex64, b): len(REAL_BODIES) + i for i, b in enumerate(COMPLEX_BODIES)}}
 
-_KIND_ARG = {'full': 'kF', 'brow': 'kB', 'scalar': 'kS'}
+# operand kinds as the kernels' template arguments (csrc/stream_map.cuh Kind)
+KIND_ARGS = {'full': 'kF', 'brow': 'kB', 'scalar': 'kS'}
 
 
 def _instantiations():
@@ -89,14 +91,14 @@ def _instantiations():
         elif arity == 2:
             combos = binary
         else:
-            combos = [ks for ks in itertools.product(_KIND_ARG, repeat=3) if 'full' in ks]
+            combos = [ks for ks in itertools.product(KIND_ARGS, repeat=3) if 'full' in ks]
         for ks in combos:
-            args = [_KIND_ARG[k] for k in ks] + ['kN'] * (3 - arity)
-            table[(torch.float32, body, ks)] = f'map_kernel<{name}, {", ".join(args)}>'
+            args = ', '.join(KIND_ARGS[k] for k in ks)
+            table[(torch.float32, body, ks)] = f'map_kernel<RealBody<{name}>, 1, {args}>'
     for body in COMPLEX_BODIES:
         for ks in binary[:3]:
             table[(torch.complex64, body, ks)] = (
-                f'cmap_kernel<kC{body.capitalize()}, {", ".join(_KIND_ARG[k] for k in ks)}>')
+                f'cmap_kernel<kC{body.capitalize()}, {", ".join(KIND_ARGS[k] for k in ks)}>')
     return table
 
 
@@ -351,7 +353,8 @@ def stream_map(body: str, *operands, layout=None) -> torch.Tensor:
     shape, kinds = _layout(body, operands)[:2] if layout is None else layout
     first = next(x for x in operands if isinstance(x, torch.Tensor))
     device, dtype = first.device, first.dtype
-    if device.type == 'cpu':
+    if device.type in ('cpu', 'meta'):
+        # meta: dsc.map records the plain formulas op by op (map_gen.py)
         return stream_map_plain(body, *operands)
     args = []
     for i in range(3):

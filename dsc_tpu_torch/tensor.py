@@ -44,7 +44,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import interop, tracing
+from . import capture, interop, tracing
 from .context import _get_ctx
 from .dtype import DTYPE_TO_NP, Dtype, ScalarType, np_to_dtype, promote, scalar_dtype
 from .interop import DTYPE_OF_TORCH, TORCH_DTYPE
@@ -56,6 +56,14 @@ DSC_MAX_DIMS = 4  # reference dsc.h:72-76
 def _logical_shape(layout) -> Tuple[int, ...]:
     n1, n2, half = layout
     return (n1 * n2 // 2 + 1,) if half else (n1 * n2,)
+
+
+def _no_free() -> None:
+    pass
+
+
+# set by utils.debug.nan_guard: called on every op's output
+_nan_check = None
 
 
 class _Buffer:
@@ -74,10 +82,14 @@ class _Buffer:
         self._account()
 
     def _account(self) -> None:
-        ctx = _get_ctx()
         nbytes = self.data.numel() * self.data.element_size()
-        ctx.alloc(nbytes)
         self.nbytes = nbytes
+        if capture.untracked():
+            # a compiled function's tensors and dsc.map's pseudo-tensors
+            self._free = _no_free
+            return
+        ctx = _get_ctx()
+        ctx.alloc(nbytes)
         self._free = weakref.finalize(self, ctx.free, nbytes)
 
     def natural(self) -> torch.Tensor:
@@ -102,6 +114,33 @@ class _Buffer:
 class Tensor:
     __slots__ = ('_buf', '_shape', '_dtype')
 
+    def __init__(self, data, dtype: Optional[Dtype] = None):
+        """A Tensor copied in from ``data`` (an array, a torch tensor or
+        anything ``np.asarray`` takes), cast to ``dtype`` if given, as
+        ``from_numpy`` does; from a Tensor, a view of it (dsc_tpu
+        tensor.py:91-119)."""
+        if isinstance(data, Tensor):
+            self._buf, self._shape, self._dtype = data._buf, data._shape, data._dtype
+            return
+        if isinstance(data, torch.Tensor):
+            if dtype is not None:
+                data = K.cast(data, TORCH_DTYPE[dtype])
+            if data.dtype not in DTYPE_OF_TORCH:
+                raise RuntimeError(f'cannot create a Tensor of dtype {data.dtype}')
+
+            def make():
+                return Tensor._from_torch(data.to(_get_ctx().device, copy=True))
+        else:
+            host = np.asarray(data)
+            if dtype is not None:
+                host = host.astype(DTYPE_TO_NP[dtype])
+            np_to_dtype(host.dtype)  # raises on dtypes outside the four
+
+            def make():
+                return Tensor._from_torch(interop.put(host))
+        t = capture.created(make)
+        self._buf, self._shape, self._dtype = t._buf, t._shape, t._dtype
+
     @classmethod
     def _from_torch(cls, data: torch.Tensor) -> 'Tensor':
         if data.dim() > DSC_MAX_DIMS:
@@ -112,6 +151,8 @@ class Tensor:
         if data.data_ptr() % 16:
             # an offset view: the kernels take 16-byte aligned data
             data = data.clone()
+        if _nan_check is not None:
+            _nan_check(data)
         t = cls.__new__(cls)
         t._buf = _Buffer(data)
         t._shape = tuple(data.shape)
@@ -127,10 +168,20 @@ class Tensor:
         if storage.dtype != torch.complex64 or tuple(storage.shape) != (n1, cols):
             raise RuntimeError(f'T layout {layout}: expected complex64 {(n1, cols)}, '
                                f'got {storage.dtype} {tuple(storage.shape)}')
+        if _nan_check is not None:
+            _nan_check(storage)
         t = cls.__new__(cls)
         t._buf = _Buffer(storage.contiguous(), layout)
         t._shape = _logical_shape(layout)
         t._dtype = Dtype.C32
+        return t
+
+    def _copy(self) -> 'Tensor':
+        """A Tensor of this shape, dtype and layout over a copy of the
+        buffer."""
+        t = Tensor.__new__(Tensor)
+        t._buf = _Buffer(self._buf.data.clone(), self._buf.layout)
+        t._shape, t._dtype = self._shape, self._dtype
         return t
 
     @classmethod
@@ -195,6 +246,7 @@ class Tensor:
         return f'Tensor(dtype={self._dtype}, shape={self._shape})\n{self.numpy()}'
 
     def numpy(self) -> np.ndarray:
+        capture.check_concrete('Tensor.numpy()')
         # a natural copy of a T layout; the buffer keeps its layout
         return interop.get(self._buf.natural().view(self._shape))
 
@@ -221,6 +273,7 @@ class Tensor:
             res = _index(self.torch, key)
         if res.numel() == 1:
             # any 1-element result unwraps (python/dsc/tensor.py:91-103)
+            capture.check_concrete('the 1-element unwrap of __getitem__')
             v = res.reshape(()).item()
             return complex(v) if self._dtype.is_complex else float(v)
         return Tensor._from_torch(res)
@@ -317,6 +370,9 @@ def _value_for_set(value, target: 'Tensor') -> torch.Tensor:
         return v.clone() if value._buf is target._buf else v
     np_dt = DTYPE_TO_NP[target.dtype]
     host = value.astype(np_dt) if isinstance(value, np.ndarray) else np.asarray(value, np_dt)
+    if host.ndim == 0:
+        # a fill, not an upload: a CUDA graph can capture it
+        return torch.full((), host.item(), dtype=tdt, device=target.device)
     return interop.put(host, target.torch.device)
 
 
@@ -626,7 +682,7 @@ def _check_shape(shape) -> None:
 def from_numpy(x: np.ndarray) -> Tensor:
     np_to_dtype(x.dtype)  # raises on dtypes outside the four
     _check_shape(x.shape)
-    return Tensor._from_torch(interop.put(x))
+    return capture.created(lambda: Tensor._from_torch(interop.put(x)))
 
 
 def _wrap(x, dtype: Dtype) -> Tensor:
@@ -647,9 +703,11 @@ def _wrap(x, dtype: Dtype) -> Tensor:
 
 
 def arange(n: int, dtype: Dtype = Dtype.F32) -> Tensor:
-    with tracing.trace_op('arange', 'op;creation', {'n': n}):
-        res = K.arange(n, TORCH_DTYPE[dtype], _get_ctx().device)
-    return Tensor._from_torch(res)
+    def make():
+        with tracing.trace_op('arange', 'op;creation', {'n': n}):
+            return Tensor._from_torch(K.arange(n, TORCH_DTYPE[dtype], _get_ctx().device))
+
+    return capture.created(make)
 
 
 def randn(*shape: int, dtype: Dtype = Dtype.F32) -> Tensor:
@@ -658,17 +716,24 @@ def randn(*shape: int, dtype: Dtype = Dtype.F32) -> Tensor:
         shape = tuple(shape[0])
     _check_shape(shape)
     ctx = _get_ctx()
-    host = torch.randn(shape, generator=ctx.generator,
-                       dtype=TORCH_DTYPE[dtype])
-    return Tensor._from_torch(host.to(ctx.device))
+
+    def make():
+        host = torch.randn(shape, generator=ctx.generator, dtype=TORCH_DTYPE[dtype])
+        return Tensor._from_torch(host.to(ctx.device))
+
+    return capture.created(make)
 
 
 def full(shape, fill_value: ScalarType, dtype: Dtype = Dtype.F32) -> Tensor:
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     _check_shape(shape)
-    with tracing.trace_op('full', 'op;creation', {'shape': list(shape)}):
-        res = K.full(shape, fill_value, TORCH_DTYPE[dtype], _get_ctx().device)
-    return Tensor._from_torch(res)
+
+    def make():
+        with tracing.trace_op('full', 'op;creation', {'shape': list(shape)}):
+            return Tensor._from_torch(
+                K.full(shape, fill_value, TORCH_DTYPE[dtype], _get_ctx().device))
+
+    return capture.created(make)
 
 
 def _like_dtype(x, dtype: Optional[Dtype]) -> Dtype:

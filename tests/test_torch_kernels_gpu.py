@@ -560,3 +560,120 @@ def test_stream_map_refuses_combinations_outside_the_dispatch():
         with pytest.raises(RuntimeError, match='dsc_stream_map failed'):
             build.launch('stream_map', *args, out.data_ptr(), x.numel())
         assert build.launches['stream_map'] == before
+
+
+# K5g: dsc.map bodies generated on K5's skeleton, each against the plain
+# interpreter of its recorded op list, at a count past a block's chunk
+
+
+MAP_BODIES = {
+    'clip chain': (lambda x, y: dt.clip(x * y + 0.5, -1.0, 1.0), ('full', 'full')),
+    'row and scalar': (lambda t, r, k: t * r + k, ('full', 'brow', 'scalar')),
+    'two outputs': (lambda x, y: (x + y, x * y), ('full', 'full')),
+    'sin cos exp': (lambda x, y: dt.sin(x) * dt.cos(y) + dt.exp(x * 0.25), ('full', 'full')),
+    'sqrt log pow': (lambda x, y: dt.sqrt(dt.absolute(x)) + dt.logn(dt.absolute(y) + 1.0)
+                     - x ** 2.0, ('full', 'full')),
+    'row unaries': (lambda t, r: t * dt.cos(r) + dt.sinc(r) - dt.clip(r, -0.5, 0.5),
+                    ('full', 'brow')),
+}
+
+
+def _map_operands(kinds, seed):
+    rows, m = 2**21 // 4096 + 2, 4096  # 2^21 + 8192 elements
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    ops = []
+    for kind in kinds:
+        shape = {'full': (rows, m), 'brow': (m,), 'scalar': (1,)}[kind]
+        ops.append(dt.Tensor(torch.randn(shape, device='cuda', generator=gen)))
+    return ops
+
+
+@pytest.mark.parametrize('case', list(MAP_BODIES))
+def test_map_generated_kernel(case):
+    fn, kinds = MAP_BODIES[case]
+    args = _map_operands(kinds, len(case))
+    mapped = dt.map(fn)
+    before = build.launches['stream_map_gen']
+    got = mapped(*args)
+    assert build.launches['stream_map_gen'] == before + 1
+    route, kernel, _ = next(iter(mapped._programs.values()))
+    assert route == 'stream' and kernel.kinds == kinds
+    got = got if isinstance(got, tuple) else (got,)
+    for g, ref in zip(got, kernel.plain([a.torch for a in args])):
+        assert _rel(g.torch, ref) < REL
+    eager = fn(*args)
+    for g, e in zip(got, eager if isinstance(eager, tuple) else (eager,)):
+        assert _rel(g.torch, e.torch) < REL
+
+
+@pytest.mark.parametrize('fn', [lambda x, y: torch.clamp_min(x, -0.5),
+                                lambda x, y: torch.clamp_max(x, 0.5), torch.minimum,
+                                torch.maximum], ids=['clamp_min', 'clamp_max', 'minimum',
+                                                     'maximum'])
+def test_map_generated_min_max_forms(fn):
+    # forms no port op records, lowered from torch's own record on meta
+    from dsc_tpu_torch.ops import map_gen
+
+    shape = (2**21 + 8192,)
+    metas = [torch.empty(shape, device='meta') for _ in range(2)]
+    ops, out = map_gen.trace(lambda: fn(*metas))
+    lines = map_gen.lower(ops, metas, [out], shape, ('full', 'full'))
+    kernel = map_gen.MapKernel(ops, metas, [out], shape, ('full', 'full'),
+                               map_gen.generate(lines, ('full', 'full'), 1))
+    x, y = (t.torch.reshape(shape) for t in _map_operands(('full', 'full'), 7))
+    x[::1000] = float('nan')
+    got, = kernel([x, y])
+    ref, = kernel.plain([x, y])
+    torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
+
+
+def test_map_outside_the_table_builds_nothing(monkeypatch):
+    built = []
+    monkeypatch.setattr(build, 'build_generated', lambda src: built.append(src))
+    x = _map_operands(('full',), 3)[0]
+    mapped = dt.map(lambda a: dt.angle(a))
+    got = mapped(x)
+    assert next(iter(mapped._programs.values()))[0] == 'compile' and built == []
+    assert _rel(got.torch, dt.angle(x).torch) < REL
+
+
+def test_compiled_filter_fft_against_eager():
+    from dsc_tpu_torch.models import FilterFFT
+
+    rng = np.random.default_rng(21)
+    taps = rng.standard_normal(129).astype(np.float32)
+    ff = FilterFFT(taps, 2**20)
+    for seed in range(3):  # the trace and capture, then replays on new values
+        blk = dt.from_numpy(np.random.default_rng(seed).standard_normal(2**20).astype(np.float32))
+        before = dict(build.launches)
+        got = ff(blk)
+        if seed:  # a replay launches from the graph, not from Python
+            assert build.launches == before
+        eager = dt.irfft(dt.mul(dt.rfft(blk, n=ff.fft_n), ff.kernel_spec))[:ff.out_len]
+        assert _rel(got.torch, eager.torch) < 1e-6
+    assert ff._step.n_programs == 1 and ff._step._programs[next(iter(ff._step._programs))].graph
+
+
+def test_compile_graph_is_functional_and_fresh():
+    f = dt.compile(lambda x, k: dt.add(dt.mul(x, k), dt.randn(8)))
+    a = dt.from_numpy(np.ones(8, np.float32))
+    r1, r2 = f(a, 2.0), f(a, 2.0)
+    assert r1._buf.data.data_ptr() != r2._buf.data.data_ptr()  # fresh outputs
+    np.testing.assert_array_equal(r1.numpy(), r2.numpy())  # the same constant
+    b = dt.from_numpy(np.full(8, 3.0, np.float32))
+    np.testing.assert_allclose(f(b, 2.0).numpy() - r1.numpy(), np.full(8, 4.0), atol=1e-6)
+    m0 = dt.used_mem()
+    r3 = f(a, 2.0)
+    assert dt.used_mem() == m0 + 32
+    del r3
+
+
+def test_map_under_compile_is_captured():
+    fused = dt.map(lambda x, y: dt.clip(x * y + 0.5, -1.0, 1.0))
+    pipe = dt.compile(lambda x, y: fused(x, y) * 2.0)
+    x, y = _map_operands(('full', 'full'), 5)
+    pipe(x, y)
+    before = build.launches['stream_map_gen']
+    got = pipe(x, y)  # a replay: the K5g launch is inside the graph
+    assert build.launches['stream_map_gen'] == before
+    assert _rel(got.torch, (dt.clip(x * y + 0.5, -1.0, 1.0) * 2.0).torch) < REL

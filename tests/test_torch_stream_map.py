@@ -341,12 +341,12 @@ def test_instantiations_are_what_the_wrapper_admits():
 
 
 @pytest.mark.parametrize('dtype,body,kinds,kernel', [
-    (torch.float32, 'sin', ('full',), 'map_kernel<kSin, kF, kN, kN>'),
-    (torch.float32, 'add', ('full', 'full'), 'map_kernel<kAdd, kF, kF, kN>'),
-    (torch.float32, 'mul', ('full', 'scalar'), 'map_kernel<kMul, kF, kS, kN>'),
-    (torch.float32, 'sub', ('brow', 'full'), 'map_kernel<kSub, kB, kF, kN>'),
-    (torch.float32, 'clip', ('full', 'scalar', 'scalar'), 'map_kernel<kClip, kF, kS, kS>'),
-    (torch.float32, 'clip', ('scalar', 'brow', 'full'), 'map_kernel<kClip, kS, kB, kF>'),
+    (torch.float32, 'sin', ('full',), 'map_kernel<RealBody<kSin>, 1, kF>'),
+    (torch.float32, 'add', ('full', 'full'), 'map_kernel<RealBody<kAdd>, 1, kF, kF>'),
+    (torch.float32, 'mul', ('full', 'scalar'), 'map_kernel<RealBody<kMul>, 1, kF, kS>'),
+    (torch.float32, 'sub', ('brow', 'full'), 'map_kernel<RealBody<kSub>, 1, kB, kF>'),
+    (torch.float32, 'clip', ('full', 'scalar', 'scalar'), 'map_kernel<RealBody<kClip>, 1, kF, kS, kS>'),
+    (torch.float32, 'clip', ('scalar', 'brow', 'full'), 'map_kernel<RealBody<kClip>, 1, kS, kB, kF>'),
     (torch.complex64, 'mul', ('full', 'full'), 'cmap_kernel<kCMul, kF, kF>'),
     (torch.complex64, 'div', ('scalar', 'full'), 'cmap_kernel<kCDiv, kS, kF>'),
 ])
@@ -426,14 +426,15 @@ def test_route_is_eligible_with_the_classification():
 
 # -- the broadcast row's offsets, thread by thread ---------------------------
 
-K5_SOURCE = (Path(sm.__file__).resolve().parents[1] / 'csrc' / 'stream_map.cu').read_text()
+# K5's skeleton, which K5g shares: the block shape and Real<kB>::seek
+K5_SOURCE = (Path(sm.__file__).resolve().parents[1] / 'csrc' / 'stream_map.cuh').read_text()
 K5_THREADS = int(re.search(r'constexpr int kThreads = (\d+);', K5_SOURCE).group(1))
 K5_VEC = int(re.search(r'constexpr int kVec = (\d+);', K5_SOURCE).group(1))
 K5_CHUNK = K5_THREADS * K5_VEC  # float4 groups a block
 
 
 def emulate_brow_offsets(m, groups):
-    """csrc/stream_map.cu ``Real<kB>::seek`` for every thread of a grid of
+    """csrc/stream_map.cuh ``Real<kB>::seek`` for every thread of a grid of
     one block a chunk: one 64-bit division for the thread's first group g0,
     then its kVec groups g0 + k * kThreads by 32-bit arithmetic. Returns
     each float4 group's row offset in elements (-1 where no thread took
