@@ -3,7 +3,8 @@ filterFFT main path (rfft -> spectrum multiply -> irfft), the eager
 elementwise tier, the batched FFT suite, the single-vector transforms
 into and out of the T spectrum layout, and the fusion tier (dsc.compile
 as CUDA graphs, dsc.map as generated kernels) with the STFT and
-OverlapSave models.
+OverlapSave models, and the FFT-shaped model tier (welch, cwt,
+ShortTimeFFT and the rest of psd, stft_scipy, multitaper, spectral, fir).
 
     python3 chip_smoke.py
 
@@ -30,7 +31,9 @@ Phases, each raising on failure (exit code 0 means all passed):
    shapes and a single 2^24 vector; the Hermitian reconstruction K11 at
    2^18, 2^19 and 2^24, exactly; K6 once more and K8, K9 and K10 (within
    1e-6) at every single-vector shape of phase 4d: 2^18, 2^19, 2^21, 2^24
-   and 2^26, T and half-T layouts), and the rfft against np.fft in float64;
+   and 2^26, T and half-T layouts), K12 at the model tier's launch shapes
+   (welch's 8191 x 512 and 8176 x 512, ShortTimeFFT's 4099 x 512) and K6/K7
+   at cwt's 64 x 2^17 rows, and the rfft against np.fft in float64;
 4. the public API at full size, as four paths, each with every launch count
    set to 0 just before it and read just after:
    a. the README quick start (2^20 samples, 255 taps, n = 2^21) and the
@@ -95,8 +98,28 @@ Phases, each raising on failure (exit code 0 means all passed):
       against NumPy in float64 with the tolerances of the JAX package's
       tests, and timed with its device busy share.
 
-The last lines are the kernels' JSON record, the card line and the result
-line. Without a CUDA device the script exits non-zero before any of them.
+7. the model tier, every call with the counts set to 0 before it and held
+   to the routing after it, each against scipy.signal or NumPy in float64
+   with the tolerances of the JAX package's tests: the rows of
+   benchmarks/results_models.json at full size, welch (nperseg 1024) of
+   1 x 2^22 and 16 x 2^18 (K12), cwt (ricker, 64 widths) of 2^16 (K12 on
+   the signal row, K6 + K7 on the 64 kernel rows and their inverse) and
+   ShortTimeFFT(hann 1024, hop 256).stft of 2^20 (K12), each timed on the
+   host clock (median of 25) with its device time by kernel (torch.profiler
+   over 10 calls), busy share and, for the K12 rows, the plain untangle's
+   device time alone; then one call each of csd and coherence of 2 x 2^20,
+   periodogram of 2^22, stft -> istft of 2^20, multitaper of 2^18,
+   lombscargle of 4096 points at 4096 frequencies, hilbert of 2^22,
+   resample 2^22 -> 2^21, resample_poly(3, 2) of 2^20 (K6, K7, K11),
+   firwin(255) and savgol_filter(31, 3) of 2^20 (K1-K4). Every kernel
+   launch these calls make is held to its plain version on the same inputs
+   just after it (REL_BOUND), at whatever shape and static arguments the
+   model gave it.
+
+The last lines are the kernels' JSON record (its ``launches_by_path``
+holds each path's launches, 'models' among them), the card line and the
+result line. Without a CUDA device the script exits non-zero before any of
+them.
 
     python3 chip_smoke.py --profile
 
@@ -129,6 +152,11 @@ tree of the port.
 
 runs phases 1-2 and then phase 6 alone.
 
+    python3 chip_smoke.py --models
+
+runs phases 1-2, phase 3's checks at the model tier's launch shapes and
+phase 7 alone.
+
     python3 chip_smoke.py --map-candidates TREE [TREE ...]
 
 times K5 of each TREE (a checkout of the port, unpacked under the ignored
@@ -143,6 +171,7 @@ the host time of an eager add, clip and mul by a scalar.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -374,8 +403,9 @@ def filter_fft(dsc, sig, taps, n_taps: int, n: int = STEP_N):
 def device_profile(fn, what: str, steps: int = 20):
     """torch.profiler over ``steps`` calls of ``fn``: [(device ms per call,
     launches per call, kernel or copy name)], largest first, and the profile.
-    A kernel recorded a number of times that is no multiple of the calls
-    means the trace lost events: the calls are profiled again."""
+    No device event, or a kernel recorded a number of times that is no
+    multiple of the calls, means the trace lost events: the calls are
+    profiled again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -386,7 +416,7 @@ def device_profile(fn, what: str, steps: int = 20):
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        if all(e.count % steps == 0 for e in events):
+        if events and all(e.count % steps == 0 for e in events):
             break
         print(f'  torch.profiler lost events ({what}: '
               f'{sorted(e.count for e in events)} over {steps} calls), profiling again')
@@ -1064,6 +1094,308 @@ def fusion_phase(dsc, card: str, compare, timed) -> dict:
     return launches
 
 
+# the device kernels of the port, by a part of their names in torch.profiler
+PORT_KERNEL_NAMES = ('base_fft_kernel', 'stream_column_kernel', 'rfft_phase_b_kernel',
+                     'irfft_phase_a_kernel', 'inv_phase_a_t_kernel', 'reconstruct_kernel',
+                     'map_kernel')
+# phase 7: the launches each model call must make (fourier/config.py). A
+# 1024-sample segment (welch, csd, coherence, stft, istft, ShortTimeFFT) is
+# one K12 launch on the 512-point half-size rows of all segments; cwt at
+# 2^16 x 64 widths (fft_n = 2^17): the signal row is under the streaming
+# batch rule and rides the plain four-step (512 x 256 base cases, K12
+# twice), the kernel stack's rfft and the irfft of its 64 rows take K6 + K7
+# each (the rows' reconstruction is plain); a single row or 7 tapers at
+# 2^18-2^22 stream (K6 + K7 a transform), and a single-row irfft there
+# reconstructs its spectrum with K11 first; savgol_filter's fft_convolve at
+# n = 2^21 is the packed K1 + K2 twice and K3 + K4 once
+K12_ONCE = {'base_fft': 1}
+STREAM_ONCE = {'stream_phase_a': 1, 'stream_phase_b': 1}
+STREAM_ROUND_TRIP = {'stream_phase_a': 2, 'stream_phase_b': 2, 'reconstruct': 1}
+
+
+def model_wrappers():
+    """The wrappers of the kernels a model call can reach: (module, name,
+    plain version, kernel's name in build.launches)."""
+    from dsc_tpu_torch.fourier import base_fft, packed_fused as pf, reconstruct, stream
+    from dsc_tpu_torch.ops import stream_map as sm
+
+    return ((base_fft, 'fft_base', base_fft.fft_base_plain, 'base_fft'),
+            (stream, 'phase_a', stream.phase_a_plain, 'stream_phase_a'),
+            (stream, 'phase_b', stream.phase_b_plain, 'stream_phase_b'),
+            (reconstruct, 'reconstruct_spectrum', reconstruct.reconstruct_plain, 'reconstruct'),
+            (pf, 'rfft_phase_a', pf.rfft_phase_a_plain, 'rfft_phase_a'),
+            (pf, 'rfft_phase_b', pf.rfft_phase_b_plain, 'rfft_phase_b'),
+            (pf, 'irfft_phase_a', pf.irfft_phase_a_plain, 'irfft_phase_a'),
+            (pf, 'irfft_phase_b', pf.irfft_phase_b_plain, 'irfft_phase_b'),
+            (sm, 'stream_map', lambda *a, layout=None: sm.stream_map_plain(*a), 'stream_map'))
+
+
+def describe(args) -> str:
+    """A launch's inputs: tensor shapes and dtypes, and static arguments."""
+    parts = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            parts.append('x'.join(map(str, a.shape)) + ' ' + str(a.dtype).replace('torch.', ''))
+        elif isinstance(a, (bool, int, float, str)):
+            parts.append(repr(a))
+    return ', '.join(parts)
+
+
+@contextlib.contextmanager
+def held_launches(compare, where):
+    """Within the block, every launch of a kernel of model_wrappers() is held
+    to its plain version on the same inputs just after it, at REL_BOUND, and
+    labelled with ``where()`` and its inputs. The plain versions launch
+    nothing, so the launch counts stay those of the calls."""
+    from dsc_tpu_torch.kernels import build
+
+    saved = []
+    for module, name, plain, kernel in model_wrappers():
+        fn = getattr(module, name)
+
+        def spy(*args, fn=fn, plain=plain, kernel=kernel, **kw):
+            before = build.launches[kernel]
+            out = fn(*args, **kw)
+            if build.launches[kernel] > before:
+                compare(kernel, out, plain(*args, **kw), f'{where()}: {describe(args)}')
+            return out
+
+        saved.append((module, name, fn))
+        setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def ricker64(points: int, a: float) -> np.ndarray:
+    """The Ricker wavelet in float64 (scipy's _ricker formula)."""
+    x = np.arange(points) - (points - 1.0) / 2.0
+    return (2.0 / (np.sqrt(3.0 * a) * np.pi ** 0.25) * (1.0 - x * x / (a * a))
+            * np.exp(-x * x / (2.0 * a * a)))
+
+
+def cwt64(x: np.ndarray, widths) -> np.ndarray:
+    """scipy's cwt of ``x`` with ricker wavelets in float64: per width, the
+    'same' part of the full convolution with the time-reversed wavelet of
+    min(10 w, n) points, by np.fft."""
+    n = x.size
+    kernels = [ricker64(int(min(10 * w, n)), w)[::-1] for w in widths]
+    fft_n = 1 << (n + max(k.size for k in kernels) - 2).bit_length()
+    xs = np.fft.rfft(x, fft_n)
+    out = np.empty((len(widths), n))
+    for i, k in enumerate(kernels):
+        off = (k.size - 1) // 2
+        out[i] = np.fft.irfft(xs * np.fft.rfft(k, fft_n), fft_n)[off:off + n]
+    return out
+
+
+def model_shapes() -> dict:
+    """The launch shapes the model tier gives K12 and K6/K7 at phase 7's
+    sizes: (batch, n) of K12 for welch 1 x 2^22 and 16 x 2^18 (nperseg
+    1024, hop 512) and ShortTimeFFT(hann 1024, hop 256) of 2^20; of K6/K7
+    for cwt's 64 kernel rows at fft_n = 2^17."""
+    import scipy.signal as sps
+
+    from dsc_tpu_torch.models import ShortTimeFFT
+
+    sft = ShortTimeFFT(sps.get_window('hann', 1024), 256, 1.0)
+    return {'base_fft': [(1 + (2**22 - 1024) // 512, 512), (16 * (1 + (2**18 - 1024) // 512), 512),
+                         (sft.p_num(2**20), 512)],
+            'stream': [(64, 2**17)]}
+
+
+def model_shape_checks(compare, normal, cnormal) -> None:
+    """K12 and K6/K7 against their plain versions at the model tier's launch
+    shapes (model_shapes)."""
+    from dsc_tpu_torch.fourier import base_fft, plan, stream
+
+    shapes = model_shapes()
+    w = plan.get_plan(512, 'complex', torch.complex64)[1]
+    for b, n in shapes['base_fft']:
+        x = cnormal((b, n))
+        compare('base_fft', base_fft.fft_base(x, w), base_fft.fft_base_plain(x, w),
+                f'n={n} batch={b} (R={base_fft.block_rows(n, b)}), a model shape')
+    for b, n in shapes['stream']:
+        t = plan.get_plan(n, 'stream', torch.complex64)[1]
+        shape = f'{b} x 2^{n.bit_length() - 1}, a model shape'
+        # cwt's rfft of real rows and the inverse of their product's spectra
+        x = normal((b, n))
+        z = stream.phase_a(x, t, False)
+        compare('stream_phase_a', z, stream.phase_a_plain(x, t, False), f'{shape} real forward')
+        compare('stream_phase_b', stream.phase_b(z, t, False), stream.phase_b_plain(z, t, False),
+                f'{shape} forward')
+        x = cnormal((b, n))
+        z = stream.phase_a(x, t, True)
+        compare('stream_phase_a', z, stream.phase_a_plain(x, t, True), f'{shape} inverse')
+        compare('stream_phase_b', stream.phase_b(z, t, True, True),
+                stream.phase_b_plain(z, t, True, True), f'{shape} inverse real output')
+    del x, z
+    torch.cuda.synchronize()
+
+
+def models_phase(dsc, card: str, compare) -> dict:
+    """Phase 7: the FFT-shaped model tier at the sizes of
+    benchmarks/results_models.json and one call of each other model, each
+    against scipy.signal or NumPy in float64 with the tolerances of the JAX
+    package's tests, with every launch count set to 0 just before each call
+    and held to the routing just after, and every kernel launch held to its
+    plain version (held_launches). Returns the launches of each kernel over
+    the phase."""
+    import scipy.signal as sps
+
+    from dsc_tpu_torch import models as M
+    from dsc_tpu_torch.fourier import core, plan
+    from dsc_tpu_torch.kernels import build
+
+    print('phase 7: the model tier: welch, cwt, ShortTimeFFT at full size; csd, coherence, '
+          'periodogram, stft -> istft, multitaper, lombscargle, hilbert, resample, '
+          'resample_poly, firwin, savgol_filter')
+    gen = np.random.default_rng(7)
+    launches = dict.fromkeys(KERNELS, 0)
+    current = ['']
+
+    def to64(v):
+        a = v.numpy() if hasattr(v, 'numpy') else np.asarray(v)
+        return a.astype(np.complex128 if np.iscomplexobj(a) else np.float64)
+
+    def run(what, fn, want, ref, bound, scale='max'):
+        """One call with the counts set to 0 before it and held to ``want``
+        after it; the result against ``ref`` within ``bound`` times the
+        largest |ref| ('max'), max(1, largest |ref|) ('max1') or absolutely
+        ('abs')."""
+        current[0] = what.split(' vs ')[0]
+        build.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {name: count for name, count in build.launches.items() if count}
+        for name, count in got.items():
+            launches[name] += count
+        res = to64(out)
+        require(res.shape == ref.shape and bool(np.isfinite(res).all()),
+                f'{what}: shape {res.shape} (want {ref.shape}) or not finite')
+        err = float(np.abs(res - ref).max())
+        den = {'max': float(np.abs(ref).max()), 'max1': max(1.0, float(np.abs(ref).max())),
+               'abs': 1.0}[scale]
+        print(f'  {what}: {err / den:.3e} ({"abs" if scale == "abs" else "rel"}, bound '
+              f'{bound:g}), launches {got}')
+        require(err <= bound * den, f'{what}: {err / den} > {bound}')
+        require(got == want, f'{what}: launches {got}, routing says {want}')
+        return out
+
+    timed_rows = []
+    with held_launches(compare, lambda: current[0]):
+        # -- full size: the results_models.json rows ------------------------
+        x22 = gen.standard_normal(2**22).astype(np.float32)
+        t22 = dsc.from_numpy(x22)
+        run('welch 1 x 2^22 (nperseg 1024) vs scipy.signal.welch float64',
+            lambda: M.welch(t22, nperseg=1024)[1], K12_ONCE,
+            sps.welch(x22.astype(np.float64), nperseg=1024)[1], 2e-4)
+        timed_rows.append(('welch 1 x 2^22', lambda: M.welch(t22, nperseg=1024)[1]))
+        x16 = gen.standard_normal((16, 2**18)).astype(np.float32)
+        t16 = dsc.from_numpy(x16)
+        run('welch 16 x 2^18 (nperseg 1024) vs scipy.signal.welch float64',
+            lambda: M.welch(t16, nperseg=1024)[1], K12_ONCE,
+            sps.welch(x16.astype(np.float64), nperseg=1024, axis=-1)[1], 2e-4)
+        timed_rows.append(('welch 16 x 2^18', lambda: M.welch(t16, nperseg=1024)[1]))
+        xc = gen.standard_normal(2**16).astype(np.float32)
+        tc = dsc.from_numpy(xc)
+        widths = np.arange(1, 65).astype(np.float64)
+        run('cwt 2^16 x 64 ricker widths vs float64 np.fft convolution per width',
+            lambda: M.cwt(tc, M.ricker, widths),
+            {'base_fft': 2, 'stream_phase_a': 2, 'stream_phase_b': 2},
+            cwt64(xc.astype(np.float64), widths), 1e-5)
+        timed_rows.append(('cwt 2^16 x 64 widths', lambda: M.cwt(tc, M.ricker, widths)))
+        xs = gen.standard_normal(2**20).astype(np.float32)
+        ts = dsc.from_numpy(xs)
+        w_hann = sps.get_window('hann', 1024)
+        sft = M.ShortTimeFFT(w_hann, 256, 1.0)
+        run('ShortTimeFFT(hann 1024, hop 256).stft 2^20 vs scipy.signal.ShortTimeFFT float64',
+            lambda: sft.stft(ts), K12_ONCE,
+            sps.ShortTimeFFT(w_hann, hop=256, fs=1.0).stft(xs.astype(np.float64)), 2e-4,
+            'max1')
+        timed_rows.append(('ShortTimeFFT 2^20', lambda: sft.stft(ts)))
+        # -- one call each: the rest of the tier ------------------------------
+        xa = gen.standard_normal((2, 2**20)).astype(np.float32)
+        xb = (0.7 * xa + 0.3 * gen.standard_normal((2, 2**20))).astype(np.float32)
+        ta, tb = dsc.from_numpy(xa), dsc.from_numpy(xb)
+        a64, b64 = xa.astype(np.float64), xb.astype(np.float64)
+        run('csd 2 x 2^20 (nperseg 1024) vs scipy.signal.csd float64',
+            lambda: M.csd(ta, tb, nperseg=1024)[1], K12_ONCE,
+            sps.csd(a64, b64, nperseg=1024, axis=-1)[1], 2e-4)
+        run('coherence 2 x 2^20 (nperseg 1024) vs scipy.signal.coherence float64',
+            lambda: M.coherence(ta, tb, nperseg=1024)[1], K12_ONCE,
+            sps.coherence(a64, b64, nperseg=1024, axis=-1)[1], 5e-4, 'abs')
+        run('periodogram 2^22 vs scipy.signal.periodogram float64',
+            lambda: M.periodogram(t22)[1], STREAM_ONCE,
+            sps.periodogram(x22.astype(np.float64))[1], 2e-4)
+        zxx = run('stft 2^20 (nperseg 1024) vs scipy.signal.stft float64',
+                  lambda: M.stft(ts, nperseg=1024)[2], K12_ONCE,
+                  sps.stft(xs.astype(np.float64), nperseg=1024)[2], 1e-5)
+        run('istft(stft(x)) 2^20 (nperseg 1024) vs x',
+            lambda: M.istft(zxx, nperseg=1024)[1][:2**20], K12_ONCE,
+            xs.astype(np.float64), 1e-5, 'abs')
+        xm = gen.standard_normal(2**18).astype(np.float32)
+        tapers, lam = sps.windows.dpss(2**18, 4.0, 7, return_ratios=True)
+        pm = ((lam / lam.sum())[:, None]
+              * np.abs(np.fft.rfft(tapers * xm.astype(np.float64), axis=-1)) ** 2).sum(0)
+        pm[1:-1] *= 2.0
+        run('multitaper 2^18 (nw 4, 7 tapers, eigen) vs float64 direct eigenspectra',
+            lambda: M.multitaper(dsc.from_numpy(xm), nw=4.0, k=7, weighting='eigen')[1],
+            STREAM_ONCE, pm, 1e-5)
+        tl = np.sort(gen.uniform(0.0, 100.0, 4096))
+        yl = np.cos(2 * np.pi * 0.7 * tl) + 0.4 * gen.standard_normal(4096)
+        fl = np.linspace(0.01, 10.0, 4096)
+        run('lombscargle 4096 points x 4096 frequencies vs scipy.signal.lombscargle',
+            lambda: M.lombscargle(dsc.from_numpy(tl), dsc.from_numpy(yl), dsc.from_numpy(fl)),
+            {}, sps.lombscargle(tl, yl, fl), 1e-6)
+        run('hilbert 2^22 vs scipy.signal.hilbert float64', lambda: M.hilbert(t22),
+            STREAM_ROUND_TRIP, sps.hilbert(x22.astype(np.float64)), 1e-4, 'abs')
+        run('resample 2^22 -> 2^21 vs scipy.signal.resample float64',
+            lambda: M.resample(t22, 2**21), STREAM_ROUND_TRIP,
+            sps.resample(x22.astype(np.float64), 2**21), 1e-4, 'abs')
+        run('resample_poly(up 3, down 2) 2^20 vs scipy.signal.resample_poly float64',
+            lambda: M.resample_poly(ts, 3, 2),
+            {'stream_phase_a': 3, 'stream_phase_b': 3, 'reconstruct': 1},
+            sps.resample_poly(xs.astype(np.float64), 3, 2), 1e-4, 'max1')
+        run('firwin(255, 0.2) vs scipy.signal.firwin', lambda: M.firwin(255, 0.2), {},
+            sps.firwin(255, 0.2), 1e-5, 'abs')
+        run('savgol_filter(2^20, 31, 3) vs scipy.signal.savgol_filter float64',
+            lambda: M.savgol_filter(ts, 31, 3),
+            {'rfft_phase_a': 2, 'rfft_phase_b': 2, 'irfft_phase_a': 1, 'irfft_phase_b': 1},
+            sps.savgol_filter(xs.astype(np.float64), 31, 3), 1e-4)
+    for name in ('base_fft', 'stream_phase_a', 'stream_phase_b', 'reconstruct'):
+        require(launches[name] > 0, f'kernel {name} was not launched by the model tier')
+    # the full-size rows: host clock, and device time by kernel over 10 calls;
+    # the share of the plain untangle of each K12 row (R9), timed alone at
+    # the K12 output's shape
+    k12_of = dict(zip(('welch 1 x 2^22', 'welch 16 x 2^18', 'ShortTimeFFT 2^20'),
+                      model_shapes()['base_fft']))
+    wu = plan.get_plan(1024, 'real', torch.complex64)[1][1]
+    for what, fn in timed_rows:
+        wall = host_ms(fn)
+        rows, _ = device_profile(fn, what, steps=10)
+        busy = print_profile(rows, what, wall, card, 10)
+        ours = sum(r[0] for r in rows if any(part in r[2] for part in PORT_KERNEL_NAMES))
+        line = (f'  {what}: {wall:.4f} ms a call, device {busy:.4f} ms, busy share '
+                f'{busy / wall:.3f}; the port\'s kernels {ours:.4f} ms, plain torch '
+                f'{busy - ours:.4f} ms')
+        if what in k12_of:
+            b = k12_of[what]
+            z = torch.complex(torch.randn(b, device='cuda'), torch.randn(b, device='cuda'))
+            # its device time (torch.profiler): back to back, its short
+            # kernels would time the host's launches
+            u_ms = sum(r[0] for r in device_profile(lambda: core.untangle(z, wu),
+                                                    'untangle', steps=10)[0])
+            line += (f'; the plain untangle alone at {b[0]} x {b[1]}: ' + (
+                f'device {u_ms:.4f} ms, {u_ms / busy:.2f} of the device time (R9)' if u_ms
+                else 'not measured (torch.profiler recorded no device time)'))
+        print(line + f' [{card}]')
+    print(f'  launches on the models path: {launches}')
+    return launches
+
+
 def fft_ops(n: int, points: int) -> float:
     """Flops of complex FFTs of ``points`` points over ``n`` values in all
     (5 N log2 N each)."""
@@ -1080,6 +1412,9 @@ def main() -> int:
                              'in place of the checks')
     parser.add_argument('--fusion', action='store_true',
                         help='run phase 6 (the fusion tier and the models) alone after the build')
+    parser.add_argument('--models', action='store_true',
+                        help='run the model-shape kernel checks of phase 3 and phase 7 (the '
+                             'model tier) alone after the build')
     parser.add_argument('--map-candidates', nargs='+', metavar='TREE',
                         help='time K5 of each tree (a checkout of the port) in turns, '
                              'in place of the checks')
@@ -1182,6 +1517,10 @@ def main() -> int:
 
     if args.fusion:
         fusion_phase(dsc, card, compare, timed)
+        return 0
+    if args.models:
+        model_shape_checks(compare, normal, cnormal)
+        models_phase(dsc, card, compare)
         return 0
 
     # -- 3. kernels vs plain versions --------------------------------------
@@ -1349,6 +1688,9 @@ def main() -> int:
             require(e_rt <= NUMPY_BOUND, f'T round trip {what}: {e_rt}')
     del x, z, s, y, back
     torch.cuda.synchronize()
+
+    # K12 at welch's and ShortTimeFFT's launch shapes, K6/K7 at cwt's rows
+    model_shape_checks(compare, normal, cnormal)
 
     # -- 4a. the public filterFFT path at full size ------------------------
     print('phase 4a: public API, the filterFFT path at n = 2^21, 2^24 round trip, n = 4096')
@@ -1811,6 +2153,11 @@ def main() -> int:
     launches['stream_map_gen'] = fusion_launches['stream_map_gen']
     for name in KERNELS:
         by_path[name]['fusion'] = fusion_launches[name]
+
+    # -- 7. the model tier ---------------------------------------------------
+    model_launches = models_phase(dsc, card, compare)
+    for name in KERNELS:
+        by_path[name]['models'] = model_launches[name]
 
     # the main path's shape of each kernel: the filterFFT at n = 2^21 for the
     # packed passes, the n = 4096 pair's 2048 x 1 for K12, bench's fma for K5,

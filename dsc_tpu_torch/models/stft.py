@@ -2,12 +2,14 @@
 config 4: sliding-window rfft + |.|^2 + log over streaming audio, traced end
 to end with dsc.profile()).
 
-Framing is a strided view of the signal (``unfold``), copied once into the
-windowed frames; the frames go through the batched FFT engine
-(fourier/core.py ``rfft_batched`` / ``irfft_batched``), whose routing
-sends a 1024-sample frame to the 512-point half-size transform of the
-base-case kernel K12. ISTFT overlap-adds the frames as ceil(frame/hop)
-shifted slice-adds, each over non-overlapping hop-wide pieces.
+Framing (``_frame_dense``) is a strided view of the signal (``unfold``),
+copied once into the windowed frames; the frames go through the batched
+FFT engine (fourier/core.py ``rfft_batched`` / ``irfft_batched``), whose
+routing sends a 1024-sample frame to the 512-point half-size transform of
+the base-case kernel K12. The inverse (``_istft_program``) overlap-adds
+the frames as ceil(frame/hop) shifted slice-adds, each over
+non-overlapping hop-wide pieces, for any hop. psd.py, stft_scipy.py and
+short_time_fft.py frame and overlap-add through the same helpers.
 """
 
 from __future__ import annotations
@@ -51,10 +53,65 @@ def _make_window(window, frame: int) -> np.ndarray:
     return win
 
 
-def _device_array(host: np.ndarray) -> torch.Tensor:
+def _device_array(host: np.ndarray, like: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A host array (a window, taper, weights or taps) on ``like``'s device,
+    else on the context's."""
+    if like is not None:
+        return torch.from_numpy(host).to(like.device)
     from ..context import device
 
     return torch.from_numpy(host).to(device())
+
+
+def _fft_convolve_rows(x: torch.Tensor, h: torch.Tensor, fft_n: int) -> torch.Tensor:
+    """Full linear convolution of the rows of x (b, m) with the rows of h
+    (c, k), b or c being 1 (broadcast), by one batched rfft of x, one of h
+    and one irfft of their product, all at ``fft_n``."""
+    spec, tables = fft_plan.get_plan(fft_n, 'real', torch.complex64)
+    pad = torch.nn.functional.pad
+    xs = fft_core.rfft_batched(pad(x, (0, fft_n - x.shape[-1])), spec, tables, fft_n)
+    hs = fft_core.rfft_batched(pad(h, (0, fft_n - h.shape[-1])), spec, tables, fft_n)
+    return fft_core.irfft_batched(xs * hs, spec, tables, fft_n)
+
+
+def _frame_dense(x: torch.Tensor, frame: int, hop: int, n_frames: int) -> torch.Tensor:
+    """(b, n) -> (b, n_frames, frame) with frames[:, i, j] = x[:, i*hop + j],
+    a strided view of x (dsc_tpu/models/stft.py:56-80); samples past the
+    end of x read as zeros."""
+    need = (n_frames - 1) * hop + frame
+    if x.shape[-1] < need:
+        x = torch.nn.functional.pad(x, (0, need - x.shape[-1]))
+    return x.unfold(-1, frame, hop)[:, :n_frames]
+
+
+def _overlap_add(frames: torch.Tensor, hop: int, off: int, out_n: int) -> torch.Tensor:
+    """(b, n_frames, frame) -> (b, out_n): frame i added at sample
+    off + i*hop. Frame i's piece c (samples c*hop ... c*hop + hop, the last
+    one zero-padded to hop) lands at off + (i + c)*hop: for one c the pieces
+    of all frames tile a contiguous run, one shifted slice-add, and
+    ceil(frame/hop) of them in a fixed order for any hop."""
+    b, n_frames, frame = frames.shape
+    phases = -(-frame // hop)
+    y = frames.new_zeros(b, max(out_n, off + (n_frames + phases - 1) * hop))
+    for c in range(phases):
+        piece = frames[:, :, c * hop:(c + 1) * hop]
+        if piece.shape[-1] < hop:
+            piece = torch.nn.functional.pad(piece, (0, hop - piece.shape[-1]))
+        s = off + c * hop
+        y[:, s:s + n_frames * hop] += piece.reshape(b, -1)
+    return y[:, :out_n]
+
+
+def _istft_program(z: torch.Tensor, window: torch.Tensor, inv_wsq: torch.Tensor, tables,
+                   frame: int, hop: int, n_frames: int, spec, fft_n: int,
+                   out_n: int) -> torch.Tensor:
+    """(b, n_frames, fft_n//2+1) complex -> (b, out_n) float: batched irfft,
+    synthesis window, overlap-add, times the 1/sum(w^2) computed on the host
+    (dsc_tpu/models/stft.py:168-199)."""
+    b = z.shape[0]
+    y = fft_core.irfft_batched(z.reshape(b * n_frames, -1), spec, tables, fft_n)[:, :frame]
+    frames = y.reshape(b, n_frames, frame) * window
+    return _overlap_add(frames, hop, 0, out_n) * inv_wsq
 
 
 class STFT:
@@ -92,7 +149,7 @@ class STFT:
         data = x.torch if batched else x.torch[None, :]
         with tracing.trace_op('stft', 'op;pipeline', tracing.tensor_args(x=x)):
             b = data.shape[0]
-            frames = data.unfold(-1, frame, self.hop)  # (b, n_frames, frame), a view
+            frames = _frame_dense(data, frame, self.hop, n_frames)
             fx = (frames * self._window).reshape(b * n_frames, frame)
             if frame != fft_n:  # a frame that is not a power of two: zero-padded
                 fx = torch.nn.functional.pad(fx, (0, fft_n - frame))
@@ -166,20 +223,7 @@ class ISTFT:
             data = data[None]
         inv_wsq = self._inv_wsq(n_frames, span)
         with tracing.trace_op('istft', 'op;pipeline', tracing.tensor_args(z=z)):
-            b = data.shape[0]
-            y = fft_core.irfft_batched(data.reshape(b * n_frames, n_freq), spec, tables,
-                                       self.fft_n)[:, :frame]
-            frames = y.reshape(b, n_frames, frame) * self._window
-            # frame i's piece c (samples c*hop ... c*hop + hop) lands at
-            # i*hop + c*hop: for one c the pieces of all frames tile a
-            # contiguous run, one shifted slice-add
-            phases = -(-frame // hop)
-            acc = torch.zeros(b, (n_frames + phases - 1) * hop, dtype=y.dtype, device=y.device)
-            for c in range(phases):
-                piece = frames[:, :, c * hop:(c + 1) * hop]
-                if piece.shape[-1] < hop:
-                    piece = torch.nn.functional.pad(piece, (0, hop - piece.shape[-1]))
-                acc[:, c * hop:(c + n_frames) * hop] += piece.reshape(b, -1)
-            out = (acc[:, :span] * inv_wsq)[:, :length]
+            out = _istft_program(data, self._window, inv_wsq, tables, frame, hop, n_frames,
+                                 spec, self.fft_n, span)[:, :length]
             res = Tensor._from_torch(out if batched else out[0])
         return res

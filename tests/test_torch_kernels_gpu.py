@@ -677,3 +677,90 @@ def test_map_under_compile_is_captured():
     got = pipe(x, y)  # a replay: the K5g launch is inside the graph
     assert build.launches['stream_map_gen'] == before
     assert _rel(got.torch, (dt.clip(x * y + 0.5, -1.0, 1.0) * 2.0).torch) < REL
+
+
+# -- the model tier: each function on the card against the same call on
+# the CPU (the kernels' plain versions), with the kernels it must launch
+
+@pytest.mark.parametrize('batch', [8191, 8176])
+def test_base_fft_kernel_at_welch_shapes(batch):
+    """K12 at welch's launch shapes: nperseg 1024 at 1 x 2^22 and 16 x 2^18."""
+    x = _cnormal((batch, 512), batch)
+    w = plan.get_plan(512, 'complex', torch.complex64)[1]
+    assert _rel(base_fft.fft_base(x, w), base_fft.fft_base_plain(x, w)) < REL
+
+
+def _on_cpu(fn):
+    """``fn()`` with the port's context on the CPU (every kernel wrapper runs
+    its plain version there), the card's context restored after."""
+    dt.shutdown()
+    dt.init(2**34, device='cpu')
+    try:
+        return fn()
+    finally:
+        dt.shutdown()
+        dt.init(2**34, device='cuda')
+
+
+def _model_cases():
+    import scipy.signal as sps
+
+    from dsc_tpu_torch import models as M
+
+    rng = np.random.default_rng(31)
+    x20 = rng.standard_normal(2**20).astype(np.float32)
+    x18 = rng.standard_normal((2, 2**18)).astype(np.float32)
+    y18 = (0.5 * x18 + rng.standard_normal((2, 2**18))).astype(np.float32)
+    t = np.sort(rng.uniform(0, 50, 1024))
+    hann = sps.get_window('hann', 1024)
+
+    def T(a):
+        return dt.from_numpy(a)
+
+    # (what, fn of nothing returning a Tensor, kernels it must launch)
+    return {
+        'welch': (lambda: M.welch(T(x20), nperseg=1024)[1], {'base_fft'}),
+        'welch median': (lambda: M.welch(T(x18), nperseg=1024, average='median')[1],
+                         {'base_fft'}),
+        'csd': (lambda: M.csd(T(x18), T(y18), nperseg=1024)[1], {'base_fft'}),
+        'coherence': (lambda: M.coherence(T(x18), T(y18), nperseg=1024)[1], {'base_fft'}),
+        'psd_spectrogram': (lambda: M.psd_spectrogram(T(x18), nperseg=1024)[2], {'base_fft'}),
+        'periodogram': (lambda: M.periodogram(T(x20))[1], {'stream_phase_a'}),
+        'stft': (lambda: M.stft(T(x20), nperseg=1024)[2], {'base_fft'}),
+        'istft': (lambda: M.istft(M.stft(T(x20), nperseg=1024)[2], nperseg=1024)[1],
+                  {'base_fft'}),
+        'ShortTimeFFT': (lambda: M.ShortTimeFFT(hann, 256, 1.0).stft(T(x20)), {'base_fft'}),
+        'ShortTimeFFT istft': (lambda: M.ShortTimeFFT(hann, 256, 1.0).istft(
+            M.ShortTimeFFT(hann, 256, 1.0).stft(T(x20))), {'base_fft'}),
+        'cwt': (lambda: M.cwt(T(x20[:2**16]), M.ricker, np.arange(1, 9)),
+                {'base_fft', 'stream_phase_a', 'stream_phase_b'}),
+        'multitaper': (lambda: M.multitaper(T(x18[0]))[1], {'stream_phase_a'}),
+        'lombscargle': (lambda: M.lombscargle(T(t), T(np.cos(t)), T(np.linspace(0.1, 5, 1024))),
+                        set()),
+        'hilbert': (lambda: M.hilbert(T(x20)), {'stream_phase_a', 'reconstruct'}),
+        'resample': (lambda: M.resample(T(x20), 2**19), {'stream_phase_a', 'reconstruct'}),
+        'resample_poly': (lambda: M.resample_poly(T(x18[0]), 3, 2), {'stream_phase_a'}),
+        'savgol_filter': (lambda: M.savgol_filter(T(x20), 31, 3),
+                          {'rfft_phase_a', 'irfft_phase_b'}),
+        'envelope': (lambda: M.envelope(T(x18[0])), set()),
+    }
+
+
+@pytest.mark.parametrize('case', ['welch', 'welch median', 'csd', 'coherence',
+                                  'psd_spectrogram', 'periodogram', 'stft', 'istft',
+                                  'ShortTimeFFT', 'ShortTimeFFT istft', 'cwt', 'multitaper',
+                                  'lombscargle', 'hilbert', 'resample', 'resample_poly',
+                                  'savgol_filter', 'envelope'])
+def test_model_on_the_card_against_the_cpu(case):
+    fn, kernels = _model_cases()[case]
+    build.reset_launches()
+    got = fn()
+    torch.cuda.synchronize()
+    assert got.device.type == 'cuda'
+    launched = {name for name, count in build.launches.items() if count}
+    assert kernels <= launched, (case, launched)
+    ref = _on_cpu(lambda: fn().numpy())
+    out = got.numpy()
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    assert np.isfinite(out).all()
+    assert np.abs(out - ref).max() <= REL * np.abs(ref).max()
