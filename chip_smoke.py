@@ -3,8 +3,10 @@ filterFFT main path (rfft -> spectrum multiply -> irfft), the eager
 elementwise tier, the batched FFT suite, the single-vector transforms
 into and out of the T spectrum layout, and the fusion tier (dsc.compile
 as CUDA graphs, dsc.map as generated kernels) with the STFT and
-OverlapSave models, and the FFT-shaped model tier (welch, cwt,
-ShortTimeFFT and the rest of psd, stft_scipy, multitaper, spectral, fir).
+OverlapSave models, the FFT-shaped model tier (welch, cwt,
+ShortTimeFFT and the rest of psd, stft_scipy, multitaper, spectral, fir)
+and the scipy.fft-parity transforms tier (exact-length Bluestein DFT,
+DCT/DST, FFTLog).
 
     python3 chip_smoke.py
 
@@ -116,9 +118,24 @@ Phases, each raising on failure (exit code 0 means all passed):
    just after it (REL_BOUND), at whatever shape and static arguments the
    model gave it.
 
+8. the transforms tier (dsc_tpu_torch.transforms), every call with the
+   counts set to 0 before it and held after it to the launches the FFT
+   core's rule gives its inner transforms (core_launches), each against
+   scipy.fft in float64 within 2e-4 of the largest value: fft of 1 x 10^6
+   complex64 (Bluestein, m = 2^21, K6 + K7), rfft of a minute of 48 kHz
+   float32 audio (2 880 000 samples, m = 2^23) and the irfft of that
+   spectrum, dct II ortho of (4096, 1000) (Bluestein m = 4096 over 4096
+   rows, K12), dctn II ortho of (2048, 2048) and its idctn (K12), dst IV of
+   (64, 2^16) (complex 2^17-point rows, K6 + K7), fht and ifht of
+   (16, 4096) (K12) and the irfft at n = 2^22 of one half spectrum (K11 +
+   K6 + K7); every kernel launch held to its plain version (REL_BOUND);
+   then each call's host time (median of 25), its device time by kernel
+   against the plain passes and its busy share (torch.profiler over 10
+   calls).
+
 The last lines are the kernels' JSON record (its ``launches_by_path``
-holds each path's launches, 'models' among them), the card line and the
-result line. Without a CUDA device the script exits non-zero before any of
+holds each path's launches, 'models' and 'transforms' among them), the
+card line and the result line. Without a CUDA device the script exits non-zero before any of
 them.
 
     python3 chip_smoke.py --profile
@@ -156,6 +173,10 @@ runs phases 1-2 and then phase 6 alone.
 
 runs phases 1-2, phase 3's checks at the model tier's launch shapes and
 phase 7 alone.
+
+    python3 chip_smoke.py --transforms
+
+runs phases 1-2 and phase 8 alone.
 
     python3 chip_smoke.py --map-candidates TREE [TREE ...]
 
@@ -1035,15 +1056,28 @@ def fusion_phase(dsc, card: str, compare, timed) -> dict:
     sigs = {'1 x 2^20': gen.standard_normal(2**20).astype(np.float32),
             '16 x 2^18': gen.standard_normal((16, 2**18)).astype(np.float32)}
     tens = {what: dsc.from_numpy(v) for what, v in sigs.items()}
-    with dsc.profile(trace, serve=False, xprof_dir=xprof):
-        got = {what: counted(lambda t=t: st(t), f'STFT {what}')[0] for what, t in tens.items()}
-    with open(trace) as f:
-        events = json.load(f)['traceEvents']
-    n_stft = sum(ev.get('name') == 'stft' and ev.get('ph') == 'B' for ev in events)
-    k12 = [ev for ev in events if ev.get('pid', 0) >= 1 << 22 and 'base_fft_kernel' in
-           ev.get('name', '')]
-    print(f'  STFT trace ({trace}): {len(events)} events, {n_stft} stft op events, '
-          f'{len(k12)} K12 device events')
+    # torch.profiler now and then drops a device event (device_profile);
+    # a trace that lacks K12's is taken again from the same two calls,
+    # uncounted, at most twice
+    for attempt in range(3):
+        with dsc.profile(trace, serve=False, xprof_dir=xprof):
+            if attempt == 0:
+                got = {what: counted(lambda t=t: st(t), f'STFT {what}')[0]
+                       for what, t in tens.items()}
+            else:
+                for t in tens.values():
+                    st(t)
+                torch.cuda.synchronize()
+        with open(trace) as f:
+            events = json.load(f)['traceEvents']
+        n_stft = sum(ev.get('name') == 'stft' and ev.get('ph') == 'B' for ev in events)
+        k12 = [ev for ev in events if ev.get('pid', 0) >= 1 << 22 and 'base_fft_kernel' in
+               ev.get('name', '')]
+        print(f'  STFT trace ({trace}): {len(events)} events, {n_stft} stft op events, '
+              f'{len(k12)} K12 device events')
+        if len(k12) >= 2:
+            break
+        print('  torch.profiler lost K12 device events of the STFT trace, tracing again')
     require(n_stft == 2 and len(k12) >= 2, 'the STFT trace lacks op or K12 device events')
     for what, sig in sigs.items():
         # the power, exp(log(p + eps)) - eps, held as tests/test_models.py
@@ -1396,6 +1430,148 @@ def models_phase(dsc, card: str, compare) -> dict:
     return launches
 
 
+def core_launches(steps) -> dict:
+    """The launches the FFT core's calls ``steps`` make on the card by its
+    own rule (fourier/core.py, config.py): each step (kind, batch, n) one
+    fft_batched ('c2c'), rfft_batched ('r2c') or irfft_batched ('c2r') of
+    float32/complex64 rows. Streamed rows take K6 + K7 (a single c2r row
+    K11 first, where the kernel takes its size); the plain core launches
+    K12 once for each complex64 base case of its plan (the half-size plan
+    of a real transform up to plan.RFFT_PACK_MAX)."""
+    from dsc_tpu_torch.fourier import config, plan, reconstruct
+
+    def k12(spec):
+        if spec[0] == 'base':
+            return int(config.use_base_kernel(np.complex64, spec[1]))
+        return k12(spec[3]) + k12(spec[4])
+
+    want = dict.fromkeys(KERNELS, 0)
+    for kind, batch, n in steps:
+        real = kind != 'c2c'
+        one_row = torch.empty((batch, 0), dtype=torch.complex64, device='meta')
+        if kind == 'c2r' and n > plan.RFFT_PACK_MAX:
+            want['reconstruct'] += int(reconstruct.kernel_takes(one_row, n))
+        if config.core_streams(batch, n, real):
+            want['stream_phase_a'] += 1
+            want['stream_phase_b'] += 1
+        else:
+            half = real and n <= plan.RFFT_PACK_MAX
+            want['base_fft'] += k12(plan.build_spec(max(n // 2, 1) if half else n))
+    return {name: count for name, count in want.items() if count}
+
+
+def transforms_phase(dsc, card: str, compare) -> dict:
+    """Phase 8: the scipy.fft-parity tier (dsc_tpu_torch.transforms) at full
+    size, each call against scipy.fft in float64 within 2e-4 of the largest
+    value (tests/test_transforms.py ``_close``), with every launch count set
+    to 0 just before it and held to the core's routing just after
+    (core_launches), and every kernel launch held to its plain version
+    (held_launches). Then each call's host time, its device time by kernel
+    and the device's busy share. Returns the launches of each kernel over
+    the phase."""
+    import scipy.fft as sft
+
+    import dsc_tpu_torch.transforms as tf
+    from dsc_tpu_torch.kernels import build
+
+    print(f'phase 8: the transforms tier: Bluestein fft, rfft -> irfft, dct, dctn -> idctn, '
+          f'dst IV, fht -> ifht, a streamed irfft [{card}]')
+    gen = np.random.default_rng(8)
+    launches = dict.fromkeys(KERNELS, 0)
+    current = ['']
+
+    def f64(t):
+        a = t.numpy()
+        return a.astype(np.complex128 if np.iscomplexobj(a) else np.float64)
+
+    def run(what, fn, steps, ref):
+        """One call with the counts set to 0 before it and held to the
+        core's routing of ``steps`` after it; the result against ``ref``
+        within 2e-4 of its largest value."""
+        current[0] = what
+        build.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {name: count for name, count in build.launches.items() if count}
+        for name, count in got.items():
+            launches[name] += count
+        res = f64(out)
+        require(res.shape == ref.shape and bool(np.isfinite(res).all()),
+                f'{what}: shape {res.shape} (want {ref.shape}) or not finite')
+        err = float(np.abs(res - ref).max() / np.abs(ref).max())
+        want = core_launches(steps)
+        print(f'  {what}: {err:.3e} (rel, bound 2e-4), launches {got} [{card}]')
+        require(err <= 2e-4, f'{what}: {err} > 2e-4')
+        require(got == want, f'{what}: launches {got}, routing says {want}')
+        return out
+
+    z1 = (gen.standard_normal(10**6) + 1j * gen.standard_normal(10**6)).astype(np.complex64)
+    audio = gen.standard_normal(2_880_000).astype(np.float32)  # a minute at 48 kHz
+    x3 = gen.standard_normal((4096, 1000)).astype(np.float32)
+    x4 = gen.standard_normal((2048, 2048)).astype(np.float32)
+    x5 = gen.standard_normal((64, 2**16)).astype(np.float32)
+    x6 = gen.standard_normal((16, 4096)).astype(np.float32)
+    h7 = (gen.standard_normal(2**21 + 1) + 1j * gen.standard_normal(2**21 + 1)).astype(
+        np.complex64)
+    t1, ta, t3, t4, t5, t6, t7 = (dsc.from_numpy(a) for a in (z1, audio, x3, x4, x5, x6, h7))
+    dln, mu = 0.05, 0.5  # benchmarks/tpu_smoke.py:471-476
+    off = tf.fhtoffset(dln, mu)
+    na = audio.size
+    m1, m2 = 2**21, 2**23  # the Bluestein sizes of 10^6 and 2 880 000 points
+    # (what, call of the previous row's result, the core's calls, scipy.fft
+    # of the previous row's result in float64): an inverse row takes the
+    # forward row's result
+    rows = [
+        ('T1 fft 1 x 10^6 complex64 (Bluestein m = 2^21)', lambda _: tf.fft(t1),
+         [('c2c', 1, m1)] * 2, lambda _: sft.fft(z1.astype(np.complex128))),
+        ('T2 rfft 2 880 000 float32 (Bluestein m = 2^23)', lambda _: tf.rfft(ta),
+         [('c2c', 1, m2)] * 2, lambda _: sft.rfft(audio.astype(np.float64))),
+        ('T2 irfft n = 2 880 000 of that spectrum', lambda s: tf.irfft(s, n=na),
+         [('c2c', 1, m2)] * 2, lambda s64: sft.irfft(s64, n=na)),
+        ('T3 dct II ortho (4096, 1000) (rdft of 2000, Bluestein m = 4096)',
+         lambda _: tf.dct(t3, type=2, norm='ortho'), [('c2c', 4096, 4096)] * 2,
+         lambda _: sft.dct(x3.astype(np.float64), type=2, norm='ortho')),
+        ('T4 dctn II ortho (2048, 2048) (real 4096-point rows)',
+         lambda _: tf.dctn(t4, type=2, norm='ortho'), [('r2c', 2048, 4096)] * 2,
+         lambda _: sft.dctn(x4.astype(np.float64), type=2, norm='ortho')),
+        ('T4 idctn II ortho of that', lambda s: tf.idctn(s, type=2, norm='ortho'),
+         [('c2c', 2048, 4096)] * 2, lambda s64: sft.idctn(s64, type=2, norm='ortho')),
+        ('T5 dst IV (64, 2^16) (complex 2^17-point rows)', lambda _: tf.dst(t5, type=4),
+         [('c2c', 64, 2**17)], lambda _: sft.dst(x5.astype(np.float64), type=4)),
+        (f'T6 fht (16, 4096) dln {dln} mu {mu} offset fhtoffset',
+         lambda _: tf.fht(t6, dln, mu, offset=off), [('r2c', 16, 4096), ('c2r', 16, 4096)],
+         lambda _: sft.fht(x6.astype(np.float64), dln, mu, offset=off)),
+        ('T6 ifht of that', lambda s: tf.ifht(s, dln, mu, offset=off),
+         [('r2c', 16, 4096), ('c2r', 16, 4096)],
+         lambda s64: sft.ifht(s64, dln, mu, offset=off)),
+        ('T7 irfft n = 2^22 of one complex64 half spectrum (K11 + K6 + K7)',
+         lambda _: tf.irfft(t7, n=2**22), [('c2r', 1, 2**22)],
+         lambda _: sft.irfft(h7.astype(np.complex128), n=2**22)),
+    ]
+    timed_rows = []
+    with held_launches(compare, lambda: current[0]):
+        prev = None
+        for what, call, steps, ref_of in rows:
+            fn = (lambda call=call, src=prev: call(src))
+            ref = ref_of(None if prev is None else f64(prev))
+            prev = run(what, fn, steps, ref)
+            timed_rows.append((what, fn))
+    for name in ('base_fft', 'stream_phase_a', 'stream_phase_b', 'reconstruct'):
+        require(launches[name] > 0, f'kernel {name} was not launched by the transforms tier')
+    # host clock (median of 25 after 0.25 s), device time by kernel and busy
+    # share (torch.profiler over 10 calls)
+    for what, fn in timed_rows:
+        wall = host_ms(fn)
+        rows_, _ = device_profile(fn, what, steps=10)
+        busy = print_profile(rows_, what, wall, card, 10)
+        ours = sum(r[0] for r in rows_ if any(part in r[2] for part in PORT_KERNEL_NAMES))
+        print(f'  {what}: {wall:.4f} ms a call, device {busy:.4f} ms, busy share '
+              f'{busy / wall:.3f}; the port\'s kernels {ours:.4f} ms, plain passes (chirp '
+              f'products, pads, slices, untangle, copies) {busy - ours:.4f} ms [{card}]')
+    print(f'  launches on the transforms path: {launches} [{card}]')
+    return launches
+
+
 def fft_ops(n: int, points: int) -> float:
     """Flops of complex FFTs of ``points`` points over ``n`` values in all
     (5 N log2 N each)."""
@@ -1415,6 +1591,8 @@ def main() -> int:
     parser.add_argument('--models', action='store_true',
                         help='run the model-shape kernel checks of phase 3 and phase 7 (the '
                              'model tier) alone after the build')
+    parser.add_argument('--transforms', action='store_true',
+                        help='run phase 8 (the transforms tier) alone after the build')
     parser.add_argument('--map-candidates', nargs='+', metavar='TREE',
                         help='time K5 of each tree (a checkout of the port) in turns, '
                              'in place of the checks')
@@ -1521,6 +1699,9 @@ def main() -> int:
     if args.models:
         model_shape_checks(compare, normal, cnormal)
         models_phase(dsc, card, compare)
+        return 0
+    if args.transforms:
+        transforms_phase(dsc, card, compare)
         return 0
 
     # -- 3. kernels vs plain versions --------------------------------------
@@ -2158,6 +2339,11 @@ def main() -> int:
     model_launches = models_phase(dsc, card, compare)
     for name in KERNELS:
         by_path[name]['models'] = model_launches[name]
+
+    # -- 8. the transforms tier -----------------------------------------------
+    transform_launches = transforms_phase(dsc, card, compare)
+    for name in KERNELS:
+        by_path[name]['transforms'] = transform_launches[name]
 
     # the main path's shape of each kernel: the filterFFT at n = 2^21 for the
     # packed passes, the n = 4096 pair's 2048 x 1 for K12, bench's fma for K5,

@@ -20,7 +20,9 @@ tier (fuse.py): ``dsc.compile`` captures one CUDA graph per argument
 signature, and ``dsc.map`` runs an elementwise function as one generated
 streaming kernel, K5g (ops/map_gen.py). The window generators
 (windows.py), ``profile(xprof_dir=)`` and the FilterFFT, OverlapSave and
-STFT models ride them. ROADMAP.md lists what remains.
+STFT models ride them. The scipy.fft-parity tier (exact-length FFTs by
+Bluestein, DCT/DST, FFTLog) is a subpackage of its own, not imported
+here: ``import dsc_tpu_torch.transforms``. ROADMAP.md lists what remains.
 """
 
 from . import models, windows

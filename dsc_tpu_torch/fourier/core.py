@@ -163,6 +163,8 @@ def irfft_batched(x: torch.Tensor, spec: Tuple, tables: Any, n: int,
     if wu is None:
         full = reconstruct.reconstruct_spectrum(x, n)
         return fft_apply(torch.conj_physical(full), spec, w_tables).real / n
+    if nh == 0:
+        return x.real.contiguous()
     b = x.shape[0]
     z = entangle(x, wu[:nh])
     y = torch.conj_physical(fft_apply(torch.conj_physical(z), spec, w_tables)) / nh

@@ -764,3 +764,42 @@ def test_model_on_the_card_against_the_cpu(case):
     assert out.shape == ref.shape and out.dtype == ref.dtype
     assert np.isfinite(out).all()
     assert np.abs(out - ref).max() <= REL * np.abs(ref).max()
+
+
+def _transforms_cases():
+    import scipy.fft as sft
+
+    import dsc_tpu_torch.transforms as tf
+
+    rng = np.random.default_rng(41)
+    z = (rng.standard_normal(10**6) + 1j * rng.standard_normal(10**6)).astype(np.complex64)
+    x = rng.standard_normal((64, 1000)).astype(np.float32)
+    # (call of nothing returning a Tensor, scipy.fft float64 reference, kernels it launches)
+    return {
+        'fft 1 x 10^6 (Bluestein m = 2^21)': (
+            lambda: tf.fft(dt.from_numpy(z)), lambda: sft.fft(z.astype(np.complex128)),
+            {'stream_phase_a': 2, 'stream_phase_b': 2}),
+        'dct II ortho (64, 1000) (Bluestein m = 4096)': (
+            lambda: tf.dct(dt.from_numpy(x), type=2, norm='ortho'),
+            lambda: sft.dct(x.astype(np.float64), type=2, norm='ortho'), {'base_fft': 2}),
+    }
+
+
+@pytest.mark.parametrize('case', ['fft 1 x 10^6 (Bluestein m = 2^21)',
+                                  'dct II ortho (64, 1000) (Bluestein m = 4096)'])
+def test_transforms_on_the_card(case):
+    """The transforms tier's Bluestein rows on the card: the kernels the
+    core's rule gives them, within 2e-4 of scipy.fft in float64 and within
+    REL of the same call on the CPU."""
+    fn, ref, kernels = _transforms_cases()[case]
+    build.reset_launches()
+    got = fn()
+    torch.cuda.synchronize()
+    assert got.device.type == 'cuda'
+    assert {name: count for name, count in build.launches.items() if count} == kernels
+    out, want = got.numpy(), ref()
+    assert np.isfinite(out).all()
+    assert np.abs(out - want).max() <= 2e-4 * np.abs(want).max()
+    cpu = _on_cpu(lambda: fn().numpy())
+    assert out.dtype == cpu.dtype
+    assert np.abs(out - cpu).max() <= REL * np.abs(cpu).max()
