@@ -4,9 +4,10 @@ elementwise tier, the batched FFT suite, the single-vector transforms
 into and out of the T spectrum layout, and the fusion tier (dsc.compile
 as CUDA graphs, dsc.map as generated kernels) with the STFT and
 OverlapSave models, the FFT-shaped model tier (welch, cwt,
-ShortTimeFFT and the rest of psd, stft_scipy, multitaper, spectral, fir)
-and the scipy.fft-parity transforms tier (exact-length Bluestein DFT,
-DCT/DST, FFTLog).
+ShortTimeFFT and the rest of psd, stft_scipy, multitaper, spectral, fir),
+the scipy.fft-parity transforms tier (exact-length Bluestein DFT,
+DCT/DST, FFTLog) and the IIR recurrence (sosfilt, lfilter, sosfiltfilt,
+decimate).
 
     python3 chip_smoke.py
 
@@ -133,9 +134,26 @@ Phases, each raising on failure (exit code 0 means all passed):
    against the plain passes and its busy share (torch.profiler over 10
    calls).
 
+9. the IIR recurrence (models/iir.py), every call with the counts set to
+   0 before it and held after it, each against scipy.signal in float64 with
+   the JAX package's bounds: sosfilt(butter(4, 0.25)) of 1 x 2^22 and 8 x
+   2^20 (the sosfilt rows of benchmarks/results_models.json) and lfilter of
+   the same filter in 'ba' form at 2^22 (1e-4; no kernel: the recurrence is
+   matrix products), sosfiltfilt of 2^22 (1e-4), decimate(q 4) of 2^22 with
+   ftype 'iir' (1e-3) and 'fir' (2e-6; its FFT convolution's launches held
+   to the core's rule and each to its plain version, REL_BOUND); sosfilt at
+   2^22 once more with allow_tf32 = True set by the phase, and the error the
+   TF32 products would give without the guard; 'sequential' against
+   'parallel' at 4096 with the sequential call's time; sosfilt -> welch
+   (nperseg 256) of 4 x 4096 under dsc.compile against scipy and within
+   1e-6 of the eager chain, cudaLaunchKernel 0 over 20 replays; then each
+   full-size row's host time (median of 25), device time by kernel and op
+   (torch.profiler over 10 calls), busy share, the Toeplitz products'
+   bound, peak device memory and the constant cache's size.
+
 The last lines are the kernels' JSON record (its ``launches_by_path``
-holds each path's launches, 'models' and 'transforms' among them), the
-card line and the result line. Without a CUDA device the script exits non-zero before any of
+holds each path's launches, 'models', 'transforms' and 'recurrence' among
+them), the card line and the result line. Without a CUDA device the script exits non-zero before any of
 them.
 
     python3 chip_smoke.py --profile
@@ -177,6 +195,10 @@ phase 7 alone.
     python3 chip_smoke.py --transforms
 
 runs phases 1-2 and phase 8 alone.
+
+    python3 chip_smoke.py --recurrence
+
+runs phases 1-2 and phase 9 alone.
 
     python3 chip_smoke.py --map-candidates TREE [TREE ...]
 
@@ -1572,6 +1594,210 @@ def transforms_phase(dsc, card: str, compare) -> dict:
     return launches
 
 
+def toeplitz_bound(batch: int, n: int, m: int, sections: int) -> tuple:
+    """(bound ms, 'bytes' or 'operations') of the Toeplitz products of
+    ``sections`` sections of order ``m`` over (batch, n) rows: 2 b n (256 +
+    m) flops a section over the float32 rate, against the bytes they move
+    (the chunked signal read, the (b n/256, 256 + m) product written, the
+    (256, 256 + m) weights read) over the memory rate."""
+    chunks = batch * -(-n // 256)
+    flops = sections * 2.0 * chunks * 256 * (256 + m)
+    n_bytes = sections * 4.0 * (chunks * 256 + chunks * (256 + m) + 256 * (256 + m))
+    t_ops, t_bytes = flops / PEAK_F32_S * 1e3, n_bytes / PEAK_BYTES_S * 1e3
+    return max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes'
+
+
+def recurrence_phase(dsc, card: str, compare) -> dict:
+    """Phase 9: the IIR recurrence (models/iir.py) at the size of the sosfilt
+    rows of benchmarks/results_models.json, each call against scipy.signal
+    in float64 with the JAX package's bounds, with every launch count set
+    to 0 just before it and held just after (no kernel, but decimate's 'fir'
+    FFT convolution, whose launches are held to the core's rule and each to
+    its plain version); TF32 allowed by the caller; 'sequential' against
+    'parallel'; sosfilt -> welch under dsc.compile. Then each full-size
+    row's host time, device time by kernel and op, busy share, bound and
+    the device memory it holds. Returns the launches of each kernel."""
+    import scipy.signal as sps
+
+    from dsc_tpu_torch import models as M
+    from dsc_tpu_torch.kernels import build
+    from dsc_tpu_torch.models import iir
+
+    print(f'phase 9: the IIR recurrence: sosfilt, lfilter, sosfiltfilt, decimate at 2^22 '
+          f'[{card}]')
+    gen = np.random.default_rng(9)
+    launches = dict.fromkeys(KERNELS, 0)
+    current = ['']
+
+    def f64(v):
+        return v.numpy().astype(np.float64)
+
+    def run(what, fn, ref, bound, want=None):
+        """One call with the counts set to 0 before it and held to ``want``
+        (no launch by default) after it; the result within ``bound`` of the
+        largest |ref|."""
+        current[0] = what
+        build.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {name: count for name, count in build.launches.items() if count}
+        for name, count in got.items():
+            launches[name] += count
+        res = f64(out[0] if isinstance(out, tuple) else out)
+        require(res.shape == ref.shape and bool(np.isfinite(res).all()),
+                f'{what}: shape {res.shape} (want {ref.shape}) or not finite')
+        err = float(np.abs(res - ref).max() / np.abs(ref).max())
+        print(f'  {what}: {err:.3e} (rel, bound {bound:g}), launches {got} [{card}]')
+        require(err <= bound, f'{what}: {err} > {bound}')
+        require(got == (want or {}), f'{what}: launches {got}, want {want or {}}')
+        return out
+
+    sos = M.butter(4, 0.25)
+    b, a = M.butter(4, 0.25, output='ba')
+    x22 = gen.standard_normal(2**22).astype(np.float32)
+    x8 = gen.standard_normal((8, 2**20)).astype(np.float32)
+    t22, t8 = dsc.from_numpy(x22), dsc.from_numpy(x8)
+    x22_64, x8_64 = x22.astype(np.float64), x8.astype(np.float64)
+    sosfilt22 = sps.sosfilt(sos, x22_64)
+    fir_steps = [('r2c', 1, 2**23)] * 2 + [('c2r', 1, 2**23)]  # resample_poly's, fft_n 2^23
+    rows = [  # (what, call, batch, length, order, sections)
+        ('sosfilt butter(4, 0.25) 1 x 2^22', lambda: M.sosfilt(sos, t22), 1, 2**22, 2, 2),
+        ('sosfilt butter(4, 0.25) 8 x 2^20', lambda: M.sosfilt(sos, t8), 8, 2**20, 2, 2),
+        ("lfilter butter(4, 0.25) 'ba' 1 x 2^22", lambda: M.lfilter(b, a, t22), 1, 2**22, 4,
+         1),
+        ('sosfiltfilt butter(4, 0.25) 1 x 2^22', lambda: M.sosfiltfilt(sos, t22), 1,
+         2**22 + 30, 2, 4),
+        ("decimate q 4 'iir' 1 x 2^22 (cheby1(8), sosfiltfilt)",
+         lambda: M.decimate(t22, 4), 1, 2**22 + 54, 2, 8),
+        ("decimate q 4 'fir' 1 x 2^22 (81 taps, resample_poly)",
+         lambda: M.decimate(t22, 4, ftype='fir'), 1, 2**22, 0, 0)]
+    refs = [sosfilt22, sps.sosfilt(sos, x8_64, axis=-1), sps.lfilter(b, a, x22_64),
+            sps.sosfiltfilt(sos, x22_64), sps.decimate(x22_64, 4),
+            sps.decimate(x22_64, 4, ftype='fir')]
+    # the JAX package's bounds (tests/test_iir.py): sosfilt and lfilter 1e-4,
+    # sosfiltfilt 1e-4 here, decimate 'iir' 1e-3 and 'fir' 2e-6
+    bounds = [1e-4, 1e-4, 1e-4, 1e-4, 1e-3, 2e-6]
+    with held_launches(compare, lambda: current[0]):
+        for (what, fn, *_), ref, bound in zip(rows, refs, bounds):
+            want = core_launches(fir_steps) if "'fir'" in what else None
+            run(f'{what} vs scipy.signal float64', fn, ref, bound, want)
+            held_mib = sum(t.numel() * 4 for entry in iir._PLAN_CACHE.values()
+                           for t in _tensors_in(entry)) / 2**20
+            print(f'    the constant cache after it: {len(iir._PLAN_CACHE)} entries, '
+                  f'{held_mib:.3f} MiB on the device')
+    require(all(launches[k] > 0 for k in ('stream_phase_a', 'stream_phase_b')),
+            "decimate 'fir' launched no FFT kernel")
+
+    # TF32 allowed by the caller: the recurrence still runs in full float32,
+    # and the caller's setting is as it was after the call
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_tf32 = True
+    try:
+        run('sosfilt 1 x 2^22 with allow_tf32 = True vs scipy.signal float64',
+            lambda: M.sosfilt(sos, t22), sosfilt22, 1e-4)
+        require(matmul.allow_tf32 is True, 'sosfilt changed the caller\'s allow_tf32')
+        # what the guard prevents, measured once: the same call with TF32 on
+        with contextlib.ExitStack() as stack:
+            saved = iir._full_f32
+            iir._full_f32 = contextlib.nullcontext
+            stack.callback(setattr, iir, '_full_f32', saved)
+            raw = f64(M.sosfilt(sos, t22))
+        print(f'  the same call with TF32 on the products (the guard removed): '
+              f'{float(np.abs(raw - sosfilt22).max() / np.abs(sosfilt22).max()):.3e} '
+              f'(rel) [{card}]')
+    finally:
+        matmul.allow_tf32 = False
+
+    # 'sequential' (the exact step, a loop over time) against 'parallel'
+    x4k = gen.standard_normal(4096).astype(np.float32)
+    t4k = dsc.from_numpy(x4k)
+    par = run('sosfilt 4096 parallel vs scipy.signal float64', lambda: M.sosfilt(sos, t4k),
+              sps.sosfilt(sos, x4k.astype(np.float64)), 1e-4)
+    seq = run('sosfilt 4096 sequential vs parallel',
+              lambda: M.sosfilt(sos, t4k, method='sequential'), f64(par), 1e-4)
+    seq_ms = host_ms(lambda: M.sosfilt(sos, t4k, method='sequential'), runs=5)
+    par_ms = host_ms(lambda: M.sosfilt(sos, t4k))
+    print(f'  sosfilt 4096: sequential {seq_ms:.3f} ms a call (median of 5), parallel '
+          f'{par_ms:.4f} ms (median of 25) [{card}]')
+    del seq
+
+    # sosfilt -> welch under dsc.compile: one captured graph, no host launch
+    xw = gen.standard_normal((4, 4096)).astype(np.float32)
+    sos3 = M.butter(4, 0.3)
+
+    def pipe(s):
+        return M.welch(M.sosfilt(sos3, s), nperseg=256)[1]
+
+    compiled = dsc.compile(pipe)
+    tw = dsc.from_numpy(xw)
+    want_w = {k: 2 * v for k, v in core_launches([('r2c', 4 * 31, 256)]).items()}
+    got_w = run('compiled sosfilt -> welch(nperseg 256) 4 x 4096 vs scipy float64, trace + '
+                'capture', lambda: compiled(tw), sps.welch(sps.sosfilt(
+                    sos3, xw.astype(np.float64), axis=-1), nperseg=256, axis=-1)[1], 2e-4,
+                want_w)
+    eager_w = pipe(tw)
+    e = rel_err(got_w.torch, eager_w.torch)
+    print(f'  the replay vs the eager chain: {e:.3e} (rel, bound 1e-6)')
+    require(e <= 1e-6, f'compiled sosfilt -> welch vs eager: {e}')
+    require(compiled.n_programs == 1, 'compiled sosfilt -> welch: more than one program')
+    rows_w, prof = device_profile(lambda: compiled(tw), 'compiled sosfilt -> welch')
+    host = {ev.key: ev.count for ev in prof.key_averages()}
+    print(f'  compiled sosfilt -> welch, 20 replays: host calls cudaGraphLaunch '
+          f'{host.get("cudaGraphLaunch", 0)}, cudaLaunchKernel {host.get("cudaLaunchKernel", 0)}')
+    require(host.get('cudaGraphLaunch', 0) == 20 and host.get('cudaLaunchKernel', 0) == 0,
+            'compiled sosfilt -> welch: kernels launched from the host between the graph\'s')
+    wall, eager_wall = host_ms(lambda: compiled(tw)), host_ms(lambda: pipe(tw))
+    busy = print_profile(rows_w, 'compiled sosfilt -> welch 4 x 4096', wall, card)
+    eager_busy = print_profile(device_profile(lambda: pipe(tw), 'eager sosfilt -> welch')[0],
+                               'eager sosfilt -> welch 4 x 4096', eager_wall, card)
+    print(f'  sosfilt -> welch 4 x 4096: compiled {wall:.4f} ms (busy {busy / wall:.3f}), '
+          f'eager {eager_wall:.4f} ms (busy {eager_busy / eager_wall:.3f}) [{card}]')
+
+    # the full-size rows: host clock, device time by kernel and op over 10
+    # calls, busy share, the Toeplitz products' bound, peak device memory
+    for what, fn, batch, n, m, sections in rows:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        wall = host_ms(fn)
+        rows_, prof = device_profile(fn, what, steps=10)
+        busy = print_profile(rows_, what, wall, card, 10)
+        if what.startswith('sosfilt') and batch == 1:
+            # where the host time goes: the torch ops by their own CPU time
+            # (under the profiler, which adds its own), largest first
+            events = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
+            cpu = sorted(((e.self_cpu_time_total / 10 / 1e3, e.count // 10, e.key)
+                          for e in events), reverse=True)[:12]
+            print(f'  {what}, host: {sum(e.count for e in events) // 10} profiled host calls a '
+                  f'call (aten ops, views and CUDA runtime calls); by self CPU time a call under '
+                  f'the profiler ({sum(r[0] for r in cpu):.4f} ms in these 12):')
+            for ms, count, key in cpu:
+                print(f'    {ms:9.4f} ms  x{count:<3d} {key[:80]}')
+        mm = sum(r[0] for r in rows_ if 'gemm' in r[2].lower() or 'gemv' in r[2].lower())
+        line = (f'  {what}: {wall:.4f} ms a call, device {busy:.4f} ms, busy share '
+                f'{busy / wall:.3f}, {sum(r[1] for r in rows_)} kernels and copies a call; '
+                f'matrix products (cuBLAS gemm/gemv) {mm:.4f} ms; peak device memory above the '
+                f'input {peak:.1f} MiB')
+        if sections:
+            bound, bound_by = toeplitz_bound(batch, n, m, sections)
+            line += f'; bound of the Toeplitz products {bound:.4f} ms ({bound_by})'
+        print(line + f' [{card}]')
+    print(f'  launches on the recurrence path: {launches} [{card}]')
+    return launches
+
+
+def _tensors_in(entry):
+    """The torch tensors of a cache entry of models/iir.py (nested tuples)."""
+    if isinstance(entry, torch.Tensor):
+        return [entry]
+    if isinstance(entry, (tuple, list)):
+        return [t for e in entry for t in _tensors_in(e)]
+    return []
+
+
 def fft_ops(n: int, points: int) -> float:
     """Flops of complex FFTs of ``points`` points over ``n`` values in all
     (5 N log2 N each)."""
@@ -1593,6 +1819,8 @@ def main() -> int:
                              'model tier) alone after the build')
     parser.add_argument('--transforms', action='store_true',
                         help='run phase 8 (the transforms tier) alone after the build')
+    parser.add_argument('--recurrence', action='store_true',
+                        help='run phase 9 (the IIR recurrence) alone after the build')
     parser.add_argument('--map-candidates', nargs='+', metavar='TREE',
                         help='time K5 of each tree (a checkout of the port) in turns, '
                              'in place of the checks')
@@ -1702,6 +1930,9 @@ def main() -> int:
         return 0
     if args.transforms:
         transforms_phase(dsc, card, compare)
+        return 0
+    if args.recurrence:
+        recurrence_phase(dsc, card, compare)
         return 0
 
     # -- 3. kernels vs plain versions --------------------------------------
@@ -2344,6 +2575,11 @@ def main() -> int:
     transform_launches = transforms_phase(dsc, card, compare)
     for name in KERNELS:
         by_path[name]['transforms'] = transform_launches[name]
+
+    # -- 9. the IIR recurrence ------------------------------------------------
+    recurrence_launches = recurrence_phase(dsc, card, compare)
+    for name in KERNELS:
+        by_path[name]['recurrence'] = recurrence_launches[name]
 
     # the main path's shape of each kernel: the filterFFT at n = 2^21 for the
     # packed passes, the n = 4096 pair's 2048 x 1 for K12, bench's fma for K5,

@@ -19,7 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import tracing
+from .. import capture, tracing
 from ..fourier import core as fft_core
 from ..fourier import plan as fft_plan
 from ..tensor import Tensor
@@ -55,12 +55,18 @@ def _make_window(window, frame: int) -> np.ndarray:
 
 def _device_array(host: np.ndarray, like: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A host array (a window, taper, weights or taps) on ``like``'s device,
-    else on the context's."""
+    else on the context's. Inside a ``dsc.compile`` function it is a
+    constant of the program, which a CUDA graph's capture copies on the
+    device where it could not upload from the host."""
     if like is not None:
-        return torch.from_numpy(host).to(like.device)
-    from ..context import device
+        dev = like.device
+    else:
+        from ..context import device
 
-    return torch.from_numpy(host).to(device())
+        dev = device()
+    if capture.current() is None:
+        return torch.from_numpy(host).to(dev)
+    return capture.created(lambda: Tensor._from_torch(torch.from_numpy(host).to(dev))).torch
 
 
 def _fft_convolve_rows(x: torch.Tensor, h: torch.Tensor, fft_n: int) -> torch.Tensor:

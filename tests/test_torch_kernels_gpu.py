@@ -803,3 +803,52 @@ def test_transforms_on_the_card(case):
     cpu = _on_cpu(lambda: fn().numpy())
     assert out.dtype == cpu.dtype
     assert np.abs(out - cpu).max() <= REL * np.abs(cpu).max()
+
+
+@pytest.mark.parametrize('fn', ['sosfilt', 'lfilter'])
+def test_recurrence_on_the_card_against_scipy(fn):
+    """sosfilt(butter(4, 0.25)) and lfilter of the same filter in 'ba' form
+    at 2^20 on the card (the Toeplitz ladder with its middle level): within
+    1e-4 of scipy.signal in float64 (tests/test_iir.py), with no kernel
+    launched and the caller's TF32 setting as it was."""
+    import scipy.signal as sps
+
+    from dsc_tpu_torch import models as M
+
+    x = np.random.default_rng(42).standard_normal(2**20).astype(np.float32)
+    sos = M.butter(4, 0.25)
+    args = (sos,) if fn == 'sosfilt' else M.butter(4, 0.25, output='ba')
+    allow = torch.backends.cuda.matmul.allow_tf32
+    build.reset_launches()
+    got = getattr(M, fn)(*args, dt.from_numpy(x))
+    torch.cuda.synchronize()
+    assert got.device.type == 'cuda' and not any(build.launches.values())
+    assert torch.backends.cuda.matmul.allow_tf32 == allow
+    ref = sps.sosfilt(sos, x.astype(np.float64))
+    out = got.numpy()
+    assert np.isfinite(out).all() and np.abs(out - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+def test_sosfilt_welch_captured_against_eager():
+    """sosfilt -> welch(nperseg 256) of 4 x 4096 as one captured CUDA graph
+    (tests/test_iir.py::test_iir_psd_compose_under_compile): the replay
+    within 1e-6 of the eager chain and within 2e-4 of scipy float64."""
+    import scipy.signal as sps
+
+    from dsc_tpu_torch import models as M
+
+    x = np.random.default_rng(43).standard_normal((4, 4096)).astype(np.float32)
+    sos = M.butter(4, 0.3)
+
+    def pipe(s):
+        return M.welch(M.sosfilt(sos, s), nperseg=256)[1]
+
+    compiled = dt.compile(pipe)
+    t = dt.from_numpy(x)
+    compiled(t)
+    got = compiled(t).numpy()  # a replay
+    eager = pipe(t).numpy()
+    assert compiled.n_programs == 1
+    assert np.abs(got - eager).max() <= 1e-6 * np.abs(eager).max()
+    ref = sps.welch(sps.sosfilt(sos, x.astype(np.float64), axis=-1), nperseg=256, axis=-1)[1]
+    assert np.abs(got - ref).max() < 2e-4 * ref.max()
