@@ -6,8 +6,9 @@ as CUDA graphs, dsc.map as generated kernels) with the STFT and
 OverlapSave models, the FFT-shaped model tier (welch, cwt,
 ShortTimeFFT and the rest of psd, stft_scipy, multitaper, spectral, fir),
 the scipy.fft-parity transforms tier (exact-length Bluestein DFT,
-DCT/DST, FFTLog) and the IIR recurrence (sosfilt, lfilter, sosfiltfilt,
-decimate).
+DCT/DST, FFTLog), the IIR recurrence (sosfilt, lfilter, sosfiltfilt,
+decimate) and the affine-scan tier (dlsim, lsim, step, impulse, the
+splines).
 
     python3 chip_smoke.py
 
@@ -151,9 +152,30 @@ Phases, each raising on failure (exit code 0 means all passed):
    (torch.profiler over 10 calls), busy share, the Toeplitz products'
    bound, peak device memory and the constant cache's size.
 
+10. the affine-scan tier (models/statespace.py, splines.py: float64 on the
+   card, no kernel), every call with the counts set to 0 before it and held
+   at 0 after it, each against scipy.signal in float64: dlsim of the zoh
+   discretization (dt = 1e-3) of the analog butter(4, 2 pi 50), 4 states,
+   over 2^22 steps on the Tensor path (y against lfilter of the same
+   discrete system, x over the first 2^18 steps against dlsim, 1e-5) and
+   over 2^20 steps on the numpy path (dlsim, 1e-10); lsim (first-order
+   hold) over 10^6 times, step and impulse of N = 10^5 (1e-10); cspline1d
+   of 2^22 at lamb 0 and 1 and qspline1d of 2^22 (1e-6), and the cspline1d
+   program's float64 result on the card before its cast (1e-12); symiirorder1
+   (2, 0.5) and symiirorder2 (0.8, 1.2) of (64, 2^16) row by row (1e-6,
+   2e-6); cspline2d (lamb 0: 1e-5; lamb 5: 5e-3 and 5e-4 inside the
+   border), spline_filter (lamb 5) and sepfir2d (two 5-tap kernels, 1e-5)
+   of a 2048 x 2048 image; the smoothing cspline1d's host table build and
+   upload; then each full-size row's host time (median of 25; for the
+   smoothing cspline1d, whose host tables take seconds, its checked call),
+   device time by op (torch.profiler over 10 calls; 1), busy share, kernels
+   and copies a call, the checked call's peak device memory above the input,
+   the bound of its float64 array arguments and results over the memory
+   rate, and the host time of the checked call beside its scipy references'.
+
 The last lines are the kernels' JSON record (its ``launches_by_path``
-holds each path's launches, 'models', 'transforms' and 'recurrence' among
-them), the card line and the result line. Without a CUDA device the script exits non-zero before any of
+holds each path's launches, 'models', 'transforms', 'recurrence' and
+'scans' among them), the card line and the result line. Without a CUDA device the script exits non-zero before any of
 them.
 
     python3 chip_smoke.py --profile
@@ -199,6 +221,10 @@ runs phases 1-2 and phase 8 alone.
     python3 chip_smoke.py --recurrence
 
 runs phases 1-2 and phase 9 alone.
+
+    python3 chip_smoke.py --scans
+
+runs phases 1-2 and phase 10 alone.
 
     python3 chip_smoke.py --map-candidates TREE [TREE ...]
 
@@ -443,16 +469,16 @@ def filter_fft(dsc, sig, taps, n_taps: int, n: int = STEP_N):
     return dsc.irfft(spec)[: sig.shape[0] + n_taps - 1]
 
 
-def device_profile(fn, what: str, steps: int = 20):
+def device_profile(fn, what: str, steps: int = 20, tries: int = 3):
     """torch.profiler over ``steps`` calls of ``fn``: [(device ms per call,
     launches per call, kernel or copy name)], largest first, and the profile.
     No device event, or a kernel recorded a number of times that is no
     multiple of the calls, means the trace lost events: the calls are
-    profiled again."""
+    profiled again, at most ``tries`` times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for attempt in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
                 fn()
@@ -461,8 +487,9 @@ def device_profile(fn, what: str, steps: int = 20):
                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
         if events and all(e.count % steps == 0 for e in events):
             break
+        again = 'profiling again' if attempt + 1 < tries else 'kept as read'
         print(f'  torch.profiler lost events ({what}: '
-              f'{sorted(e.count for e in events)} over {steps} calls), profiling again')
+              f'{sorted(e.count for e in events)} over {steps} calls), {again}')
     rows = sorted(((e.self_device_time_total / steps / 1e3, e.count // steps, e.key)
                    for e in events), reverse=True)
     return rows, prof
@@ -1789,6 +1816,217 @@ def recurrence_phase(dsc, card: str, compare) -> dict:
     return launches
 
 
+def scans_phase(dsc, card: str) -> dict:
+    """Phase 10: the affine-scan tier (models/statespace.py, splines.py) at the
+    sizes a user of a state-space simulator or a spline smoother runs on one
+    card, every call against scipy.signal in float64, with the launch counts
+    set to 0 just before it and held at 0 just after (the tier reaches no
+    kernel); then each full-size row's host time, device time by op, busy
+    share, device launches a call, peak device memory above the input and the
+    bound of its float64 input and output bytes. Returns the launches of each
+    kernel (all 0)."""
+    import scipy.signal as sps
+
+    from dsc_tpu_torch import models as M
+    from dsc_tpu_torch.kernels import build
+    from dsc_tpu_torch.models import splines
+
+    print(f'phase 10: the affine-scan tier: dlsim, lsim, step, impulse, the splines [{card}]')
+    gen = np.random.default_rng(10)
+
+    # cuBLAS's handle and workspace, made by the first matrix product of a
+    # process, are not counted in the first row's peak
+    torch.ones((4, 4), dtype=torch.float64, device='cuda').matmul(
+        torch.ones((4, 4), dtype=torch.float64, device='cuda'))
+    t_phase = time.perf_counter()
+    first = {}   # row -> (host ms, peak device MiB above what was allocated before it)
+    ref_ms = {}  # row -> host ms of its scipy references
+
+    def run(what, fn):
+        """``fn()`` with the counts set to 0 before it; no kernel launched.
+        The call's host time and its peak device memory above what was
+        allocated before it are kept in ``first``."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        first[what] = (ms, (torch.cuda.max_memory_allocated() - base) / 2**20)
+        got = {name: count for name, count in build.launches.items() if count}
+        require(not got, f'{what}: launched {got}')
+        return out
+
+    def ref(what, fn):
+        """scipy's ``fn()``, its host time added to the row's in ``ref_ms``."""
+        t0 = time.perf_counter()
+        out = fn()
+        ref_ms[what] = ref_ms.get(what, 0.0) + 1e3 * (time.perf_counter() - t0)
+        return out
+
+    def check(what, got, ref, bound, tail=''):
+        """``got`` within ``bound`` of the largest |ref|, finite, as shaped."""
+        got = np.asarray(got.numpy() if isinstance(got, dsc.Tensor) else got, np.float64)
+        require(got.shape == ref.shape and bool(np.isfinite(got).all()),
+                f'{what}: shape {got.shape} (want {ref.shape}) or not finite')
+        err = float(np.abs(got - ref).max() / np.abs(ref).max())
+        print(f'  {what}: {err:.3e} (rel, bound {bound:g}){tail} [{card}]')
+        require(err <= bound, f'{what}: {err} > {bound}')
+
+    # the full-size rows: what -> (call, values of its array arguments, values
+    # of its array results, host runs). Each row's first call is the one that
+    # is checked against scipy, and gives its peak memory; the smoothing
+    # cspline1d builds its tables each call (seconds), so that first call is
+    # also its host time, and one more call its profile
+    ssc = M.tf2ss(*sps.butter(4, 2 * np.pi * 50, analog=True))
+    sysd = M.cont2discrete(ssc, 1e-3)
+    u22 = gen.standard_normal(2**22).astype(np.float32)
+    u22t = dsc.from_numpy(u22)
+    u20 = u22[:2**20].astype(np.float64)
+    t6 = np.arange(10**6) * 1e-4
+    U6 = gen.standard_normal(10**6)
+    b64 = gen.standard_normal((64, 2**16)).astype(np.float32)
+    b64t = dsc.from_numpy(b64)
+    im = gen.standard_normal((2048, 2048)).astype(np.float32)
+    imt, im64 = dsc.from_numpy(im), im.astype(np.float64)
+    hrow, hcol = np.array([1.0, 4.0, 6.0, 4.0, 1.0]) / 16, np.array([-1.0, 2.0, 5.0, 2.0, -1.0]) / 7
+    rows = {
+        'dlsim 4 states x 2^22, Tensor path': (lambda: M.dlsim(sysd, u22t), 2**22, 6 * 2**22,
+                                               RUNS),
+        'dlsim 4 states x 2^20, numpy path': (lambda: M.dlsim(sysd, u20), 2**20, 6 * 2**20,
+                                              RUNS),
+        'lsim foh 10^6 times': (lambda: M.lsim(ssc, U6, t6), 2 * 10**6, 6 * 10**6, RUNS),
+        'step N = 10^5': (lambda: M.step(ssc, N=10**5), 0, 2 * 10**5, RUNS),
+        'impulse N = 10^5': (lambda: M.impulse(ssc, N=10**5), 0, 2 * 10**5, RUNS),
+        'cspline1d lamb 0.0 2^22': (lambda: M.cspline1d(u22t), 2**22, 2**22, RUNS),
+        'cspline1d lamb 1.0 2^22': (lambda: M.cspline1d(u22t, 1.0), 2**22, 2**22, 1),
+        'qspline1d 2^22': (lambda: M.qspline1d(u22t), 2**22, 2**22, RUNS),
+        'symiirorder1 (64, 2^16)': (lambda: M.symiirorder1(b64t, 2.0, 0.5), 2**22, 2**22, RUNS),
+        'symiirorder2 (64, 2^16)': (lambda: M.symiirorder2(b64t, 0.8, 1.2), 2**22, 2**22, RUNS),
+        'cspline2d lamb 0 2048 x 2048': (lambda: M.cspline2d(imt, 0.0), 2**22, 2**22, RUNS),
+        'cspline2d lamb 5 2048 x 2048': (lambda: M.cspline2d(imt, 5.0), 2**22, 2**22, RUNS),
+        'spline_filter lamb 5 2048 x 2048': (lambda: M.spline_filter(imt, 5.0), 2**22, 2**22,
+                                             RUNS),
+        'sepfir2d 5 x 5 taps 2048 x 2048': (lambda: M.sepfir2d(imt, hrow, hcol), 2**22, 2**22,
+                                            RUNS)}
+
+    # dlsim: the zoh discretization of the analog butter(4, 2 pi 50) at 1 kHz
+    num, den = sps.ss2tf(*sysd[:4])
+    _, y_ref, x_ref = ref('dlsim 4 states x 2^20, numpy path',
+                          lambda: sps.dlsim(sysd, u20))  # a Python loop over 2^20 steps
+    what = 'dlsim 4 states x 2^22, Tensor path'
+    _, y, x = run(what, rows[what][0])
+    require(y.device.type == 'cuda' and x.dtype == dsc.Dtype.F32,
+            'dlsim Tensor path: results not float32 on the card')
+    check(f'{what}: y vs scipy.signal.lfilter float64', y.numpy()[:, 0],
+          ref(what, lambda: sps.lfilter(num[0], den, u22.astype(np.float64))), 1e-5)
+    check('  x, the first 2^18 steps, vs scipy.signal.dlsim', x.numpy()[:2**18],
+          x_ref[:2**18], 1e-5)
+    what = 'dlsim 4 states x 2^20, numpy path'
+    _, y, x = run(what, rows[what][0])
+    require(y.dtype == x.dtype == np.float64, 'dlsim numpy path: results not float64')
+    check(f'{what}: y vs scipy.signal.dlsim (the loop above)', y, y_ref, 1e-10)
+    check('  x', x, x_ref, 1e-10)
+    del y, x, x_ref, y_ref
+    what = 'lsim foh 10^6 times'
+    _, y, _ = run(what, rows[what][0])
+    check(f'{what} vs scipy.signal.lsim', y, ref(what, lambda: sps.lsim(ssc, U6, t6))[1], 1e-10)
+    for name in ('step', 'impulse'):
+        what = f'{name} N = 10^5'
+        t, y = run(what, rows[what][0])
+        t_ref, y_ref = ref(what, lambda name=name: getattr(sps, name)(ssc, N=10**5))
+        require(np.allclose(t, t_ref, rtol=1e-12, atol=0), f'{name}: horizon differs from scipy')
+        check(f'{what} vs scipy.signal.{name}', y, y_ref, 1e-10)
+    del y
+
+    # the splines, 1-D, batched and 2-D
+    x22_64 = u22.astype(np.float64)
+    c_ref = {}
+    for lamb in (0.0, 1.0):
+        what = f'cspline1d lamb {lamb} 2^22'
+        c_ref[lamb] = ref(what, lambda lamb=lamb: sps.cspline1d(x22_64, lamb))
+        check(f'{what} vs scipy.signal.cspline1d', run(what, rows[what][0]), c_ref[lamb], 1e-6)
+    # the coefficient program in float64 on the card before the final cast:
+    # a scan run in float32 would miss this bound by orders of magnitude
+    rows64 = torch.from_numpy(x22_64[None]).to('cuda')
+    got = run('the cspline1d program', lambda: splines._spline_coeff_program(
+        rows64, float(-2.0 + np.sqrt(3.0)), 6.0))
+    require(got.dtype == torch.float64 and got.device.type == 'cuda',
+            f'the cspline1d program: {got.dtype} on {got.device}')
+    check('  its float64 coefficients on the card before the cast vs scipy', got.cpu().numpy()[0],
+          c_ref[0.0], 1e-12)
+    del rows64, got, c_ref
+    what = 'qspline1d 2^22'
+    check(f'{what} vs scipy.signal.qspline1d', run(what, rows[what][0]),
+          ref(what, lambda: sps.qspline1d(x22_64)), 1e-6)
+    what = 'symiirorder1 (64, 2^16)'
+    check(f'{what}, (2, 0.5), vs scipy.signal.symiirorder1 row by row', run(what, rows[what][0]),
+          ref(what, lambda: np.stack([sps.symiirorder1(r.astype(np.float64), 2.0, 0.5)
+                                      for r in b64])), 1e-6)
+    what = 'symiirorder2 (64, 2^16)'
+    check(f'{what}, (0.8, 1.2), vs scipy.signal.symiirorder2 row by row', run(what, rows[what][0]),
+          ref(what, lambda: np.stack([sps.symiirorder2(r.astype(np.float64), 0.8, 1.2)
+                                      for r in b64])), 2e-6)
+    what = 'cspline2d lamb 0 2048 x 2048'
+    check(f'{what} vs scipy.signal.cspline2d', run(what, rows[what][0]),
+          ref(what, lambda: sps.cspline2d(im64, 0.0)), 1e-5)
+    # the smoothing cases: scipy stops each boundary series at its first
+    # small term (tests/test_splines.py: 5e-3 overall, 5e-4 inside)
+    for what, ref_fn in (('cspline2d lamb 5 2048 x 2048', lambda: sps.cspline2d(im64, 5.0)),
+                         ('spline_filter lamb 5 2048 x 2048',
+                          lambda: sps.spline_filter(im64, 5.0))):
+        want = ref(what, ref_fn)
+        got = run(what, rows[what][0]).numpy().astype(np.float64)
+        inner = float(np.abs(got - want)[4:-4, 4:-4].max() / np.abs(want).max())
+        require(inner <= 5e-4, f'{what}: inside the border {inner} > 5e-4')
+        check(f'{what} vs scipy.signal', got, want, 5e-3,
+              f', {inner:.3e} inside the border (bound 5e-4)')
+    what = 'sepfir2d 5 x 5 taps 2048 x 2048'
+    check(f'{what} vs scipy.signal.sepfir2d', run(what, rows[what][0]),
+          ref(what, lambda: sps.sepfir2d(im64, hrow, hcol)), 1e-5)
+    checked_s = time.perf_counter() - t_phase
+
+    # the smoothing cspline1d's host boundary tables: built and uploaded each call
+    rho, omega = splines._coeff_smooth_params(1.0)
+    t0 = time.perf_counter()
+    _, tables = splines._symiir2_host_tables(rho, omega, 2**22, 0.0, 'cspline1d')
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    upload_ms = host_ms(lambda: torch.from_numpy(tables).to('cuda'), runs=5)
+    print(f'  cspline1d lamb 1 at 2^22: its four 2^22 float64 boundary tables take {build_ms:.1f} '
+          f'ms to build on the host (one build) and {upload_ms:.2f} ms to upload '
+          f'({tables.nbytes / 2**20:.0f} MiB, median of 5) [{card}]')
+    del tables
+
+    # each row's host time, device time by op over 10 calls (the smoothing
+    # cspline1d: its checked call, and one profiled call), busy share,
+    # launches, the first call's peak memory and its float64 bytes' bound
+    t_timed = time.perf_counter()
+    for what, (fn, n_in, n_out, runs) in rows.items():
+        first_ms, peak = first[what]
+        wall = host_ms(fn, runs=runs) if runs > 1 else first_ms
+        steps = 10 if runs > 1 else 1
+        # torch.profiler drops the same events at every attempt on these
+        # rows, so one profile, its short counts printed
+        prof_rows, _ = device_profile(fn, what, steps=steps, tries=1)
+        busy = print_profile(prof_rows, what, wall, card, steps)
+        require(busy > 0, f'{what}: no device time')
+        bound = 8.0 * (n_in + n_out) / PEAK_BYTES_S * 1e3
+        timing = f'median of {runs}' if runs > 1 else 'the checked call'
+        print(f'  {what}: {wall:.4f} ms a call ({timing}), device {busy:.4f} ms, busy '
+              f'share {busy / wall:.3f}, {sum(r[1] for r in prof_rows)} kernels and copies a '
+              f'call; peak device memory above the input {peak:.1f} MiB; bound of its float64 '
+              f'input and output bytes {bound:.4f} ms ({busy / bound:.1f}x); the checked call '
+              f'{first_ms:.1f} ms, its scipy references {ref_ms[what]:.1f} ms [{card}]')
+    timed_s = time.perf_counter() - t_timed
+    print(f'  phase 10: {time.perf_counter() - t_phase:.1f} s: the checks {checked_s:.1f} s '
+          f'(scipy references {sum(ref_ms.values()) / 1e3:.1f} s, the port\'s checked calls '
+          f'{sum(ms for ms, _ in first.values()) / 1e3:.1f} s), the tables {build_ms / 1e3:.1f} s, '
+          f'timing and profiles {timed_s:.1f} s [{card}]')
+    return dict.fromkeys(KERNELS, 0)
+
+
 def _tensors_in(entry):
     """The torch tensors of a cache entry of models/iir.py (nested tuples)."""
     if isinstance(entry, torch.Tensor):
@@ -1821,6 +2059,8 @@ def main() -> int:
                         help='run phase 8 (the transforms tier) alone after the build')
     parser.add_argument('--recurrence', action='store_true',
                         help='run phase 9 (the IIR recurrence) alone after the build')
+    parser.add_argument('--scans', action='store_true',
+                        help='run phase 10 (the affine-scan tier) alone after the build')
     parser.add_argument('--map-candidates', nargs='+', metavar='TREE',
                         help='time K5 of each tree (a checkout of the port) in turns, '
                              'in place of the checks')
@@ -1933,6 +2173,9 @@ def main() -> int:
         return 0
     if args.recurrence:
         recurrence_phase(dsc, card, compare)
+        return 0
+    if args.scans:
+        scans_phase(dsc, card)
         return 0
 
     # -- 3. kernels vs plain versions --------------------------------------
@@ -2580,6 +2823,11 @@ def main() -> int:
     recurrence_launches = recurrence_phase(dsc, card, compare)
     for name in KERNELS:
         by_path[name]['recurrence'] = recurrence_launches[name]
+
+    # -- 10. the affine-scan tier ---------------------------------------------
+    scan_launches = scans_phase(dsc, card)
+    for name in KERNELS:
+        by_path[name]['scans'] = scan_launches[name]
 
     # the main path's shape of each kernel: the filterFFT at n = 2^21 for the
     # packed passes, the n = 4096 pair's 2048 x 1 for K12, bench's fma for K5,

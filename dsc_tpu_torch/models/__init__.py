@@ -15,6 +15,11 @@ from .ola import OverlapSave, overlap_save_convolve
 from .psd import coherence, csd, detrend, periodogram, psd_spectrogram, welch
 from .short_time_fft import ShortTimeFFT
 from .spectral import envelope, hilbert, hilbert2, resample, resample_poly, upfirdn
+from .splines import (cspline1d, cspline1d_eval, cspline2d, gauss_spline, qspline1d,
+                      qspline1d_eval, qspline2d, sepfir2d, spline_filter, symiirorder1,
+                      symiirorder2)
+from .statespace import (cont2discrete, dimpulse, dlsim, dstep, impulse, lsim, ss2tf, ss2zpk,
+                         step, tf2ss, zpk2ss)
 from .stft import ISTFT, STFT, spectrogram
 from .stft_scipy import (check_COLA, check_NOLA, closest_STFT_dual_window, istft, stft,
                          stft_dual_window)
@@ -31,4 +36,8 @@ __all__ = ['CZT', 'ZoomFFT', 'czt', 'czt_points', 'zoom_fft', 'FilterFFT', 'conv
            'savgol_filter', 'minimum_phase', 'butter', 'cheby1', 'cheby2', 'decimate',
            'filtfilt', 'freqz', 'group_delay', 'lfilter', 'lfilter_zi', 'sos2tf', 'sosfilt',
            'sosfilt_zi', 'sosfiltfilt', 'sosfreqz', 'tf2sos', 'BadCoefficients', 'bilinear',
-           'deconvolve', 'normalize', 'sos2zpk', 'tf2zpk', 'unit_impulse', 'zpk2sos', 'zpk2tf']
+           'deconvolve', 'normalize', 'sos2zpk', 'tf2zpk', 'unit_impulse', 'zpk2sos', 'zpk2tf',
+           'cspline1d', 'cspline2d', 'cspline1d_eval', 'gauss_spline', 'qspline1d',
+           'qspline1d_eval', 'qspline2d', 'sepfir2d', 'spline_filter', 'symiirorder1',
+           'symiirorder2', 'cont2discrete', 'dimpulse', 'dlsim', 'dstep', 'impulse', 'lsim',
+           'ss2tf', 'ss2zpk', 'step', 'tf2ss', 'zpk2ss']

@@ -13,8 +13,8 @@ compose associatively, so a section runs without a loop over time:
   (a middle level of (256 m, 257 m) weights while more than
   ``_LINREC_BASE`` = 512 chunks remain), down to a flat scan;
 - below 4096 samples, and at the bottom of the ladder, as a log-depth scan:
-  ceil(log2 T) doubling steps, each one batched (m x m) composition over all
-  positions (``_scan``);
+  ceil(log2 T) doubling steps, the one of stride d a batched product by A^d
+  over all positions (``_scan``, on ``_affine_scan``);
 - ``method='sequential'`` keeps the exact step in a loop over time, for
   reference and streaming use.
 
@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from .. import tracing
 from ..capture import capturing
 from ..tensor import Tensor
+from ._affine_scan import affine_scan_, scan_maps
 
 # --------------------------------------------------------------------------
 # device half: affine recurrence
@@ -189,22 +190,12 @@ def _full_f32():
         matmul.fp32_precision = prev
 
 
-def _scan(A: torch.Tensor, f: torch.Tensor):
-    """Inclusive scan of the affine maps s -> A s + f[:, t]: (M (T, m, m),
-    w (b, T, m)) with M[t] = A^(t+1) and w[t] = sum_{u <= t} A^(t-u) f[:, u],
-    in ceil(log2 T) doubling steps, each one batched (m x m) composition
-    (Ar, br) o (Al, bl) = (Ar Al, Ar bl + br) over all positions. The
-    matrices are the same in every batch row, so they are composed once."""
-    T = f.shape[1]
-    Ms = A.expand(T, *A.shape)
-    w = f
-    d = 1
-    while d < T:
-        w = torch.cat([w[:, :d], torch.matmul(Ms[d:], w[:, :-d, :, None])[..., 0] + w[:, d:]],
-                      dim=1)
-        Ms = torch.cat([Ms[:d], torch.matmul(Ms[d:], Ms[:-d])])
-        d *= 2
-    return Ms, w
+def _scan(A: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan of the affine maps s -> A s + f[:, t]: every
+    w[:, t] = sum_{u <= t} A^(t-u) f[:, u], written over ``f`` (b, T, m) in
+    ceil(log2 T) doubling steps (``_affine_scan``). A start state s0 is
+    folded into the first step by the caller: f[:, 0] + A s0."""
+    return affine_scan_(f, scan_maps(A, f.shape[1]))
 
 
 def _linrec_apply_vec(f, levels, u0):
@@ -213,8 +204,8 @@ def _linrec_apply_vec(f, levels, u0):
     bsz, T, m = f.shape
     if len(levels) == 1:
         (Ab,) = levels[0]
-        Mk, wk = _scan(Ab, f)
-        s_all = torch.einsum('kmn,bn->bkm', Mk, u0) + wk
+        s_all = _scan(Ab, torch.cat([f[:, :1] + torch.matmul(u0, Ab.T)[:, None], f[:, 1:]],
+                                    dim=1))
         s_pre = torch.cat([u0[:, None], s_all[:, :-1]], dim=1)
         return s_pre, s_all[:, -1]
     Wmat, Cv = levels[0]
@@ -276,7 +267,7 @@ def _affine_filter(x, A, c, b0, zi, method='parallel', plan=None):
     # the flat scan of the affine maps (A, c x[n])
     cb = x[..., None] * c[None, None, :]  # (b, n, m)
     cb = torch.cat([cb[:, :1] + torch.matmul(zi, A.T)[:, None], cb[:, 1:]], dim=1)
-    _, s_all = _scan(A, cb)
+    s_all = _scan(A, cb)
     s_prev = torch.cat([zi[:, None, :], s_all[:, :-1]], dim=1)
     y = b0 * x + s_prev[..., 0]
     return y, s_all[:, -1]

@@ -852,3 +852,45 @@ def test_sosfilt_welch_captured_against_eager():
     assert np.abs(got - eager).max() <= 1e-6 * np.abs(eager).max()
     ref = sps.welch(sps.sosfilt(sos, x.astype(np.float64), axis=-1), nperseg=256, axis=-1)[1]
     assert np.abs(got - ref).max() < 2e-4 * ref.max()
+
+
+def test_dlsim_on_the_card_against_scipy():
+    """dlsim of the zoh discretization (dt = 1e-3) of the analog
+    butter(4, 2 pi 50) over 2^20 steps on the Tensor path: float64 on the
+    card, float32 results there, within 1e-5 of scipy.signal.lfilter of the
+    same discrete system in float64 (tests/test_statespace.py's bound), with
+    no kernel launched."""
+    import scipy.signal as sps
+
+    from dsc_tpu_torch import models as M
+
+    sysd = M.cont2discrete(M.tf2ss(*sps.butter(4, 2 * np.pi * 50, analog=True)), 1e-3)
+    num, den = sps.ss2tf(*sysd[:4])
+    u = np.random.default_rng(44).standard_normal(2**20).astype(np.float32)
+    build.reset_launches()
+    _, y, x = M.dlsim(sysd, dt.from_numpy(u))
+    torch.cuda.synchronize()
+    assert not any(build.launches.values())
+    assert y.device.type == 'cuda' and y.dtype == dt.Dtype.F32 and x.shape == (2**20, 4)
+    ref = sps.lfilter(num[0], den, u.astype(np.float64))
+    out = y.numpy()[:, 0]
+    assert np.isfinite(out).all() and np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize('lamb', [0.0, 1.0])
+def test_cspline1d_on_the_card_against_scipy(lamb):
+    """cspline1d of 2^20 samples on the card (lamb 0: the first-order scans;
+    lamb 1: the smoothing second-order cascade), within 1e-6 of
+    scipy.signal.cspline1d in float64 (tests/test_splines.py's bound)."""
+    import scipy.signal as sps
+
+    from dsc_tpu_torch import models as M
+
+    x = np.random.default_rng(45).standard_normal(2**20).astype(np.float32)
+    build.reset_launches()
+    got = M.cspline1d(dt.from_numpy(x), lamb)
+    torch.cuda.synchronize()
+    assert not any(build.launches.values()) and got.device.type == 'cuda'
+    ref = sps.cspline1d(x.astype(np.float64), lamb)
+    out = got.numpy()
+    assert np.isfinite(out).all() and np.abs(out - ref).max() <= 1e-6 * np.abs(ref).max()
