@@ -7,8 +7,9 @@ OverlapSave models, the FFT-shaped model tier (welch, cwt,
 ShortTimeFFT and the rest of psd, stft_scipy, multitaper, spectral, fir),
 the scipy.fft-parity transforms tier (exact-length Bluestein DFT,
 DCT/DST, FFTLog), the IIR recurrence (sosfilt, lfilter, sosfiltfilt,
-decimate) and the affine-scan tier (dlsim, lsim, step, impulse, the
-splines).
+decimate), the affine-scan tier (dlsim, lsim, step, impulse, the
+splines) and the signal-generation and design tier (the waves, the
+median, rank and Wiener filters, iirdesign).
 
     python3 chip_smoke.py
 
@@ -173,9 +174,36 @@ Phases, each raising on failure (exit code 0 means all passed):
    the bound of its float64 array arguments and results over the memory
    rate, and the host time of the checked call beside its scipy references'.
 
+11. the signal-generation and design tier (models/waveforms.py,
+   nonlinear.py, iirdesign.py), every call with the counts set to 0 before
+   it and held after it, each against scipy.signal in float64 of the same
+   values (computed in 8 threads): chirp (all four methods), square,
+   sawtooth, gausspulse and sweep_poly on float64 and float32 Tensor time
+   axes of 2^24 samples, in float32 (1e-4) and float64 (1e-9 of the largest
+   value), square and sawtooth also exactly as the JAX package's float64
+   formula in NumPy (scipy's square differs only within 8 ulps of a jump),
+   and chirp of a host axis equal to chirp of the same Tensor axis (no
+   kernel); medfilt of 1 x 2^22 (k 21) and (64, 2^16) (k 7, scipy row by
+   row), medfilt2d of 2048^2 (5 x 5), order_filter of 2048^2 (3 x 3, ranks 0,
+   4, 8) and of 2^22 (an 11-tap domain of 7 taps, rank 3; scipy on the
+   signal as a 1-row image, since its 1-D path counts the domain's zeros as
+   taps), exactly, and
+   wiener of 2^22 (mysize 21, noise 0.5 and estimated; 1e-4 of max(1,
+   largest value)) (no kernel); the chain chirp of 2^22 + seeded noise ->
+   iirdesign ellip (host) -> sosfilt -> medfilt(5) -> welch(nperseg 1024),
+   each stage against scipy applied to the port's previous stage (1e-4,
+   exactly, 2e-4), the add's K5 and welch's K12 launches held to the
+   routing and each to its plain version, then the chain under dsc.compile
+   within 1e-6 of eager; then each row's host time (median of 25), device
+   time by op (torch.profiler over 10 calls), busy share, the checked
+   call's peak device memory above what it was given, the bound of its
+   bytes (a wave's float64 axis and float32 result, a filter's float32
+   signal and result) over the memory rate, and the phase's time split
+   into scipy's references, the checked calls and the timing.
+
 The last lines are the kernels' JSON record (its ``launches_by_path``
-holds each path's launches, 'models', 'transforms', 'recurrence' and
-'scans' among them), the card line and the result line. Without a CUDA device the script exits non-zero before any of
+holds each path's launches, 'models', 'transforms', 'recurrence',
+'scans' and 'signals' among them), the card line and the result line. Without a CUDA device the script exits non-zero before any of
 them.
 
     python3 chip_smoke.py --profile
@@ -225,6 +253,10 @@ runs phases 1-2 and phase 9 alone.
     python3 chip_smoke.py --scans
 
 runs phases 1-2 and phase 10 alone.
+
+    python3 chip_smoke.py --signals
+
+runs phases 1-2 and phase 11 alone.
 
     python3 chip_smoke.py --map-candidates TREE [TREE ...]
 
@@ -2027,6 +2059,306 @@ def scans_phase(dsc, card: str) -> dict:
     return dict.fromkeys(KERNELS, 0)
 
 
+
+# phase 11's sizes: the waves' time axes, the 1-D filters' signals and the
+# images' side
+WAVE_N = 2**24
+FILTER_N = 2**22
+IMAGE_SIDE = 2048
+
+
+def square_formula(v: np.ndarray, duty: float) -> np.ndarray:
+    """The JAX package's square wave (dsc_tpu/models/waveforms.py:77) in
+    float64 NumPy: jnp.mod's remainder, one division, a comparison."""
+    r = np.fmod(v, 2 * np.pi)
+    return np.where(np.where(r < 0, r + 2 * np.pi, r) / (2 * np.pi) < duty, 1.0, -1.0)
+
+
+def sawtooth_formula(v: np.ndarray, width: float) -> np.ndarray:
+    """The JAX package's sawtooth (dsc_tpu/models/waveforms.py:92) in
+    float64 NumPy."""
+    r = np.fmod(v, 2 * np.pi)
+    frac = np.where(r < 0, r + 2 * np.pi, r) / (2 * np.pi)
+    return np.where(frac < width, 2.0 * frac / width - 1.0,
+                    2.0 * (1.0 - frac) / (1.0 - width) - 1.0)
+
+
+def signals_phase(dsc, card: str, compare) -> dict:
+    """Phase 11: the signal-generation and design tier (models/waveforms.py,
+    nonlinear.py; iirdesign.py on the host) at full size, every call with
+    the launch counts set to 0 just before it and held to the routing just
+    after, each against scipy.signal in float64 applied to the same values:
+    the five waves on float64 and float32 time axes of WAVE_N samples in
+    both output dtypes (no kernel), the nonlinear filters of FILTER_N
+    samples and IMAGE_SIDE^2 images (no kernel), and the chain chirp + noise
+    -> sosfilt(iirdesign ellip) -> medfilt(5) -> welch(1024) of FILTER_N
+    samples stage by stage (K5 on the add, K12 in welch, each launch held to
+    its plain version), eager and under dsc.compile. Then each row's host
+    time, device time by op, busy share, peak device memory above its input
+    and the bound of its bytes. Returns the launches of each kernel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import scipy.signal as sps
+
+    from dsc_tpu_torch import models as M
+    from dsc_tpu_torch.kernels import build
+
+    print(f'phase 11: the signal-generation and design tier: five waves of {WAVE_N} samples, '
+          f'medfilt / medfilt2d / order_filter / wiener, chirp -> sosfilt(ellip) -> medfilt -> '
+          f'welch [{card}]')
+    gen = np.random.default_rng(11)
+    launches = dict.fromkeys(KERNELS, 0)
+    current = ['']
+    first = {}  # row -> (host ms of its checked call, peak MiB above what was allocated before)
+    t_phase = time.perf_counter()
+
+    def run(what, fn, want=None):
+        """``fn()`` with the counts set to 0 before it and held to ``want``
+        (no launch by default) after it; the call's host time and peak device
+        memory above what was allocated before it are kept in ``first``."""
+        current[0] = what
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        first[what] = (1e3 * (time.perf_counter() - t0),
+                       (torch.cuda.max_memory_allocated() - base) / 2**20)
+        got = {name: count for name, count in build.launches.items() if count}
+        for name, count in got.items():
+            launches[name] += count
+        require(got == (want or {}), f'{what}: launches {got}, want {want or {}}')
+        return out
+
+    def check(what, got, ref, bound, exact=False, scale='max'):
+        """``got`` (a Tensor) against the float64 host ``ref`` on the card:
+        equal (``exact``) or within ``bound`` times the largest |ref|
+        ('max') or max(1, largest |ref|) ('max1'); finite, as shaped."""
+        g = got.torch
+        r = torch.from_numpy(np.ascontiguousarray(ref)).to(g.device)
+        require(tuple(g.shape) == tuple(r.shape) and bool(torch.isfinite(g).all()),
+                f'{what}: shape {tuple(g.shape)} (want {tuple(r.shape)}) or not finite')
+        if exact:
+            n_diff = int((g.to(torch.float64) != r).sum())
+            print(f'  {what}: {n_diff} samples differ (bound: none) [{card}]')
+            require(n_diff == 0, f'{what}: {n_diff} samples differ')
+            return
+        top = float(r.abs().max())
+        den = max(1.0, top) if scale == 'max1' else top
+        err = float((g.to(torch.float64) - r).abs().max()) / den
+        print(f'  {what}: {err:.3e} (rel, bound {bound:g}) [{card}]')
+        require(err <= bound, f'{what}: {err} > {bound}')
+
+    # -- the inputs, and scipy's float64 references in 8 threads (numpy
+    #    releases the interpreter lock in its array loops)
+    t_np = np.arange(WAVE_N) / 1e7  # 1.68 s at 10 MHz: phases up to ~5e4 rad
+    t1 = float(t_np[-1])
+    tc_np = t_np - t1 / 2           # centred, for the pulse
+    ph_np = 2 * np.pi * 1000.0 * t_np
+    poly = [-500.0, 3000.0, 2000.0]
+    axes = {}  # (axis, precision) -> (the port's Tensor, the float64 values it holds)
+    for axis, values in (('t', t_np), ('tc', tc_np), ('phase', ph_np)):
+        axes[axis, 'f64'] = (dsc.from_numpy(values), values)
+        v32 = values.astype(np.float32)
+        axes[axis, 'f32'] = (dsc.from_numpy(v32), v32.astype(np.float64))
+    waves = {  # row -> (axis, the port's wave of an axis Tensor, scipy's of float64 values)
+        f'chirp {m}': ('t', lambda t, d, m=m: M.chirp(t, 100.0, t1, 1e4, method=m, dtype=d),
+                       lambda v, m=m: sps.chirp(v, 100.0, t1, 1e4, method=m))
+        for m in ('linear', 'quadratic', 'logarithmic', 'hyperbolic')}
+    waves.update({
+        'square duty 0.3': ('phase', lambda t, d: M.square(t, 0.3, dtype=d),
+                            lambda v: sps.square(v, 0.3)),
+        'sawtooth width 0.7': ('phase', lambda t, d: M.sawtooth(t, 0.7, dtype=d),
+                               lambda v: sps.sawtooth(v, 0.7)),
+        'gausspulse fc 20 bw 0.5': ('tc', lambda t, d: M.gausspulse(t, 20.0, 0.5, dtype=d),
+                                    lambda v: sps.gausspulse(v, 20.0, 0.5)),
+        'sweep_poly (-500, 3000, 2000)': ('t', lambda t, d: M.sweep_poly(t, poly, dtype=d),
+                                          lambda v: sps.sweep_poly(v, poly))})
+
+    x22 = gen.standard_normal(FILTER_N).astype(np.float32)
+    b64 = gen.standard_normal((64, FILTER_N // 64)).astype(np.float32)
+    im = gen.standard_normal((IMAGE_SIDE, IMAGE_SIDE)).astype(np.float32)
+    x22t, b64t, imt = dsc.from_numpy(x22), dsc.from_numpy(b64), dsc.from_numpy(im)
+    x22_64, im64 = x22.astype(np.float64), im.astype(np.float64)
+    dom11 = np.array([1, 1, 0, 1, 0, 1, 0, 1, 0, 1, 1])
+    filters = {  # row -> (call, scipy's float64 result, exact, bound)
+        f'medfilt 1 x 2^{FILTER_N.bit_length() - 1} k 21': (
+            lambda: M.medfilt(x22t, 21), lambda: sps.medfilt(x22_64, 21), True, 0),
+        f'medfilt (64, {FILTER_N // 64}) k 7, scipy row by row': (
+            lambda: M.medfilt(b64t, 7),
+            lambda: np.stack([sps.medfilt(r.astype(np.float64), 7) for r in b64]), True, 0),
+        f'medfilt2d {IMAGE_SIDE}^2 5 x 5': (
+            lambda: M.medfilt2d(imt, 5), lambda: sps.medfilt2d(im64, 5), True, 0),
+        **{f'order_filter {IMAGE_SIDE}^2 3 x 3 rank {r}': (
+            lambda r=r: M.order_filter(imt, np.ones((3, 3)), r),
+            lambda r=r: sps.order_filter(im64, np.ones((3, 3)), r), True, 0) for r in (0, 4, 8)},
+        # scipy on the signal as a 1-row image: its 1-D path (ndimage's
+        # rank_filter) counts a domain's zeros as taps (scipy 1.17)
+        f'order_filter 1 x 2^{FILTER_N.bit_length() - 1}, 11-tap domain (7 taps), rank 3': (
+            lambda: M.order_filter(x22t, dom11, 3),
+            lambda: sps.order_filter(x22_64[None], dom11[None], 3)[0], True, 0),
+        # tests/test_psd_fir.py: 1e-4 of max(1, largest |ref|)
+        f'wiener 1 x 2^{FILTER_N.bit_length() - 1} mysize 21, noise 0.5': (
+            lambda: M.wiener(x22t, 21, 0.5), lambda: sps.wiener(x22_64, 21, 0.5), False, 1e-4),
+        f'wiener 1 x 2^{FILTER_N.bit_length() - 1} mysize 21, noise estimated': (
+            lambda: M.wiener(x22t, 21), lambda: sps.wiener(x22_64, 21), False, 1e-4)}
+
+    # square and sawtooth, also as the JAX package computes them (its
+    # formula, not scipy's: they part one ulp from a jump)
+    formulas = {'square duty 0.3': lambda v: square_formula(v, 0.3),
+                'sawtooth width 0.7': lambda v: sawtooth_formula(v, 0.7)}
+    t_refs = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        wave_refs = {(what, prec): pool.submit(ref, axes[axis, prec][1])
+                     for what, (axis, _, ref) in waves.items() for prec in ('f64', 'f32')}
+        formula_refs = {(what, prec): pool.submit(fn, axes['phase', prec][1])
+                        for what, fn in formulas.items() for prec in ('f64', 'f32')}
+        filter_refs = {what: pool.submit(row[1]) for what, row in filters.items()}
+        wave_refs = {key: f.result() for key, f in wave_refs.items()}
+        formula_refs = {key: f.result() for key, f in formula_refs.items()}
+        filter_refs = {key: f.result() for key, f in filter_refs.items()}
+    refs_s = time.perf_counter() - t_refs
+
+    def square_vs_scipy(row, out, values, ref, duty):
+        """Where the square wave differs from scipy's, the phase lies within
+        8 ulps of a jump (duty * 2 pi, or 0 = 2 pi)."""
+        idx = torch.nonzero(out.torch.to(torch.float64)
+                            != torch.from_numpy(ref).to(out.device)).flatten().cpu().numpy()
+        tmod = np.mod(values[idx], 2 * np.pi)
+        dist = np.minimum(np.abs(tmod - duty * 2 * np.pi), np.minimum(tmod, 2 * np.pi - tmod))
+        near = dist <= 8 * np.spacing(2 * np.pi)
+        print(f'  {row} vs scipy.signal.square float64: {idx.size} of {values.size} samples '
+              f'differ, all within 8 ulps of a jump: {bool(near.all())} [{card}]')
+        require(bool(near.all()), f'{row}: samples away from a jump differ from scipy')
+
+    # -- the waves: both axes, both dtypes; no kernel
+    t_checks = time.perf_counter()
+    for what, (axis, wave, _) in waves.items():
+        for prec in ('f64', 'f32'):
+            tt, values = axes[axis, prec]
+            for dtype, bound in ((dsc.Dtype.F32, 1e-4), (dsc.Dtype.F64, 1e-9)):
+                row = f'{what}, {prec} axis, dtype {dtype.name}'
+                out = run(row, lambda: wave(tt, dtype))
+                require(out.dtype == dtype and out.device == tt.device,
+                        f'{row}: {out.dtype} on {out.device}')
+                ref = wave_refs[what, prec]
+                if (what, prec) in formula_refs:
+                    exact = formula_refs[what, prec]
+                    if dtype == dsc.Dtype.F32:
+                        exact = exact.astype(np.float32).astype(np.float64)
+                    check(f"{row} vs the JAX package's float64 formula in NumPy", out, exact, 0,
+                          exact=True)
+                if what.startswith('square'):
+                    square_vs_scipy(row, out, values, ref, 0.3)
+                else:
+                    check(f'{row} vs scipy.signal float64', out, ref, bound)
+    # a host time axis is uploaded to the card: the same wave
+    host = run('chirp linear, host f64 axis, dtype F32',
+               lambda: M.chirp(t_np, 100.0, t1, 1e4, dtype=dsc.Dtype.F32))
+    same = run('chirp linear, f64 axis, dtype F32',
+               lambda: waves['chirp linear'][1](axes['t', 'f64'][0], dsc.Dtype.F32))
+    require(host.device == same.device and torch.equal(host.torch, same.torch),
+            'chirp of a host axis differs from chirp of the same Tensor axis')
+    print(f'  chirp linear of the host f64 axis: on {host.device}, equal to the Tensor axis\'s '
+          f'[{card}]')
+    del out, host, same
+
+    # -- the nonlinear filters; no kernel
+    for what, (fn, _, exact, bound) in filters.items():
+        out = run(what, fn)
+        check(f'{what} vs scipy.signal float64', out, filter_refs[what], bound, exact,
+              'max1' if what.startswith('wiener') else 'max')
+    del filter_refs
+
+    # -- the chain: chirp + noise -> ellip design -> sosfilt -> medfilt -> welch
+    n = FILTER_N
+    tp_np = np.arange(n) / 48000.0
+    tp = dsc.from_numpy(tp_np)
+    noise = dsc.from_numpy((0.1 * gen.standard_normal(n)).astype(np.float32))
+    t0 = time.perf_counter()
+    sos = M.iirdesign(0.1, 0.15, 1.0, 60.0, ftype='ellip')
+    design_ms = 1e3 * (time.perf_counter() - t0)
+    print(f'  iirdesign(0.1, 0.15, 1 dB, 60 dB, ellip) on the host: {sos.shape[0]} sections, '
+          f'{design_ms:.2f} ms [{card}]')
+    segments = (n - 1024) // 512 + 1
+    welch_launches = core_launches([('r2c', segments, 1024)])
+
+    def chain(t, s):
+        x = M.chirp(t, 50.0, tp_np[-1], 5000.0) + s
+        return M.welch(M.medfilt(M.sosfilt(sos, x), 5), nperseg=1024)[1]
+
+    with held_launches(compare, lambda: current[0]):
+        x = run('chain: chirp + noise', lambda: M.chirp(tp, 50.0, tp_np[-1], 5000.0) + noise,
+                {'stream_map': 1})
+        x64 = x.numpy().astype(np.float64)
+        y = run('chain: sosfilt', lambda: M.sosfilt(sos, x))
+        check('chain: sosfilt vs scipy.signal.sosfilt float64 of the chirp + noise', y,
+              sps.sosfilt(sos, x64), 1e-4)
+        y64 = y.numpy().astype(np.float64)
+        z = run('chain: medfilt 5', lambda: M.medfilt(y, 5))
+        check('chain: medfilt 5 vs scipy.signal.medfilt float64 of the sosfilt output', z,
+              sps.medfilt(y64, 5), 0, exact=True)
+        p = run('chain: welch 1024', lambda: M.welch(z, nperseg=1024)[1], welch_launches)
+        check('chain: welch(nperseg 1024) vs scipy.signal.welch float64 of the medfilt output',
+              p, sps.welch(z.numpy().astype(np.float64), nperseg=1024)[1], 2e-4)
+        eager = run('chain eager (no design)', lambda: chain(tp, noise),
+                    {'stream_map': 1, **welch_launches})
+        e = rel_err(eager.torch, p.torch)
+        require(e <= 1e-6, f'the eager chain vs its checked stages: {e}')
+    del x, y, z, x64, y64
+
+    compiled = dsc.compile(chain)
+    twice = {k: 2 * v for k, v in {'stream_map': 1, **welch_launches}.items()}
+    got = run('chain compiled: trace + capture', lambda: compiled(tp, noise), twice)
+    e = rel_err(got.torch, eager.torch)
+    print(f'  the compiled chain vs the eager chain: {e:.3e} (rel, bound 1e-6) [{card}]')
+    require(e <= 1e-6, f'compiled chain vs eager: {e}')
+    require(compiled.n_programs == 1, 'compiled chain: more than one program')
+    checked_s = time.perf_counter() - t_checks
+
+    # -- each row's host time, device time by op over 10 calls, busy share,
+    #    launches, the checked call's peak memory; the filters' bytes' bound
+    t_timed = time.perf_counter()
+    # (row, call, the bytes of its array arguments and results: a wave reads
+    # its float64 axis and writes float32, a filter reads and writes float32)
+    timed = [(f'{w}, f64 axis, dtype F32', lambda w=w: waves[w][1](axes[waves[w][0], 'f64'][0],
+                                                                     dsc.Dtype.F32), 12 * WAVE_N)
+             for w in waves]
+    timed += [(what, fn, 8 * (IMAGE_SIDE ** 2 if '^2' in what else FILTER_N))
+              for what, (fn, *_) in filters.items() if 'rank 0' not in what and 'rank 8' not in what]
+    timed += [('chain eager (no design)', lambda: chain(tp, noise), 0),
+              ('chain compiled (replays)', lambda: compiled(tp, noise), 0)]
+    for what, fn, n_bytes in timed:
+        wall = host_ms(fn)
+        prof_rows, prof = device_profile(fn, what, steps=10, tries=1)
+        busy = print_profile(prof_rows, what, wall, card, 10)
+        require(busy > 0, f'{what}: no device time')
+        line = (f'  {what}: {wall:.4f} ms a call, device {busy:.4f} ms, busy share '
+                f'{busy / wall:.3f}, {sum(r[1] for r in prof_rows)} kernels and copies a call')
+        if what in first:
+            line += (f'; the checked call {first[what][0]:.1f} ms, peak device memory above '
+                     f'what it was given {first[what][1]:.1f} MiB')
+        if n_bytes:
+            bound = n_bytes / PEAK_BYTES_S * 1e3
+            line += f'; bound of its bytes {bound:.4f} ms ({busy / bound:.1f}x)'
+        if what == 'chain compiled (replays)':
+            host = {ev.key: ev.count for ev in prof.key_averages()}
+            line += (f'; cudaGraphLaunch {host.get("cudaGraphLaunch", 0)}, cudaLaunchKernel '
+                     f'{host.get("cudaLaunchKernel", 0)} over 10 replays')
+            require(host.get('cudaLaunchKernel', 0) == 0,
+                    'compiled chain: kernels launched from the host between the graph\'s')
+        print(line + f' [{card}]')
+    timed_s = time.perf_counter() - t_timed
+    require(launches['base_fft'] > 0, 'the chain launched no K12')
+    print(f'  phase 11: {time.perf_counter() - t_phase:.1f} s: scipy references {refs_s:.1f} s '
+          f'(8 threads), the port\'s checked calls and checks {checked_s:.1f} s (the calls '
+          f'{sum(ms for ms, _ in first.values()) / 1e3:.1f} s), timing and profiles '
+          f'{timed_s:.1f} s [{card}]')
+    print(f'  launches on the signals path: {launches} [{card}]')
+    return launches
+
 def _tensors_in(entry):
     """The torch tensors of a cache entry of models/iir.py (nested tuples)."""
     if isinstance(entry, torch.Tensor):
@@ -2061,6 +2393,9 @@ def main() -> int:
                         help='run phase 9 (the IIR recurrence) alone after the build')
     parser.add_argument('--scans', action='store_true',
                         help='run phase 10 (the affine-scan tier) alone after the build')
+    parser.add_argument('--signals', action='store_true',
+                        help='run phase 11 (the signal-generation and design tier) alone after '
+                             'the build')
     parser.add_argument('--map-candidates', nargs='+', metavar='TREE',
                         help='time K5 of each tree (a checkout of the port) in turns, '
                              'in place of the checks')
@@ -2176,6 +2511,9 @@ def main() -> int:
         return 0
     if args.scans:
         scans_phase(dsc, card)
+        return 0
+    if args.signals:
+        signals_phase(dsc, card, compare)
         return 0
 
     # -- 3. kernels vs plain versions --------------------------------------
@@ -2828,6 +3166,11 @@ def main() -> int:
     scan_launches = scans_phase(dsc, card)
     for name in KERNELS:
         by_path[name]['scans'] = scan_launches[name]
+
+    # -- 11. the signal-generation and design tier ---------------------------
+    signal_launches = signals_phase(dsc, card, compare)
+    for name in KERNELS:
+        by_path[name]['signals'] = signal_launches[name]
 
     # the main path's shape of each kernel: the filterFFT at n = 2^21 for the
     # packed passes, the n = 4096 pair's 2048 x 1 for K12, bench's fma for K5,

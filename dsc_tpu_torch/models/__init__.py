@@ -8,11 +8,17 @@ from .fir import (firls, firwin, firwin2, firwin_2d, gammatone, kaiser_atten, ka
                   kaiserord, minimum_phase, savgol_coeffs, savgol_filter)
 from .iir import (butter, cheby1, cheby2, decimate, filtfilt, freqz, group_delay, lfilter,
                   lfilter_zi, sos2tf, sosfilt, sosfilt_zi, sosfiltfilt, sosfreqz, tf2sos)
+from .iirdesign import (band_stop_obj, bessel, buttord, cheb1ord, cheb2ord, ellip, ellipord,
+                        iircomb, iirfilter, iirnotch, iirpeak)
 from .lti import (BadCoefficients, bilinear, deconvolve, normalize, sos2zpk, tf2zpk,
                   unit_impulse, zpk2sos, zpk2tf)
 from .multitaper import lombscargle, multitaper
+from .nonlinear import medfilt, medfilt2d, order_filter, wiener
 from .ola import OverlapSave, overlap_save_convolve
+from .pfe import invres, invresz, residue, residuez
 from .psd import coherence, csd, detrend, periodogram, psd_spectrogram, welch
+from .response import (bode, correlation_lags, freqresp, freqs, freqs_zpk, freqz_zpk,
+                       iirdesign)
 from .short_time_fft import ShortTimeFFT
 from .spectral import envelope, hilbert, hilbert2, resample, resample_poly, upfirdn
 from .splines import (cspline1d, cspline1d_eval, cspline2d, gauss_spline, qspline1d,
@@ -23,6 +29,8 @@ from .statespace import (cont2discrete, dimpulse, dlsim, dstep, impulse, lsim, s
 from .stft import ISTFT, STFT, spectrogram
 from .stft_scipy import (check_COLA, check_NOLA, closest_STFT_dual_window, istft, stft,
                          stft_dual_window)
+from .waveforms import (chirp, gausspulse, max_len_seq, sawtooth, square, sweep_poly,
+                        vectorstrength)
 
 __all__ = ['CZT', 'ZoomFFT', 'czt', 'czt_points', 'zoom_fft', 'FilterFFT', 'convolve',
            'convolve2d', 'correlate', 'correlate2d', 'fft_convolve', 'fft_convolve2',
@@ -40,4 +48,9 @@ __all__ = ['CZT', 'ZoomFFT', 'czt', 'czt_points', 'zoom_fft', 'FilterFFT', 'conv
            'cspline1d', 'cspline2d', 'cspline1d_eval', 'gauss_spline', 'qspline1d',
            'qspline1d_eval', 'qspline2d', 'sepfir2d', 'spline_filter', 'symiirorder1',
            'symiirorder2', 'cont2discrete', 'dimpulse', 'dlsim', 'dstep', 'impulse', 'lsim',
-           'ss2tf', 'ss2zpk', 'step', 'tf2ss', 'zpk2ss']
+           'ss2tf', 'ss2zpk', 'step', 'tf2ss', 'zpk2ss', 'residue', 'residuez', 'invres',
+           'invresz', 'ellip', 'bessel', 'iirfilter', 'buttord', 'cheb1ord', 'cheb2ord',
+           'ellipord', 'band_stop_obj', 'iirnotch', 'iirpeak', 'iircomb', 'iirdesign', 'freqs',
+           'freqs_zpk', 'freqz_zpk', 'freqresp', 'bode', 'correlation_lags', 'chirp', 'square',
+           'sawtooth', 'gausspulse', 'sweep_poly', 'max_len_seq', 'vectorstrength', 'medfilt',
+           'medfilt2d', 'order_filter', 'wiener']

@@ -12,6 +12,11 @@ python/dsc/tensor.py) makes observable:
   1-element result unwraps to a Python scalar (python/dsc/tensor.py:91-103);
   ``__setitem__`` writes in place and cycles a right-hand side that does not
   broadcast modulo its size (dsc.cpp:1032-1040)
+- NumPy's protocols, where the JAX package's Tensor has none: ``np.asarray(t)``
+  downloads as ``t.numpy()`` does, an index past an axis raises
+  ``TensorIndexError`` (a RuntimeError, as the reference's, and an
+  IndexError, so that ``list(t)`` and ``iter(t)`` end), and NumPy's operators
+  and ufuncs defer to the Tensor's own (``ndarray + t`` is a Tensor)
 - binary ops follow the reference promotion table, including the Python
   scalar rule (tensor.py:435-456: int/float -> F32, complex -> C32)
 - unary ops, clip, pow and the reductions (defaults axis=-1,
@@ -256,6 +261,15 @@ class Tensor:
     def tobytes(self) -> bytes:
         return bytes(self)
 
+    # NumPy's protocols: a download, and its operators defer to the Tensor's
+    __array_ufunc__ = None
+
+    def __array__(self, dtype=None, copy=None) -> np.ndarray:
+        if copy is False:
+            raise ValueError('a Tensor becomes a NumPy array only by a copy to the host')
+        arr = self.numpy()
+        return arr if dtype is None else arr.astype(dtype, copy=False)
+
     def cast(self, dtype: Dtype) -> 'Tensor':
         return cast(self, dtype)
 
@@ -322,6 +336,11 @@ class Tensor:
 # ---------------------------------------------------------------------------
 
 
+class TensorIndexError(IndexError, RuntimeError):
+    """An integer index past its axis: the RuntimeError the JAX package
+    raises, and an IndexError, which ends Python's sequence iteration."""
+
+
 def _normalize_key(item, shape):
     if isinstance(item, (int, np.integer, slice)):
         item = (item,)
@@ -338,7 +357,7 @@ def _normalize_key(item, shape):
             # negative wrap (reference dsc.cpp:839-846)
             kk = k + dim if k < 0 else k
             if kk < 0 or kk >= dim:
-                raise RuntimeError(
+                raise TensorIndexError(
                     f'index {k} is out of bounds for axis {i} with size {dim}')
             out.append(kk)
         elif isinstance(k, slice):
