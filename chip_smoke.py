@@ -8,8 +8,10 @@ ShortTimeFFT and the rest of psd, stft_scipy, multitaper, spectral, fir),
 the scipy.fft-parity transforms tier (exact-length Bluestein DFT,
 DCT/DST, FFTLog), the IIR recurrence (sosfilt, lfilter, sosfiltfilt,
 decimate), the affine-scan tier (dlsim, lsim, step, impulse, the
-splines) and the signal-generation and design tier (the waves, the
-median, rank and Wiener filters, iirdesign).
+splines), the signal-generation and design tier (the waves, the
+median, rank and Wiener filters, iirdesign) and the system-object and
+design-support tier (fftconvolve, lfiltic, the lti / dlti classes,
+find_peaks, remez, place_poles).
 
     python3 chip_smoke.py
 
@@ -201,9 +203,41 @@ Phases, each raising on failure (exit code 0 means all passed):
    signal and result) over the memory rate, and the phase's time split
    into scipy's references, the checked calls and the timing.
 
+12. the system-object and design-support tier (models/filter_extras.py,
+   ltisys.py, peaks.py, remez.py, placepoles.py), every call with the
+   counts set to 0 before it and held after it, each against scipy.signal
+   in float64 of the same values (computed in 8 threads): fftconvolve of
+   2^23 float32 samples and 4097 taps in 'full', 'same' and 'valid' mode
+   (fft_n = 2^24: K1 + K2 for both operands, K5 on the spectra's product,
+   K3 + K4), of 8 x 2^20 rows and 255 taps (K6 + K7 for the rows, K1 + K2
+   for the taps) and of a 2048^2 image and a 5 x 5 kernel in 'full' and
+   'same' mode (K12 on the 4096-point rows and columns, K5), within 1e-4 of
+   the largest value, their launches held to the routing (conv_launches)
+   and each to its plain version (REL_BOUND); lfilter(butter(4, 0.25)) of
+   2^22 samples in two halves, the second from lfiltic's state, within
+   1e-5 of the one-pass filter and 1e-4 of scipy; dlti (the zoh at dt 0.1
+   of the analog butter(4, 2 pi 0.5), 4 states).output of a 2^22-step
+   float32 Tensor (y against lfilter of its ss2tf, x over the first 2^16
+   steps against dlsim, 1e-5); lti(analog butter(4, 2 pi 50)).output of
+   10^6 times and its step and impulse of N = 10^5 (the first 2^16 steps
+   against scipy's lsim, step and impulse, 1e-10); dlti([1], [1, -0.5],
+   dt=0.1).bode(n=4096), whose phase equals scipy's within 1e-9 degrees
+   (ROADMAP F9); find_peaks (height, distance, prominence, width, wlen,
+   plateau_size) of a 2^22 float32 Tensor of 600 rounded Gaussian pulses
+   (the indices equal to scipy's, the properties within 1e-12),
+   peak_widths (1e-12) and argrelmax(order=3) (equal); remez at 73 and 101
+   taps (1e-4); place_poles of a 4-state single-input system (the gain
+   within 1e-8 of scipy's) and a 6-state 2-input one (the poles within
+   1e-8 of the request) (no kernel but fftconvolve's); then each device
+   row's host time (median of 25), device time by op (torch.profiler over
+   10 calls), busy share, the checked call's peak device memory and the
+   bound of its bytes, the peak finder's rows' (median of 5, 3 calls) and
+   the host rows' host time, and the phase's time split.
+
 The last lines are the kernels' JSON record (its ``launches_by_path``
 holds each path's launches, 'models', 'transforms', 'recurrence',
-'scans' and 'signals' among them), the card line and the result line. Without a CUDA device the script exits non-zero before any of
+'scans', 'signals' and 'systems' among them), the card line and the
+result line. Without a CUDA device the script exits non-zero before any of
 them.
 
     python3 chip_smoke.py --profile
@@ -257,6 +291,10 @@ runs phases 1-2 and phase 10 alone.
     python3 chip_smoke.py --signals
 
 runs phases 1-2 and phase 11 alone.
+
+    python3 chip_smoke.py --systems
+
+runs phases 1-2 and phase 12 alone.
 
     python3 chip_smoke.py --map-candidates TREE [TREE ...]
 
@@ -501,16 +539,21 @@ def filter_fft(dsc, sig, taps, n_taps: int, n: int = STEP_N):
     return dsc.irfft(spec)[: sig.shape[0] + n_taps - 1]
 
 
+EMPTY_PROFILE_TRIES = 3
+
+
 def device_profile(fn, what: str, steps: int = 20, tries: int = 3):
     """torch.profiler over ``steps`` calls of ``fn``: [(device ms per call,
     launches per call, kernel or copy name)], largest first, and the profile.
-    No device event, or a kernel recorded a number of times that is no
-    multiple of the calls, means the trace lost events: the calls are
-    profiled again, at most ``tries`` times in all."""
+    A kernel recorded a number of times that is no multiple of the calls
+    means the trace lost events: the calls are profiled again, at most
+    ``tries`` times in all. A trace with no device event at all is profiled
+    again whatever ``tries`` says, at most EMPTY_PROFILE_TRIES times in all
+    (the rows are then empty: see device_busy)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for attempt in range(tries):
+    for attempt in range(max(tries, EMPTY_PROFILE_TRIES)):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
                 fn()
@@ -519,9 +562,12 @@ def device_profile(fn, what: str, steps: int = 20, tries: int = 3):
                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
         if events and all(e.count % steps == 0 for e in events):
             break
-        again = 'profiling again' if attempt + 1 < tries else 'kept as read'
+        last = attempt + 1 >= (tries if events else EMPTY_PROFILE_TRIES)
         print(f'  torch.profiler lost events ({what}: '
-              f'{sorted(e.count for e in events)} over {steps} calls), {again}')
+              f'{sorted(e.count for e in events)} over {steps} calls), '
+              f'{"kept as read" if last else "profiling again"}')
+        if last:
+            break
     rows = sorted(((e.self_device_time_total / steps / 1e3, e.count // steps, e.key)
                    for e in events), reverse=True)
     return rows, prof
@@ -540,6 +586,22 @@ def print_profile(rows, what: str, wall: float, card: str, steps: int = 20) -> f
     else:
         print('  torch.profiler recorded no device time: busy share not measured')
     return busy
+
+
+def device_busy(fn, what: str, wall: float, card: str, steps: int, tries: int = 1):
+    """device_profile and print_profile of a row that must show device
+    work: (device ms a call, the rows, the profile, how the time was read).
+    Where torch.profiler recorded no device event in any profile, the device
+    time is one call's span between CUDA events instead (median of 3; the
+    idle gaps inside the call count, so it bounds the busy time from above)."""
+    rows, prof = device_profile(fn, what, steps=steps, tries=tries)
+    busy = print_profile(rows, what, wall, card, steps)
+    if busy:
+        return busy, rows, prof, 'torch.profiler'
+    span = cuda_ms(fn, runs=3)
+    print(f'  {what}: device time by CUDA events instead: a call spans {span:.4f} ms on the '
+          f'device (median of 3, idle gaps inside the call included) [{card}]')
+    return span, rows, prof, 'CUDA events span'
 
 
 def profile_step(dsc, card: str) -> None:
@@ -2041,12 +2103,11 @@ def scans_phase(dsc, card: str) -> dict:
         steps = 10 if runs > 1 else 1
         # torch.profiler drops the same events at every attempt on these
         # rows, so one profile, its short counts printed
-        prof_rows, _ = device_profile(fn, what, steps=steps, tries=1)
-        busy = print_profile(prof_rows, what, wall, card, steps)
+        busy, prof_rows, _, how = device_busy(fn, what, wall, card, steps)
         require(busy > 0, f'{what}: no device time')
         bound = 8.0 * (n_in + n_out) / PEAK_BYTES_S * 1e3
         timing = f'median of {runs}' if runs > 1 else 'the checked call'
-        print(f'  {what}: {wall:.4f} ms a call ({timing}), device {busy:.4f} ms, busy '
+        print(f'  {what}: {wall:.4f} ms a call ({timing}), device {busy:.4f} ms ({how}), busy '
               f'share {busy / wall:.3f}, {sum(r[1] for r in prof_rows)} kernels and copies a '
               f'call; peak device memory above the input {peak:.1f} MiB; bound of its float64 '
               f'input and output bytes {bound:.4f} ms ({busy / bound:.1f}x); the checked call '
@@ -2058,6 +2119,79 @@ def scans_phase(dsc, card: str) -> dict:
           f'timing and profiles {timed_s:.1f} s [{card}]')
     return dict.fromkeys(KERNELS, 0)
 
+
+
+class TierRows:
+    """The checked calls of a tier's phase (11, 12): each row's launches,
+    added up in ``launches``, the row being checked in ``current[0]`` (for
+    held_launches), and each checked call's host ms and peak device MiB
+    above what was allocated before it in ``first``."""
+
+    def __init__(self, card: str):
+        self.card = card
+        self.launches = dict.fromkeys(KERNELS, 0)
+        self.current = ['']
+        self.first = {}
+
+    def run(self, what, fn, want=None):
+        """``fn()`` with the counts set to 0 before it and held to ``want``
+        (no launch by default) after it; the call's host time and peak device
+        memory above what was allocated before it are kept in ``first``."""
+        from dsc_tpu_torch.kernels import build
+
+        self.current[0] = what
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        self.first[what] = (1e3 * (time.perf_counter() - t0),
+                            (torch.cuda.max_memory_allocated() - base) / 2**20)
+        got = {name: count for name, count in build.launches.items() if count}
+        for name, count in got.items():
+            self.launches[name] += count
+        require(got == (want or {}), f'{what}: launches {got}, want {want or {}}')
+        return out
+
+    def time_row(self, what, fn, n_bytes):
+        """The row's host time (median of RUNS), device time by op
+        (torch.profiler over 10 calls) and busy share, the checked call's host
+        time and peak memory, and the bound of its ``n_bytes`` (0: none) over
+        the memory rate: the line to print, and the profile."""
+        wall = host_ms(fn)
+        busy, prof_rows, prof, how = device_busy(fn, what, wall, self.card, 10)
+        require(busy > 0, f'{what}: no device time')
+        line = (f'  {what}: {wall:.4f} ms a call, device {busy:.4f} ms ({how}), busy share '
+                f'{busy / wall:.3f}, {sum(r[1] for r in prof_rows)} kernels and copies a call')
+        if what in self.first:
+            line += (f'; the checked call {self.first[what][0]:.1f} ms, peak device memory '
+                     f'above what it was given {self.first[what][1]:.1f} MiB')
+        if n_bytes:
+            bound = n_bytes / PEAK_BYTES_S * 1e3
+            line += f'; bound of its bytes {bound:.4f} ms ({busy / bound:.1f}x)'
+        return line, prof
+
+    def check(self, what, got, ref, bound, exact=False, scale='max'):
+        """``got`` (a Tensor, or a host array) against the float64 host
+        ``ref`` where ``got`` lies: equal (``exact``) or within ``bound`` times the
+        largest |ref| ('max') or max(1, largest |ref|) ('max1'); finite, as
+        shaped."""
+        g = torch.from_numpy(got) if isinstance(got, np.ndarray) else got.torch
+        r = torch.from_numpy(np.ascontiguousarray(ref)).to(g.device)
+        require(tuple(g.shape) == tuple(r.shape) and bool(torch.isfinite(g).all()),
+                f'{what}: shape {tuple(g.shape)} (want {tuple(r.shape)}) or not finite')
+        if exact:
+            n_diff = int((g.to(torch.float64) != r).sum())
+            print(f'  {what}: {n_diff} samples differ (bound: none) [{self.card}]')
+            require(n_diff == 0, f'{what}: {n_diff} samples differ')
+            return
+        top = float(r.abs().max())
+        den = max(1.0, top) if scale == 'max1' else top
+        err = float((g.to(torch.float64) - r).abs().max()) / den
+        print(f'  {what}: {err:.3e} (rel, bound {bound:g}) [{self.card}]')
+        require(err <= bound, f'{what}: {err} > {bound}')
 
 
 # phase 11's sizes: the waves' time axes, the 1-D filters' signals and the
@@ -2101,55 +2235,15 @@ def signals_phase(dsc, card: str, compare) -> dict:
     import scipy.signal as sps
 
     from dsc_tpu_torch import models as M
-    from dsc_tpu_torch.kernels import build
 
     print(f'phase 11: the signal-generation and design tier: five waves of {WAVE_N} samples, '
           f'medfilt / medfilt2d / order_filter / wiener, chirp -> sosfilt(ellip) -> medfilt -> '
           f'welch [{card}]')
     gen = np.random.default_rng(11)
-    launches = dict.fromkeys(KERNELS, 0)
-    current = ['']
-    first = {}  # row -> (host ms of its checked call, peak MiB above what was allocated before)
+    rows = TierRows(card)
+    launches, current, first, run, check = rows.launches, rows.current, rows.first, rows.run, \
+        rows.check
     t_phase = time.perf_counter()
-
-    def run(what, fn, want=None):
-        """``fn()`` with the counts set to 0 before it and held to ``want``
-        (no launch by default) after it; the call's host time and peak device
-        memory above what was allocated before it are kept in ``first``."""
-        current[0] = what
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        build.reset_launches()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        first[what] = (1e3 * (time.perf_counter() - t0),
-                       (torch.cuda.max_memory_allocated() - base) / 2**20)
-        got = {name: count for name, count in build.launches.items() if count}
-        for name, count in got.items():
-            launches[name] += count
-        require(got == (want or {}), f'{what}: launches {got}, want {want or {}}')
-        return out
-
-    def check(what, got, ref, bound, exact=False, scale='max'):
-        """``got`` (a Tensor) against the float64 host ``ref`` on the card:
-        equal (``exact``) or within ``bound`` times the largest |ref|
-        ('max') or max(1, largest |ref|) ('max1'); finite, as shaped."""
-        g = got.torch
-        r = torch.from_numpy(np.ascontiguousarray(ref)).to(g.device)
-        require(tuple(g.shape) == tuple(r.shape) and bool(torch.isfinite(g).all()),
-                f'{what}: shape {tuple(g.shape)} (want {tuple(r.shape)}) or not finite')
-        if exact:
-            n_diff = int((g.to(torch.float64) != r).sum())
-            print(f'  {what}: {n_diff} samples differ (bound: none) [{card}]')
-            require(n_diff == 0, f'{what}: {n_diff} samples differ')
-            return
-        top = float(r.abs().max())
-        den = max(1.0, top) if scale == 'max1' else top
-        err = float((g.to(torch.float64) - r).abs().max()) / den
-        print(f'  {what}: {err:.3e} (rel, bound {bound:g}) [{card}]')
-        require(err <= bound, f'{what}: {err} > {bound}')
 
     # -- the inputs, and scipy's float64 references in 8 threads (numpy
     #    releases the interpreter lock in its array loops)
@@ -2331,18 +2425,7 @@ def signals_phase(dsc, card: str, compare) -> dict:
     timed += [('chain eager (no design)', lambda: chain(tp, noise), 0),
               ('chain compiled (replays)', lambda: compiled(tp, noise), 0)]
     for what, fn, n_bytes in timed:
-        wall = host_ms(fn)
-        prof_rows, prof = device_profile(fn, what, steps=10, tries=1)
-        busy = print_profile(prof_rows, what, wall, card, 10)
-        require(busy > 0, f'{what}: no device time')
-        line = (f'  {what}: {wall:.4f} ms a call, device {busy:.4f} ms, busy share '
-                f'{busy / wall:.3f}, {sum(r[1] for r in prof_rows)} kernels and copies a call')
-        if what in first:
-            line += (f'; the checked call {first[what][0]:.1f} ms, peak device memory above '
-                     f'what it was given {first[what][1]:.1f} MiB')
-        if n_bytes:
-            bound = n_bytes / PEAK_BYTES_S * 1e3
-            line += f'; bound of its bytes {bound:.4f} ms ({busy / bound:.1f}x)'
+        line, prof = rows.time_row(what, fn, n_bytes)
         if what == 'chain compiled (replays)':
             host = {ev.key: ev.count for ev in prof.key_averages()}
             line += (f'; cudaGraphLaunch {host.get("cudaGraphLaunch", 0)}, cudaLaunchKernel '
@@ -2358,6 +2441,331 @@ def signals_phase(dsc, card: str, compare) -> dict:
           f'{timed_s:.1f} s [{card}]')
     print(f'  launches on the signals path: {launches} [{card}]')
     return launches
+
+# phase 12's sizes: fftconvolve's signal, taps, batch and image; the signals
+# of the lfilter continuation, the dlti output and the peak finder; the
+# continuous output's times and the step and impulse responses' points; and
+# the first steps on which scipy's simulators (Python loops) are held
+CONV_N = 2**23
+CONV_TAPS = 4097
+CONV_BATCH = (8, 2**20)
+CONV_BATCH_TAPS = 255
+CONV_IMAGE = 2048
+SYSTEM_N = 2**22
+LSIM_N = 10**6
+RESPONSE_N = 10**5
+SCIPY_STEPS = 2**16
+
+
+def fft_route_launches(steps) -> dict:
+    """The launches of the real and complex FFTs ``steps`` (kind, batch, n)
+    on the card by the routing of fourier/config.py: K1 + K2 for an rfft
+    ('r2c') and K3 + K4 for an irfft ('c2r') on the packed route, the core's
+    rule (core_launches) for the rest; a route into the T layout fails."""
+    from dsc_tpu_torch.dtype import Dtype
+    from dsc_tpu_torch.fourier import config
+
+    want, rest = dict.fromkeys(KERNELS, 0), []
+    for kind, batch, n in steps:
+        route = (config.rfft_route(Dtype.F32, batch, n) if kind == 'r2c' else
+                 config.fft_route(Dtype.C32, batch, n, False) if kind == 'c2c' else
+                 config.irfft_route(Dtype.C32, batch, n))
+        require(route != 'stream_t', f'{kind} of {batch} x {n}: the T layout is not modelled here')
+        if kind == 'r2c' and route == 'packed':
+            want['rfft_phase_a'] += 1
+            want['rfft_phase_b'] += 1
+        elif kind == 'c2r' and route == 'packed':
+            want['irfft_phase_a'] += 1
+            want['irfft_phase_b'] += 1
+        else:
+            rest.append((kind, batch, n))
+    for name, count in core_launches(rest).items():
+        want[name] += count
+    return {name: count for name, count in want.items() if count}
+
+
+def conv_launches(sig_shape, k_shape) -> dict:
+    """The launches of fftconvolve (models/filter_fft.py) of a float32
+    signal or batch of rows ``sig_shape`` with taps ``k_shape``: the 1-D
+    route (rfft of both at the next power of two, the spectra's product,
+    irfft) or, for two 2-D operands, the 2-D one (rfft over rows, fft over
+    columns, and back), K5 on the complex64 product where ops/stream_map.py's
+    route takes it."""
+    from dsc_tpu_torch.fourier.plan import next_pow2
+    from dsc_tpu_torch.ops import stream_map as sm
+
+    if len(sig_shape) == 2 and len(k_shape) == 2:
+        (m, n), (p, q) = sig_shape, k_shape
+        s0, s1 = next_pow2(m + p - 1), next_pow2(n + q - 1)
+        half = s1 // 2 + 1
+        steps = [('r2c', m, s1), ('c2c', half, s0), ('r2c', p, s1), ('c2c', half, s0),
+                 ('c2c', half, s0), ('c2r', s0, s1)]
+        spectra = ((s0, half), (s0, half))
+    else:
+        batch, n, k = math.prod(sig_shape[:-1]), sig_shape[-1], k_shape[-1]
+        fft_n = next_pow2(n + k - 1)
+        half = fft_n // 2 + 1
+        steps = [('r2c', batch, fft_n), ('r2c', 1, fft_n), ('c2r', batch, fft_n)]
+        spectra = ((*sig_shape[:-1], half), (half,))
+    want = fft_route_launches(steps)
+    if sm.eligible_complex(*spectra):
+        want['stream_map'] = want.get('stream_map', 0) + 1
+    return want
+
+
+def peak_signal(gen, n: int) -> np.ndarray:
+    """``n`` float32 samples: 600 Gaussian pulses (heights 0.5-2, widths
+    4-40 samples) at random places on a slow sine of amplitude 0.2, rounded
+    to 1/1024, so that the pulses' tops are plateaus of 1-3 samples."""
+    x = 0.2 * np.sin(2 * np.pi * 3 * np.arange(n) / n)
+    at = np.sort(gen.choice(n - 400, 600, replace=False) + 200)
+    for c, amp, width in zip(at, gen.uniform(0.5, 2.0, at.size), gen.uniform(4.0, 40.0, at.size)):
+        j = np.arange(c - 160, c + 161)
+        x[j] += amp * np.exp(-0.5 * ((j - c) / width) ** 2)
+    return (np.round(x * 1024) / 1024).astype(np.float32)
+
+
+def systems_phase(dsc, card: str, compare) -> dict:
+    """Phase 12: the system-object and design-support tier
+    (models/filter_extras.py, ltisys.py, placepoles.py, remez.py, peaks.py)
+    at full size, every call with the launch counts set to 0 just before it
+    and held to the routing just after, each against scipy.signal in float64
+    on the same values: fftconvolve 1-D (CONV_N x CONV_TAPS, three modes; a
+    CONV_BATCH batch) and 2-D (CONV_IMAGE^2 x 5 x 5) with every kernel launch
+    held to its plain version; lfilter of SYSTEM_N samples in two halves, the
+    second from lfiltic's state; dlti.output of a SYSTEM_N-step Tensor input,
+    lti(tf).output of LSIM_N times, step and impulse of RESPONSE_N points (no
+    kernel: the float64 affine scan), scipy's Python-loop simulators on the
+    first SCIPY_STEPS steps; dlti([1], [1, -0.5], dt=0.1).bode (F9),
+    find_peaks, peak_widths and argrelmax of a SYSTEM_N float32 Tensor,
+    remez and place_poles (the host). Then each row's host time, device time
+    by op, busy share, peak device memory and the bound of its bytes, and the
+    phase's time split. Returns the launches of each kernel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import scipy.signal as sps
+
+    from dsc_tpu_torch import models as M
+
+    print(f'phase 12: the system-object and design-support tier: fftconvolve 2^'
+          f'{CONV_N.bit_length() - 1} x {CONV_TAPS}, {CONV_BATCH[0]} x 2^'
+          f'{CONV_BATCH[1].bit_length() - 1} x {CONV_BATCH_TAPS} and {CONV_IMAGE}^2 x 5 x 5, '
+          f'lfiltic, lti / dlti, find_peaks, remez, place_poles [{card}]')
+    gen = np.random.default_rng(12)
+    rows = TierRows(card)
+    run, check, first = rows.run, rows.check, rows.first
+    t_phase = time.perf_counter()
+
+    # -- the inputs
+    sig = gen.standard_normal(CONV_N).astype(np.float32)
+    taps = gen.standard_normal(CONV_TAPS).astype(np.float32)
+    batch = gen.standard_normal(CONV_BATCH).astype(np.float32)
+    btaps = gen.standard_normal(CONV_BATCH_TAPS).astype(np.float32)
+    image = gen.standard_normal((CONV_IMAGE, CONV_IMAGE)).astype(np.float32)
+    kernel = gen.standard_normal((5, 5)).astype(np.float32)
+    b, a = sps.butter(4, 0.25)
+    xf = gen.standard_normal(SYSTEM_N).astype(np.float32)
+    # the zero-order hold at dt 0.1 of the analog butter(4, 2 pi 0.5): 4 states
+    sysd = M.lti(*sps.butter(4, 2 * np.pi * 0.5, analog=True, output='zpk')).to_ss() \
+        .to_discrete(0.1)
+    u = gen.standard_normal(SYSTEM_N).astype(np.float32)
+    # phase 10's analog butter(4, 2 pi 50) as a transfer function
+    tf = sps.butter(4, 2 * np.pi * 50, analog=True)
+    times = np.arange(LSIM_N) * 1e-4
+    U = np.sin(2 * np.pi * 30.0 * times) + 0.5 * gen.standard_normal(LSIM_N)
+    xp = peak_signal(gen, SYSTEM_N)
+    peak_kw = {'height': 0.4, 'distance': 64, 'prominence': 0.3, 'width': (4, 200),
+               'wlen': 257, 'plateau_size': (1, 32)}
+    remez_cases = {73: ([0, 0.2, 0.25, 0.5], [1, 0]), 101: ([0, 0.1, 0.15, 0.5], [1, 0])}
+    pp = np.random.default_rng(13)
+    a4, b4 = pp.standard_normal((4, 4)), pp.standard_normal((4, 1))
+    a6, b6 = pp.standard_normal((6, 6)), pp.standard_normal((6, 2))
+    p4 = np.array([-1.0, -2.0, -3.0, -4.0])
+    p6 = np.array([-1 + 1j, -1 - 1j, -2.0, -2.5, -3.0, -4.0])
+    modes = ('full', 'same', 'valid')
+
+    # -- scipy's float64 references in 8 threads
+    t_refs = time.perf_counter()
+    x64 = xf.astype(np.float64)
+    u64 = u.astype(np.float64)
+    num, den = sps.ss2tf(sysd.A, sysd.B, sysd.C, sysd.D)
+    with ThreadPoolExecutor(8) as pool:
+        jobs = {f'conv {mode}': pool.submit(sps.fftconvolve, sig.astype(np.float64),
+                                            taps.astype(np.float64), mode)
+                for mode in modes}
+        jobs['conv batch'] = pool.submit(sps.fftconvolve, batch.astype(np.float64),
+                                         btaps.astype(np.float64)[None], 'full', -1)
+        jobs.update({f'conv2 {mode}': pool.submit(sps.fftconvolve, image.astype(np.float64),
+                                                  kernel.astype(np.float64), mode)
+                     for mode in ('full', 'same')})
+        jobs['lfilter'] = pool.submit(sps.lfilter, b, a, x64)
+        jobs['dlti y'] = pool.submit(sps.lfilter, num[0], den, u64)
+        jobs['dlti x'] = pool.submit(sps.dlsim, (sysd.A, sysd.B, sysd.C, sysd.D, 0.1),
+                                     u64[:SCIPY_STEPS])
+        jobs['lsim'] = pool.submit(sps.lsim, tf, U[:SCIPY_STEPS], times[:SCIPY_STEPS])
+        jobs['peaks'] = pool.submit(sps.find_peaks, xp.astype(np.float64), **peak_kw)
+        jobs['argrelmax'] = pool.submit(sps.argrelmax, xp.astype(np.float64), order=3)
+        jobs['bode'] = pool.submit(lambda: sps.dlti([1.0], [1.0, -0.5], dt=0.1).bode(n=4096))
+        jobs.update({f'remez {n}': pool.submit(sps.remez, n, *case)
+                     for n, case in remez_cases.items()})
+        jobs['place 4'] = pool.submit(sps.place_poles, a4, b4, p4)
+        refs = {key: job.result() for key, job in jobs.items()}
+    refs_s = time.perf_counter() - t_refs
+
+    def equal(what, ok, detail=''):
+        print(f'  {what}: {"equal" if ok else "differ"}{detail} [{card}]')
+        require(ok, f'{what}: differ{detail}')
+
+    # -- fftconvolve: K1-K4 and K5 (1-D), K6/K7 (the batch), K12 and K5 (2-D)
+    t_checks = time.perf_counter()
+    sig_t, taps_t = dsc.from_numpy(sig), dsc.from_numpy(taps)
+    batch_t, btaps_t = dsc.from_numpy(batch), dsc.from_numpy(btaps)
+    image_t, kernel_t = dsc.from_numpy(image), dsc.from_numpy(kernel)
+    conv_rows = {  # row -> (call, reference, launches, float32 values read and written)
+        **{f'fftconvolve 2^{CONV_N.bit_length() - 1} x {CONV_TAPS} {mode}': (
+            lambda mode=mode: M.fftconvolve(sig_t, taps_t, mode=mode), f'conv {mode}',
+            conv_launches(sig.shape, taps.shape), sig.size + taps.size) for mode in modes},
+        f'fftconvolve {CONV_BATCH[0]} x 2^{CONV_BATCH[1].bit_length() - 1} x '
+        f'{CONV_BATCH_TAPS} full': (lambda: M.fftconvolve(batch_t, btaps_t), 'conv batch',
+                                    conv_launches(batch.shape, btaps.shape),
+                                    batch.size + btaps.size),
+        **{f'fftconvolve {CONV_IMAGE}^2 x 5 x 5 {mode}': (
+            lambda mode=mode: M.fftconvolve(image_t, kernel_t, mode=mode), f'conv2 {mode}',
+            conv_launches(image.shape, kernel.shape), image.size + kernel.size)
+           for mode in ('full', 'same')}}
+    with held_launches(compare, lambda: rows.current[0]):
+        for what, (fn, ref, want, _) in conv_rows.items():
+            out = run(what, fn, want)
+            check(f'{what} vs scipy.signal.fftconvolve float64', out, refs[ref], NUMPY_BOUND)
+    del out
+
+    # -- lfilter in two halves, the second from lfiltic's state (no kernel)
+    half = SYSTEM_N // 2
+    xt = dsc.from_numpy(xf)
+    whole = run(f'lfilter 2^{SYSTEM_N.bit_length() - 1} in one pass', lambda: M.lfilter(b, a, xt))
+    first_half = run('lfilter, the first half', lambda: M.lfilter(b, a, xt[:half]))
+    zi = M.lfiltic(b, a, first_half[half - 4:].numpy()[::-1].astype(np.float64),
+                   xf[half - 4:half][::-1].astype(np.float64))
+    second = xt[half:]
+    cont, _ = run('lfilter, the second half from lfiltic', lambda: M.lfilter(b, a, second, zi=zi))
+    e = rel_err(cont.torch.to(torch.float64), whole.torch[half:].to(torch.float64))
+    print(f'  the second half from lfiltic vs the one-pass filter: {e:.3e} (rel, bound 1e-5) '
+          f'[{card}]')
+    require(e <= 1e-5, f'lfiltic continuation vs one pass: {e}')
+    check('the second half from lfiltic vs scipy.signal.lfilter float64', cont,
+          refs['lfilter'][half:], 1e-4)
+
+    # -- the class API (no kernel: the float64 affine scan)
+    ut = dsc.from_numpy(u)
+    _, y, x = run(f'dlti (4 states, dt 0.1).output 2^{SYSTEM_N.bit_length() - 1} Tensor',
+                  lambda: sysd.output(ut))
+    require(isinstance(y, dsc.Tensor) and y.device == ut.device, 'dlti.output left the device')
+    check('dlti.output y vs scipy.signal.lfilter of its ss2tf, float64', y, refs['dlti y'][:, None],
+          1e-5)
+    check(f'dlti.output x, the first {SCIPY_STEPS} steps, vs scipy.signal.dlsim float64',
+          x[:SCIPY_STEPS], refs['dlti x'][2], 1e-5)
+    sys_tf = M.lti(*tf)
+    _, ly, _ = run(f'lti(tf).output of {LSIM_N} times', lambda: sys_tf.output(U, times))
+    check(f'lti(tf).output, the first {SCIPY_STEPS} steps, vs scipy.signal.lsim float64',
+          ly[:SCIPY_STEPS], refs['lsim'][1], 1e-10)
+    for kind, ref_fn in (('step', sps.step), ('impulse', sps.impulse)):
+        t_r, y_r = run(f'lti(tf).{kind} N {RESPONSE_N}',
+                       lambda kind=kind: getattr(sys_tf, kind)(N=RESPONSE_N))
+        _, want = ref_fn(tf, T=t_r[:SCIPY_STEPS])
+        check(f'lti(tf).{kind}, the first {SCIPY_STEPS} points, vs scipy.signal.{kind} '
+              f'float64', y_r[:SCIPY_STEPS], want, 1e-10)
+    w, mag, phase = run('dlti([1], [1, -0.5], dt=0.1).bode(n=4096)',
+                        lambda: M.dlti([1.0], [1.0, -0.5], dt=0.1).bode(n=4096))
+    ws, mags, phases = refs['bode']
+    e = float(np.abs(phase - phases).max())
+    print(f'  dlti bode vs scipy.signal.dlti.bode (F9): phase {e:.3e} deg (bound 1e-9), '
+          f'magnitude {np.abs(mag - mags).max():.3e} dB, w {np.abs(w - ws).max():.3e} [{card}]')
+    require(e <= 1e-9 and np.allclose(w, ws, rtol=1e-14) and np.abs(mag - mags).max() <= 1e-9,
+            f'dlti bode vs scipy: phase {e}')
+
+    # -- peaks of a Tensor (one download each)
+    xpt = dsc.from_numpy(xp)
+    peaks, props = run(f'find_peaks 2^{SYSTEM_N.bit_length() - 1} Tensor',
+                       lambda: M.find_peaks(xpt, **peak_kw))
+    want_peaks, want_props = refs['peaks']
+    prop_err = max(float(np.abs(props[k] - want_props[k]).max(initial=0.0))
+                   / max(1.0, float(np.abs(want_props[k]).max(initial=0.0))) for k in want_props)
+    equal(f'find_peaks: {peaks.size} peaks, indices vs scipy.signal.find_peaks',
+          np.array_equal(peaks, want_peaks) and sorted(props) == sorted(want_props),
+          f'; properties {prop_err:.3e} (rel, bound 1e-12)')
+    require(peaks.size > 100 and prop_err <= 1e-12, f'find_peaks properties: {prop_err}')
+    widths = run('peak_widths rel_height 1', lambda: M.peak_widths(xpt, peaks, 1.0, wlen=257))
+    e = max(float(np.abs(g - r).max()) for g, r in
+            zip(widths, sps.peak_widths(xp.astype(np.float64), peaks, 1.0, wlen=257)))
+    print(f'  peak_widths vs scipy.signal.peak_widths float64: {e:.3e} (bound 1e-12) [{card}]')
+    require(e <= 1e-12, f'peak_widths: {e}')
+    got = run('argrelmax order 3', lambda: M.argrelmax(xpt, 3))
+    equal(f'argrelmax order 3: {got[0].size} maxima vs scipy.signal.argrelmax',
+          np.array_equal(got[0], refs['argrelmax'][0]))
+
+    # -- the host designs
+    for n, (bands, desired) in remez_cases.items():
+        got = run(f'remez {n} taps', lambda n=n, bands=bands, desired=desired:
+                  M.remez(n, bands, desired))
+        require(got.device == xpt.device, f'remez {n}: taps on {got.device}')
+        check(f'remez {n} taps vs scipy.signal.remez', got, refs[f'remez {n}'], 1e-4, scale='max1')
+    got = run('place_poles 4 states, 1 input', lambda: M.place_poles(a4, b4, p4))
+    want = refs['place 4'].gain_matrix
+    e = float(np.abs(got.gain_matrix - want).max()) / max(1.0, float(np.abs(want).max()))
+    print(f'  place_poles 4 x 1 gain vs scipy.signal.place_poles: {e:.3e} (rel, bound 1e-8) '
+          f'[{card}]')
+    require(e <= 1e-8, f'place_poles gain: {e}')
+    got = run('place_poles 6 states, 2 inputs', lambda: M.place_poles(a6, b6, p6))
+    e = float(np.abs(got.computed_poles - np.sort_complex(p6)).max())
+    print(f'  place_poles 6 x 2 computed poles vs the request: {e:.3e} (bound 1e-8) [{card}]')
+    require(e <= 1e-8, f'place_poles poles: {e}')
+    checked_s = time.perf_counter() - t_checks
+
+    # -- each row's host time, device time by op over 10 calls, busy share,
+    #    the checked call's peak memory, the bound of its bytes: float32
+    #    operands and results, the dlti's float32 input, y and x (4 states),
+    #    lti's float64 U uploaded and y and x (4 states) downloaded, the
+    #    peak finder's download of the float32 signal
+    t_timed = time.perf_counter()
+    timed = [(what, fn, 4 * (n_in + refs[ref].size))
+             for what, (fn, ref, _, n_in) in conv_rows.items()]
+    timed += [('lfilter, the second half from lfiltic',
+               lambda: M.lfilter(b, a, second, zi=zi), 8 * (SYSTEM_N - half)),
+              (f'dlti (4 states, dt 0.1).output 2^{SYSTEM_N.bit_length() - 1} Tensor',
+               lambda: sysd.output(ut), 4 * SYSTEM_N * (1 + 1 + 4)),
+              (f'lti(tf).output of {LSIM_N} times', lambda: sys_tf.output(U, times),
+               8 * LSIM_N * (1 + 1 + 4)),
+              (f'lti(tf).step N {RESPONSE_N}', lambda: sys_tf.step(N=RESPONSE_N), 0),
+              (f'lti(tf).impulse N {RESPONSE_N}', lambda: sys_tf.impulse(N=RESPONSE_N), 0)]
+    for what, fn, n_bytes in timed:
+        print(rows.time_row(what, fn, n_bytes)[0] + f' [{card}]')
+    # the peak finder's rows are host loops of 0.1-0.5 s a call: median of 5,
+    # device time over 3 calls (the download)
+    for what, fn in ((f'find_peaks 2^{SYSTEM_N.bit_length() - 1} Tensor',
+                      lambda: M.find_peaks(xpt, **peak_kw)),
+                     ('peak_widths rel_height 1', lambda: M.peak_widths(xpt, peaks, 1.0, wlen=257)),
+                     ('argrelmax order 3', lambda: M.argrelmax(xpt, 3))):
+        wall = host_ms(fn, runs=5)
+        prof_rows, _ = device_profile(fn, what, steps=3, tries=1)
+        busy = print_profile(prof_rows, what, wall, card, 3)
+        device = (f'device {busy:.4f} ms, busy share {busy / wall:.4f}' if busy else
+                  'device time not measured (torch.profiler recorded no device event)')
+        print(f'  {what}: {wall:.4f} ms a call (median of 5), {device}; the checked call '
+              f'{first[what][0]:.1f} ms; bound of its bytes '
+              f'{4 * SYSTEM_N / PEAK_BYTES_S * 1e3:.4f} ms [{card}]')
+    for what, fn in (('dlti([1], [1, -0.5], dt=0.1).bode(n=4096)',
+                      lambda: M.dlti([1.0], [1.0, -0.5], dt=0.1).bode(n=4096)),
+                     ('remez 101 taps', lambda: M.remez(101, *remez_cases[101])),
+                     ('place_poles 6 states, 2 inputs', lambda: M.place_poles(a6, b6, p6))):
+        print(f'  {what}: {host_ms(fn):.4f} ms a call on the host (median of {RUNS}) [{card}]')
+    timed_s = time.perf_counter() - t_timed
+    print(f'  phase 12: {time.perf_counter() - t_phase:.1f} s: scipy references {refs_s:.1f} s '
+          f'(8 threads), the port\'s checked calls and checks {checked_s:.1f} s (the calls '
+          f'{sum(ms for ms, _ in first.values()) / 1e3:.1f} s), timing and profiles '
+          f'{timed_s:.1f} s [{card}]')
+    print(f'  launches on the systems path: {rows.launches} [{card}]')
+    return rows.launches
+
 
 def _tensors_in(entry):
     """The torch tensors of a cache entry of models/iir.py (nested tuples)."""
@@ -2396,6 +2804,9 @@ def main() -> int:
     parser.add_argument('--signals', action='store_true',
                         help='run phase 11 (the signal-generation and design tier) alone after '
                              'the build')
+    parser.add_argument('--systems', action='store_true',
+                        help='run phase 12 (the system-object and design-support tier) alone '
+                             'after the build')
     parser.add_argument('--map-candidates', nargs='+', metavar='TREE',
                         help='time K5 of each tree (a checkout of the port) in turns, '
                              'in place of the checks')
@@ -2514,6 +2925,9 @@ def main() -> int:
         return 0
     if args.signals:
         signals_phase(dsc, card, compare)
+        return 0
+    if args.systems:
+        systems_phase(dsc, card, compare)
         return 0
 
     # -- 3. kernels vs plain versions --------------------------------------
@@ -3171,6 +3585,11 @@ def main() -> int:
     signal_launches = signals_phase(dsc, card, compare)
     for name in KERNELS:
         by_path[name]['signals'] = signal_launches[name]
+
+    # -- 12. the system-object and design-support tier -----------------------
+    system_launches = systems_phase(dsc, card, compare)
+    for name in KERNELS:
+        by_path[name]['systems'] = system_launches[name]
 
     # the main path's shape of each kernel: the filterFFT at n = 2^21 for the
     # packed passes, the n = 4096 pair's 2048 x 1 for K12, bench's fma for K5,

@@ -2,6 +2,10 @@
 
 from .cwt import cwt, find_peaks_cwt, morlet2, ricker
 from .czt import CZT, ZoomFFT, czt, czt_points, zoom_fft
+from .filter_extras import (abcd_normalize, besselap, bilinear_zpk, buttap, cheb1ap, cheb2ap,
+                            choose_conv_method, dbode, dfreqresp, ellipap, fftconvolve,
+                            findfreqs, freqz_sos, lfiltic, lp2bp, lp2bp_zpk, lp2bs, lp2bs_zpk,
+                            lp2hp, lp2hp_zpk, lp2lp, lp2lp_zpk, unique_roots)
 from .filter_fft import (FilterFFT, convolve, convolve2d, correlate, correlate2d, fft_convolve,
                          fft_convolve2, oaconvolve)
 from .fir import (firls, firwin, firwin2, firwin_2d, gammatone, kaiser_atten, kaiser_beta,
@@ -12,11 +16,18 @@ from .iirdesign import (band_stop_obj, bessel, buttord, cheb1ord, cheb2ord, elli
                         iircomb, iirfilter, iirnotch, iirpeak)
 from .lti import (BadCoefficients, bilinear, deconvolve, normalize, sos2zpk, tf2zpk,
                   unit_impulse, zpk2sos, zpk2tf)
+# after .lti: the package's name ``lti`` is the factory, as in the JAX
+# package; reach the module with importlib.import_module
+from .ltisys import StateSpace, TransferFunction, ZerosPolesGain, dlti, lti
 from .multitaper import lombscargle, multitaper
 from .nonlinear import medfilt, medfilt2d, order_filter, wiener
 from .ola import OverlapSave, overlap_save_convolve
+from .peaks import (argrelextrema, argrelmax, argrelmin, find_peaks, peak_prominences,
+                    peak_widths)
 from .pfe import invres, invresz, residue, residuez
+from .placepoles import place_poles
 from .psd import coherence, csd, detrend, periodogram, psd_spectrogram, welch
+from .remez import remez
 from .response import (bode, correlation_lags, freqresp, freqs, freqs_zpk, freqz_zpk,
                        iirdesign)
 from .short_time_fft import ShortTimeFFT
@@ -53,4 +64,10 @@ __all__ = ['CZT', 'ZoomFFT', 'czt', 'czt_points', 'zoom_fft', 'FilterFFT', 'conv
            'ellipord', 'band_stop_obj', 'iirnotch', 'iirpeak', 'iircomb', 'iirdesign', 'freqs',
            'freqs_zpk', 'freqz_zpk', 'freqresp', 'bode', 'correlation_lags', 'chirp', 'square',
            'sawtooth', 'gausspulse', 'sweep_poly', 'max_len_seq', 'vectorstrength', 'medfilt',
-           'medfilt2d', 'order_filter', 'wiener']
+           'medfilt2d', 'order_filter', 'wiener', 'buttap', 'cheb1ap', 'cheb2ap', 'ellipap',
+           'besselap', 'lp2lp', 'lp2hp', 'lp2bp', 'lp2bs', 'lp2lp_zpk', 'lp2hp_zpk',
+           'lp2bp_zpk', 'lp2bs_zpk', 'bilinear_zpk', 'lfiltic', 'unique_roots', 'findfreqs',
+           'dfreqresp', 'dbode', 'fftconvolve', 'freqz_sos', 'choose_conv_method',
+           'abcd_normalize', 'lti', 'dlti', 'TransferFunction', 'ZerosPolesGain',
+           'StateSpace', 'place_poles', 'remez', 'find_peaks', 'peak_prominences',
+           'peak_widths', 'argrelextrema', 'argrelmax', 'argrelmin']

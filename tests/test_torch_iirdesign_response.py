@@ -385,31 +385,44 @@ NEW_NAMES = {
     'waveforms': ['chirp', 'square', 'sawtooth', 'gausspulse', 'sweep_poly', 'max_len_seq',
                   'vectorstrength'],
     'nonlinear': ['medfilt', 'medfilt2d', 'order_filter', 'wiener']}
-# the reference's names the port has yet to take: filter_extras.py and
-# ltisys.py, then placepoles.py, remez.py and peaks.py
-STILL_MISSING = {
-    'abcd_normalize', 'besselap', 'bilinear_zpk', 'buttap', 'cheb1ap', 'cheb2ap',
-    'choose_conv_method', 'dbode', 'dfreqresp', 'ellipap', 'fftconvolve', 'findfreqs',
-    'freqz_sos', 'lfiltic', 'lp2bp', 'lp2bp_zpk', 'lp2bs', 'lp2bs_zpk', 'lp2hp', 'lp2hp_zpk',
-    'lp2lp', 'lp2lp_zpk', 'unique_roots', 'StateSpace', 'TransferFunction', 'ZerosPolesGain',
-    'dlti', 'lti', 'place_poles', 'remez', 'argrelextrema', 'argrelmax', 'argrelmin',
-    'find_peaks', 'peak_prominences', 'peak_widths'}
+# the five modules that completed the facade, each checked in its own file
+# (test_torch_filter_extras.py, test_torch_ltisys.py, test_torch_design_peaks.py)
+SYSTEM_TIER = {
+    'filter_extras': ['abcd_normalize', 'besselap', 'bilinear_zpk', 'buttap', 'cheb1ap',
+                      'cheb2ap', 'choose_conv_method', 'dbode', 'dfreqresp', 'ellipap',
+                      'fftconvolve', 'findfreqs', 'freqz_sos', 'lfiltic', 'lp2bp', 'lp2bp_zpk',
+                      'lp2bs', 'lp2bs_zpk', 'lp2hp', 'lp2hp_zpk', 'lp2lp', 'lp2lp_zpk',
+                      'unique_roots'],
+    'ltisys': ['StateSpace', 'TransferFunction', 'ZerosPolesGain', 'dlti', 'lti'],
+    'placepoles': ['place_poles'],
+    'remez': ['remez'],
+    'peaks': ['argrelextrema', 'argrelmax', 'argrelmin', 'find_peaks', 'peak_prominences',
+              'peak_widths']}
+# the reference's names the port has yet to take
+STILL_MISSING = set()
 
 
 def test_facade():
     names = [n for module in NEW_NAMES.values() for n in module]
     assert len(names) == len(set(names)) == 33
     assert set(names) <= set(tm.__all__)
-    assert len(tm.__all__) == len(set(tm.__all__)) == 133
+    system_names = [n for module in SYSTEM_TIER.values() for n in module]
+    assert len(system_names) == len(set(system_names)) == 36
+    assert set(system_names) <= set(tm.__all__)
+    assert len(tm.__all__) == len(set(tm.__all__)) == 169
     assert set(jm.__all__) - set(tm.__all__) == STILL_MISSING
     assert set(tm.__all__) <= set(jm.__all__)
-    for module, module_names in NEW_NAMES.items():
+    assert set(tm.__all__) == set(jm.__all__)
+    for module, module_names in {**NEW_NAMES, **SYSTEM_TIER}.items():
         for n in module_names:
             assert getattr(tm, n).__module__ == f'dsc_tpu_torch.models.{module}', n
+    # the package's ``lti`` is the factory, as the JAX package's is
+    assert tm.lti is importlib.import_module('dsc_tpu_torch.models.ltisys').lti
+    assert isinstance(tm.lti([1.0], [1.0, 1.0]), tm.TransferFunction)
 
 
 def test_new_modules_import_neither_jax_nor_the_reference():
-    for module in NEW_NAMES:
+    for module in [*NEW_NAMES, *SYSTEM_TIER]:
         src = (REPO / 'dsc_tpu_torch' / 'models' / f'{module}.py').read_text()
         assert 'import jax' not in src and 'from jax' not in src
         assert 'import dsc_tpu\n' not in src and 'from dsc_tpu.' not in src

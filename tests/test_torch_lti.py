@@ -6,6 +6,7 @@ copy of the JAX package's host code, so each result equals the JAX
 package's exactly; against scipy, the bounds of tests/test_lti.py."""
 
 import gc
+import importlib
 import warnings
 
 import numpy as np
@@ -14,7 +15,10 @@ import scipy.signal as sps
 
 import dsc_tpu.models as jm
 import dsc_tpu_torch.models as tm
-from dsc_tpu_torch.models import lti as tlti
+
+# the package's name ``lti`` is the factory of models/ltisys.py, as in the JAX
+# package: the module is reached by its import path
+tlti = importlib.import_module('dsc_tpu_torch.models.lti')
 
 
 @pytest.fixture(scope='module', autouse=True)
