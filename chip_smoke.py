@@ -11,7 +11,8 @@ decimate), the affine-scan tier (dlsim, lsim, step, impulse, the
 splines), the signal-generation and design tier (the waves, the
 median, rank and Wiener filters, iirdesign) and the system-object and
 design-support tier (fftconvolve, lfiltic, the lti / dlti classes,
-find_peaks, remez, place_poles).
+find_peaks, remez, place_poles), the sharded tier (FFTs over a mesh of
+devices) and the C front door.
 
     python3 chip_smoke.py
 
@@ -234,9 +235,26 @@ Phases, each raising on failure (exit code 0 means all passed):
    bound of its bytes, the peak finder's rows' (median of 5, 3 calls) and
    the host rows' host time, and the phase's time split.
 
+13. the sharded tier (parallel/) and the C front door: the local K6 and
+   K7 of the sharded four-step (pallas_stream.py:753, :792) against their
+   plain versions at n = 2^24 over d = 4 (each col0) and d = 8 and at 2^26
+   over d = 4, both directions and K7's real output (REL_BOUND); then on
+   a virtual mesh of 4 entries of cuda:0 and on the mesh of every card,
+   distributed_fft_stream of 2^24 complex64 (against np.fft in float64
+   and the single-card K6 + K7 of the same vector) and its inverse, the
+   distributed rfft -> irfft pair of 2^24 float32, sharded_batched_fft
+   and sharded_batched_rfft of 16 x 2^20 on (d, 1) and distributed_fft of
+   4 x 2^22 on (1, d), each within 1e-4 of np.fft, its launches held to
+   the routing and no plain version run on a CUDA shard; each call's host
+   and device time (tensor in, gathered out) beside the single-card call
+   on the same data, the copies' share of its device time, the local
+   kernels against their bytes' bound; and cpp/tests/test_filterfft.cpp
+   over dsc_tpu_torch.capi (dsc_tpu_torch/cpp, g++ beside the card work)
+   on the card, which must print "ALL OK".
+
 The last lines are the kernels' JSON record (its ``launches_by_path``
 holds each path's launches, 'models', 'transforms', 'recurrence',
-'scans', 'signals' and 'systems' among them), the card line and the
+'scans', 'signals', 'systems' and 'sharded' among them), the card line and the
 result line. Without a CUDA device the script exits non-zero before any of
 them.
 
@@ -295,6 +313,10 @@ runs phases 1-2 and phase 11 alone.
     python3 chip_smoke.py --systems
 
 runs phases 1-2 and phase 12 alone.
+
+    python3 chip_smoke.py --sharded
+
+runs phases 1-2 and phase 13 alone.
 
     python3 chip_smoke.py --map-candidates TREE [TREE ...]
 
@@ -365,6 +387,11 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     # K5g: K5's skeleton with a body generated from a dsc.map function
     'stream_map_gen': ('dsc_tpu_torch/csrc/stream_map.cuh',
                        'dsc_tpu/ops/pallas_map.py:83'),
+    # the sharded four-step's per-shard sites (parallel/sharded_fft.py)
+    'stream_phase_a_local': ('dsc_tpu_torch/csrc/fourstep_stream.cu',
+                             'dsc_tpu/fourier/pallas_stream.py:753'),
+    'stream_phase_b_local': ('dsc_tpu_torch/csrc/fourstep_stream.cu',
+                             'dsc_tpu/fourier/pallas_stream.py:792'),
 }
 # the launches the filterFFT path must make (fourier/config.py): K1 + K2 for
 # each packed rfft (two per filterFFT, one for the 2^24 round trip), K3 + K4
@@ -2767,6 +2794,304 @@ def systems_phase(dsc, card: str, compare) -> dict:
     return rows.launches
 
 
+# phase 13's sizes: the local kernels' (n_total, d) cases; the sharded
+# streaming fft and rfft pair; the DP rows (on (d, 1)); distributed_fft's
+# rows (on (1, d))
+LOCAL_CASES = ((2**24, 4), (2**24, 8), (2**26, 4))
+SHARD_N = 2**24
+SHARD_ROWS = (16, 2**20)
+SHARD_TP = (4, 2**22)
+LOCAL_KERNELS = ('stream_phase_a_local', 'stream_phase_b_local')
+
+
+def plain_versions():
+    """The plain versions a call of the sharded tier can reach through a
+    wrapper: (module, name)."""
+    from dsc_tpu_torch.fourier import base_fft, reconstruct, stream
+
+    return ((stream, 'phase_a_local_plain'), (stream, 'phase_b_local_plain'),
+            (stream, 'phase_a_plain'), (stream, 'phase_b_plain'),
+            (base_fft, 'fft_base_plain'), (reconstruct, 'reconstruct_plain'))
+
+
+@contextlib.contextmanager
+def no_plain_on_cuda():
+    """Within the block, a wrapper that runs its plain version on a CUDA
+    tensor raises: a CUDA shard takes the kernel or fails."""
+    saved = []
+    for module, name in plain_versions():
+        fn = getattr(module, name)
+
+        def spy(*args, name=name, fn=fn, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                raise RuntimeError(f'{name} ran on a CUDA tensor')
+            return fn(*args, **kw)
+
+        saved.append((module, name, fn))
+        setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def copy_share(rows) -> float:
+    """Device ms a call of the copy kernels and memcpys among
+    ``device_profile``'s rows."""
+    return sum(ms for ms, _, key in rows if 'copy' in key.lower() or 'memcpy' in key.lower())
+
+
+def sharded_phase(dsc, card: str, compare, timed) -> dict:
+    """Phase 13, the sharded tier (parallel/): the local K6/K7 (the
+    sharded four-step's per-shard sites) against their plain versions at
+    their sharded shapes; then on a virtual mesh of 4 entries of cuda:0 and
+    on the mesh of every card, distributed_fft_stream, the rfft -> irfft
+    pair, sharded_batched_fft / _rfft and distributed_fft at full size
+    against np.fft in float64, each call's launches held to the routing and
+    no plain version run on a CUDA shard; then the calls' host and device
+    time beside the single-card call on the same data, the exchange copies'
+    share, the local kernels against their bytes' bound; and the C++ harness
+    over the port's C front door on the card. Returns the launches of each
+    kernel."""
+    import threading
+
+    from dsc_tpu_torch.cpp import build as cbuild
+    from dsc_tpu_torch.fourier import core, plan, stream
+    from dsc_tpu_torch.kernels import build
+    from dsc_tpu_torch.parallel import (distributed_fft, distributed_fft_stream,
+                                        distributed_irfft_stream, distributed_rfft_stream,
+                                        make_mesh, sharded_batched_fft, sharded_batched_rfft,
+                                        sharded_fft)
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    print(f'phase 13: the sharded tier on a virtual mesh of 4 x cuda:0 and on the {n_cards} '
+          f'card(s); the C front door [{card}]')
+    # the C harness compiles (g++, host only) while the card works
+    harness = {}
+    gxx = threading.Thread(target=lambda: harness.update(
+        path=cbuild.build(cbuild.OUT_DIR)), daemon=True)
+    t_gxx = time.perf_counter()
+    gxx.start()
+    dev0 = torch.device('cuda', 0)
+    gen = torch.Generator(device='cuda').manual_seed(13)
+
+    def cn(shape):
+        return torch.randn(shape, dtype=torch.complex64, device=dev0, generator=gen)
+
+    # -- 13a. the local kernels at their sharded shapes ----------------------
+    for n, d in LOCAL_CASES:
+        n1, n2 = stream.factors(n)
+        t = plan.get_plan(n, 'stream', torch.complex64, dev0)[1]
+        x = cn((n1, n2))
+        for p in range(d):
+            col0 = p * n2 // d
+            blk = x[:, col0:col0 + n2 // d].contiguous()
+            for inv in (False, True):
+                compare('stream_phase_a_local', stream.phase_a_local(blk, t, col0, inv),
+                        stream.phase_a_local_plain(blk, t, col0, inv),
+                        f'2^{n.bit_length() - 1} d={d} col0={col0} '
+                        f'{"inverse" if inv else "forward"}')
+        z = cn((n2, n1 // d))
+        for inv, real_output in ((False, False), (True, False), (True, True)):
+            compare('stream_phase_b_local', stream.phase_b_local(z, t, n1 // d, inv, real_output),
+                    stream.phase_b_local_plain(z, t, n1 // d, inv, real_output),
+                    f'2^{n.bit_length() - 1} d={d} {"inverse" if inv else "forward"}'
+                    f'{" real output" if real_output else ""}')
+        del x, z, blk
+
+    # -- 13b. the public calls at full size, launches held to the routing ------
+    rng = np.random.default_rng(13)
+    v_np = (rng.standard_normal(SHARD_N) + 1j * rng.standard_normal(SHARD_N)).astype(np.complex64)
+    r_np = rng.standard_normal(SHARD_N).astype(np.float32)
+    b_np = (rng.standard_normal(SHARD_ROWS)
+            + 1j * rng.standard_normal(SHARD_ROWS)).astype(np.complex64)
+    rows_np = rng.standard_normal(SHARD_ROWS).astype(np.float32)
+    tp_np = (rng.standard_normal(SHARD_TP)
+             + 1j * rng.standard_normal(SHARD_TP)).astype(np.complex64)
+    t_ref = time.perf_counter()
+    refs = {'fft': np.fft.fft(v_np.astype(np.complex128)),
+            'rfft': np.fft.rfft(r_np.astype(np.float64)),
+            'rows': np.fft.fft(b_np.astype(np.complex128), axis=-1),
+            'rows rfft': np.fft.rfft(rows_np.astype(np.float64), axis=-1),
+            'tp': np.fft.fft(tp_np.astype(np.complex128), axis=-1)}
+    refs_s = time.perf_counter() - t_ref
+    v, r, b, rows, tp = (torch.from_numpy(a).to(dev0) for a in (v_np, r_np, b_np, rows_np, tp_np))
+    n1, n2 = stream.factors(SHARD_N)
+    single = stream.fourstep_stream(v.reshape(1, -1), n1, n2, False).reshape(-1)
+
+    def scaled(want, k):
+        return {name: count * k for name, count in want.items()}
+
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def routed(what, fn, want):
+        build.reset_launches()
+        with no_plain_on_cuda():
+            out = fn()
+        torch.cuda.synchronize()
+        got = {name: count for name, count in build.launches.items() if count}
+        require(got == want, f'{what}: launches {got}, routing says {want}')
+        for name, count in got.items():
+            launches[name] += count
+        return out
+
+    def against(what, got, ref, relative=True):
+        g = np.asarray(got)
+        require(g.shape == ref.shape and np.isfinite(g).all(),
+                f'{what}: shape {g.shape} (want {ref.shape}) or not finite')
+        e = float(np.abs(g - ref).max()) / (float(np.abs(ref).max()) if relative else 1.0)
+        print(f'  {what}: {e:.3e} ({"rel" if relative else "abs"}, bound {NUMPY_BOUND:g}) '
+              f'[{card}]')
+        require(e <= NUMPY_BOUND, f'{what}: {e} > {NUMPY_BOUND}')
+
+    meshes = [('virtual 4 x cuda:0', [dev0] * 4),
+              (f'{n_cards} card(s)', [torch.device('cuda', i) for i in range(n_cards)])]
+    calls = {}
+    for label, devs in meshes:
+        d = len(devs)
+        tp_mesh, dp_mesh = make_mesh((1, d), devices=devs), make_mesh((d, 1), devices=devs)
+        local = {'stream_phase_a_local': d, 'stream_phase_b_local': d}
+        spec = routed(f'distributed_fft_stream 2^24 on {label}',
+                      lambda: distributed_fft_stream(v, tp_mesh), local)
+        against(f'distributed_fft_stream 2^24 on {label} vs np.fft', spec, refs['fft'])
+        e = rel_err(spec.full(), single)
+        print(f'  distributed_fft_stream 2^24 on {label} vs the single-card K6+K7: {e:.3e} '
+              f'(bound {REL_BOUND:g})')
+        require(e <= REL_BOUND, f'sharded vs single-card fft: {e}')
+        back = routed(f'inverse distributed_fft_stream 2^24 on {label}',
+                      lambda: distributed_fft_stream(spec, tp_mesh, inverse=True), local)
+        against(f'inverse(distributed_fft_stream) 2^24 on {label} vs x', back, v_np)
+        half = routed(f'distributed_rfft_stream 2^24 on {label}',
+                      lambda: distributed_rfft_stream(r, tp_mesh), local)
+        against(f'distributed_rfft_stream 2^24 on {label} vs np.fft', half, refs['rfft'])
+        back = routed(f'distributed_irfft_stream 2^24 on {label}',
+                      lambda: distributed_irfft_stream(half, tp_mesh), local)
+        against(f'distributed_irfft_stream(rfft) 2^24 on {label} vs x', back, r_np, False)
+        rb, rn = SHARD_ROWS
+        got = routed(f'sharded_batched_fft {rb} x 2^20 on {label}',
+                     lambda: sharded_batched_fft(b, dp_mesh),
+                     scaled(core_launches([('c2c', rb // d, rn)]), d))
+        against(f'sharded_batched_fft {rb} x 2^20 on ({d}, 1) {label} vs np.fft', got,
+                refs['rows'])
+        got = routed(f'sharded_batched_rfft {rb} x 2^20 on {label}',
+                     lambda: sharded_batched_rfft(rows, dp_mesh),
+                     scaled(core_launches([('r2c', rb // d, rn)]), d))
+        against(f'sharded_batched_rfft {rb} x 2^20 on ({d}, 1) {label} vs np.fft', got,
+                refs['rows rfft'])
+        tb, tn = SHARD_TP
+        t1 = 1 << ((tn.bit_length() - 1) // 2)
+        t2 = tn // t1
+        want = core_launches([('c2c', tb * t2 // d, t1)])
+        for name, count in core_launches([('c2c', tb * t1 // d, t2)]).items():
+            want[name] = want.get(name, 0) + count
+        got = routed(f'distributed_fft {tb} x 2^22 on {label}',
+                     lambda: distributed_fft(tp, tp_mesh), scaled(want, d))
+        against(f'distributed_fft {tb} x 2^22 on (1, {d}) {label} vs np.fft', got, refs['tp'])
+        calls[label] = (tp_mesh, dp_mesh)
+        del spec, back, half, got
+    print(f'  launches on the sharded path: {launches}')
+    for name in LOCAL_KERNELS:
+        require(launches[name] > 0, f'kernel {name} was not launched on the sharded path')
+    checked_s = time.perf_counter() - t_phase
+
+    # -- 13c. time: each call beside the single-card call on the same data ----
+    t_timed = time.perf_counter()
+    tables = plan.get_plan(SHARD_N, 'stream', torch.complex64, dev0)[1]
+    row_plan = plan.get_plan(SHARD_ROWS[1], 'complex', torch.complex64, dev0)
+    rrow_plan = plan.get_plan(SHARD_ROWS[1], 'real', torch.complex64, dev0)
+    tp_plan = plan.get_plan(SHARD_TP[1], 'complex', torch.complex64, dev0)
+    r_t = dsc.from_numpy(r_np)
+    half_t = dsc.rfft(r_t)
+    rows_timed = [
+        ('distributed_fft_stream 2^24, tensor in, gathered out',
+         lambda m: distributed_fft_stream(v, m[0]).full(),
+         lambda: stream.fourstep_stream(v.reshape(1, -1), n1, n2, False),
+         'K6+K7 natural order (fourier/stream.py fourstep_stream)', 3 * nbytes(v)),
+        ('distributed_rfft_stream 2^24, tensor in, gathered out',
+         lambda m: distributed_rfft_stream(r, m[0]).full(), lambda: dsc.rfft(r_t),
+         'dsc.rfft (K1+K2)', 3 * nbytes(r) + 8 * (SHARD_N // 2 + 1)),
+        ('distributed_irfft_stream 2^24 of a placed half spectrum, gathered out',
+         None, lambda: dsc.irfft(half_t), 'dsc.irfft (K3+K4)', 3 * nbytes(r)),
+        ('sharded_batched_fft 16 x 2^20, gathered out',
+         lambda m: sharded_batched_fft(b, m[1]).full(),
+         lambda: core.fft_batched(b, *row_plan, False), 'core.fft_batched', 2 * nbytes(b)),
+        ('sharded_batched_rfft 16 x 2^20, gathered out',
+         lambda m: sharded_batched_rfft(rows, m[1]).full(),
+         lambda: core.rfft_batched(rows, *rrow_plan, SHARD_ROWS[1]), 'core.rfft_batched',
+         2 * nbytes(rows)),
+        ('distributed_fft 4 x 2^22, gathered out', lambda m: distributed_fft(tp, m[0]).full(),
+         lambda: core.fft_batched(tp, *tp_plan, False), 'core.fft_batched', 2 * nbytes(tp)),
+    ]
+    h1, h2 = stream.factors(SHARD_N // 2)
+    for label, devs in meshes:
+        m = calls[label]
+        # a mesh of one card: the first row alone shows the tier's cost at d = 1
+        timed_rows = rows_timed if len(devs) > 1 else rows_timed[:1]
+        # the half spectrum laid out as the irfft takes it: (n1, n2) blocks
+        # of its first n/2 bins and the last bin
+        placed_half = sharded_fft._place(distributed_rfft_stream(r, m[0]).full(), m[0], 'model',
+                                         1, (h1, h2), (SHARD_N // 2 + 1,), torch.complex64,
+                                         has_tail=True)
+        for what, fn, single_fn, single_what, n_bytes in timed_rows:
+            if fn is None:
+                call = lambda m=m, h=placed_half: distributed_irfft_stream(h, m[0]).full()  # noqa: E731
+            else:
+                call = lambda fn=fn, m=m: fn(m)  # noqa: E731
+            wall, wall1 = host_ms(call, 10), host_ms(single_fn, 10)
+            busy, prof_rows, _, how = device_busy(call, f'{what} on {label}', wall, card, 5)
+            busy1, _, _, how1 = device_busy(single_fn, f'single card: {single_what}', wall1,
+                                            card, 5)
+            require(busy > 0 and busy1 > 0, f'{what} on {label}: no device time')
+            copies = copy_share(prof_rows)
+            print(f'  {what} on {label}: host {wall:.4f} ms, device {busy:.4f} ms ({how}), '
+                  f'copies and memcpys {copies:.4f} ms ({copies / busy:.3f} of the device '
+                  f'time); single card {single_what}: host {wall1:.4f} ms, device '
+                  f'{busy1:.4f} ms ({how1}); sharded / single host time {wall / wall1:.2f}x; '
+                  f'bound of the copies scatter, exchange and gather '
+                  f'{n_bytes * 2 / PEAK_BYTES_S * 1e3:.4f} ms [{card}]')
+        del placed_half
+    del half_t, r_t
+    # the local kernels against their bytes' bound, one shard's block
+    for n, d in ((2**24, 4), (2**26, 4)):
+        ln1, ln2 = stream.factors(n)
+        t = tables if n == SHARD_N else plan.get_plan(n, 'stream', torch.complex64, dev0)[1]
+        tb_ = nbytes(t.w_n1, t.w_n2, t.twiddle.lo, t.twiddle.hi)
+        blk, col0 = cn((ln1, ln2 // d)), ln2 // d
+        z = stream.phase_a_local(blk, t, col0, False)
+        zx = cn((ln2, ln1 // d))
+        what = f'2^{n.bit_length() - 1} d={d}: one shard\'s block'
+        # no single PyTorch call computes K6 local's DFT, twiddle and
+        # transpose; torch.fft.fft over the columns computes K7 local's function
+        timed('stream_phase_a_local', f'{what} ({ln1}, {ln2 // d}) at col0={col0}',
+              lambda: stream.phase_a_local(blk, t, col0, False),
+              lambda: stream.phase_a_local_plain(blk, t, col0, False), None,
+              nbytes(blk, z) + tb_, fft_ops(blk.numel(), ln1) + 6 * blk.numel())
+        timed('stream_phase_b_local', f'{what} ({ln2}, {ln1 // d})',
+              lambda: stream.phase_b_local(zx, t, ln1 // d, False),
+              lambda: stream.phase_b_local_plain(zx, t, ln1 // d, False),
+              lambda: torch.fft.fft(zx, dim=0), 2 * nbytes(zx) + tb_, fft_ops(zx.numel(), ln2))
+        del blk, z, zx
+    timed_s = time.perf_counter() - t_timed
+
+    # -- 13d. the C++ harness over the port's C front door, on the card ------
+    gxx.join()
+    gxx_s = time.perf_counter() - t_gxx
+    require('path' in harness, 'the C front door did not build (g++)')
+    t_run = time.perf_counter()
+    rc, out = cbuild.run(harness['path'], 'cuda', timeout=300)
+    run_s = time.perf_counter() - t_run
+    print('  C++ harness (cpp/tests/test_filterfft.cpp over dsc_tpu_torch.capi, DSC_DEVICE='
+          f'cuda): exit {rc}, {run_s:.1f} s (g++ {gxx_s:.1f} s, beside the card work): '
+          + ' | '.join(line for line in out.splitlines() if line.strip())[-400:])
+    require(rc == 0 and 'ALL OK' in out, f'C++ harness on the card: exit {rc}: {out[-2000:]}')
+    print(f'  phase 13: {time.perf_counter() - t_phase:.1f} s: checks {checked_s:.1f} s '
+          f'(np.fft references {refs_s:.1f} s), timing and profiles {timed_s:.1f} s, the C '
+          f'harness {run_s:.1f} s [{card}]')
+    return launches
+
+
 def _tensors_in(entry):
     """The torch tensors of a cache entry of models/iir.py (nested tuples)."""
     if isinstance(entry, torch.Tensor):
@@ -2807,6 +3132,9 @@ def main() -> int:
     parser.add_argument('--systems', action='store_true',
                         help='run phase 12 (the system-object and design-support tier) alone '
                              'after the build')
+    parser.add_argument('--sharded', action='store_true',
+                        help='run phase 13 (the sharded tier and the C front door) alone after '
+                             'the build')
     parser.add_argument('--map-candidates', nargs='+', metavar='TREE',
                         help='time K5 of each tree (a checkout of the port) in turns, '
                              'in place of the checks')
@@ -2928,6 +3256,9 @@ def main() -> int:
         return 0
     if args.systems:
         systems_phase(dsc, card, compare)
+        return 0
+    if args.sharded:
+        sharded_phase(dsc, card, compare, timed)
         return 0
 
     # -- 3. kernels vs plain versions --------------------------------------
@@ -3591,11 +3922,18 @@ def main() -> int:
     for name in KERNELS:
         by_path[name]['systems'] = system_launches[name]
 
+    # -- 13. the sharded tier and the C front door ----------------------------
+    shard_launches = sharded_phase(dsc, card, compare, timed)
+    for name in KERNELS:
+        by_path[name]['sharded'] = shard_launches[name]
+    launches.update({name: shard_launches[name] for name in LOCAL_KERNELS})
+
     # the main path's shape of each kernel: the filterFFT at n = 2^21 for the
     # packed passes, the n = 4096 pair's 2048 x 1 for K12, bench's fma for K5,
     # the suite's 16 x 2^20 for K6/K7 (where they lose most to torch.fft),
     # the 2^19 irfft for K11, the 2^24 single fft -> ifft for K8, K9, K10,
-    # the clip chain of phase 6 for K5g
+    # the clip chain of phase 6 for K5g, one shard's block of the 4-way
+    # sharded 2^24 four-step for the local K6/K7
     main_case = {name: rows_[0] for name, rows_ in cases.items()}
     main_case['stream_map'] = next(r for r in cases['stream_map'] if r['what'].startswith('add 2^26'))
     for name in ('stream_phase_a', 'stream_phase_b'):

@@ -20,7 +20,9 @@ tier (fuse.py): ``dsc.compile`` captures one CUDA graph per argument
 signature, and ``dsc.map`` runs an elementwise function as one generated
 streaming kernel, K5g (ops/map_gen.py). The window generators
 (windows.py), ``profile(xprof_dir=)`` and the FilterFFT, OverlapSave and
-STFT models ride them. The scipy.fft-parity tier (exact-length FFTs by
+STFT models ride them. The sharded tier (parallel/: ``make_mesh`` and
+FFTs sharded over a mesh of devices in one process) runs the streaming
+four-step's K6/K7 on each shard's block. The scipy.fft-parity tier (exact-length FFTs by
 Bluestein, DCT/DST, FFTLog) is a subpackage of its own, not imported
 here: ``import dsc_tpu_torch.transforms``. ROADMAP.md lists what remains.
 """
@@ -32,6 +34,7 @@ from .dtype import Dtype
 from .fourier import (fft, fft2, fftfreq, ifft, ifft2, irfft, irfft2, plan_fft, rfft, rfft2,
                       rfftfreq)
 from .interop import from_half_t, from_t
+from .parallel import make_mesh
 from .profiler import profile, start_recording, stop_recording
 from .tensor import (
     Tensor,
@@ -87,6 +90,7 @@ __all__ = [
     'used_mem',
     'print_mem_usage',
     'manual_seed',
+    'make_mesh',
     'compile',
     'map',
     'Tensor',

@@ -3,6 +3,13 @@
 // Replaces dsc_tpu/fourier/pallas_stream.py:
 //   K6 _phase_a_kernel -> stream_phase_a  (column DFT_n1 + twiddle + transpose)
 //   K7 _phase_b_kernel -> stream_phase_b  (column DFT_n2 of Z, natural output)
+// and the two per-shard sites of the sharded four-step
+// (parallel/sharded_fft.py):
+//   K6 at phase_a_local_p (:753) -> stream_phase_a_local: one shard's
+//       (n1, n2/d) column block, twiddle W_n^(s*k1*(col0 + j2)) with the
+//       whole transform's n and the shard's first global column col0
+//   K7 at phase_b_local_p (:792) -> dsc_stream_phase_b over the exchanged
+//       (n2, n1/d) block with scale 1/n (fourier/stream.py phase_b_local)
 // An n-point FFT of each of B rows, n = n1*n2, s = -1 forward, +1 inverse:
 //   Z[b*n2 + j2, k1] = W_n^(s*k1*j2) * sum_j1 x[b, n2*j1 + j2] W_n1^(s*j1*k1)
 //   X[b*n2 + k2, k1] = scale * sum_j2 Z[b*n2 + j2, k1] W_n2^(s*j2*k2)
@@ -53,6 +60,30 @@ int dsc_stream_phase_a(const void* x, void* z, int batch, int n1, int n2, int re
                           x, z, batch, n1, n2, columns, w_n1, tw_lo, tw_hi, tw_bits, 1.f, stream)
                     : launch_columns<false, false, kStoreRowsTwiddled, false>(
                           x, z, batch, n1, n2, columns, w_n1, tw_lo, tw_hi, tw_bits, 1.f, stream);
+}
+
+// One shard's phase A of the d-way sharded four-step of n = n1*n2 points:
+// x (n1, m) float32 (real_input) or complex64, columns col0 .. col0 + m - 1
+// of the whole (n1, n2) matrix -> z (m, n1) complex64, row j of z times
+// W_n^(s*k1*(col0 + j)); w_n1: n1/2 stage twiddles W_n1^p; tw_lo/hi/bits:
+// W_n factored, from the plan of the whole n; columns: C, the columns a block
+int dsc_stream_phase_a_local(const void* x, void* z, int n1, int m, int col0, int real_input,
+                             int inverse, const void* w_n1, const void* tw_lo,
+                             const void* tw_hi, int tw_bits, int columns, void* stream) {
+  if (inverse) {
+    return real_input ? launch_columns<true, true, kStoreRowsTwiddled, false>(
+                            x, z, 1, n1, m, columns, w_n1, tw_lo, tw_hi, tw_bits, 1.f, stream,
+                            0, col0)
+                      : launch_columns<true, false, kStoreRowsTwiddled, false>(
+                            x, z, 1, n1, m, columns, w_n1, tw_lo, tw_hi, tw_bits, 1.f, stream,
+                            0, col0);
+  }
+  return real_input ? launch_columns<false, true, kStoreRowsTwiddled, false>(
+                          x, z, 1, n1, m, columns, w_n1, tw_lo, tw_hi, tw_bits, 1.f, stream,
+                          0, col0)
+                    : launch_columns<false, false, kStoreRowsTwiddled, false>(
+                          x, z, 1, n1, m, columns, w_n1, tw_lo, tw_hi, tw_bits, 1.f, stream,
+                          0, col0);
 }
 
 // z (batch*n2, n1) complex64 -> out (batch, n1*n2), complex64 or the

@@ -18,8 +18,10 @@
 //                      W_n^(s*k*m) (K1: At keeps z's (n1, m2) layout,
 //                      which K2 reads row by row);
 //   kStoreRowsTwiddled column m of matrix b as the contiguous L-long row
-//                      b*M + m, times the four-step twiddle W_n^(s*k*m)
-//                      (K6);
+//                      b*M + m, times the four-step twiddle
+//                      W_n^(s*k*(col0 + m)) (K6; col0 = 0 but for one
+//                      shard's block of a sharded transform, whose column m
+//                      is column col0 + m of the whole matrix);
 //   kStoreRows         the same row without the twiddle (K8, T layout);
 //   kStoreRowsHalf     only values 0..L/2 of each column, as a row of
 //                      L/2 + 1 (K8, half-T layout).
@@ -120,7 +122,7 @@ __global__ void __launch_bounds__(kColumnThreads, 1)
 stream_column_kernel(const void* __restrict__ in, void* __restrict__ out, int log2L, int log2M,
                      int log2C, int cstride, const float2* __restrict__ w,
                      const float2* __restrict__ tw_lo, const float2* __restrict__ tw_hi,
-                     int tw_bits, float scale, long valid) {
+                     int tw_bits, float scale, long valid, int col0) {
   extern __shared__ float2 smem[];
   const int log2T = log2L - kLog2Radix;  // threads a column
   const int log2G = log2M - log2C;       // column groups a matrix
@@ -196,7 +198,7 @@ stream_column_kernel(const void* __restrict__ in, void* __restrict__ out, int lo
       if (STORE == kStoreRowsHalf && k >= width) continue;
       float2 y = v[u];
       if (STORE == kStoreRowsTwiddled) {
-        float2 tw = factored_twiddle(tw_lo, tw_hi, tw_bits, (unsigned)k * (unsigned)m);
+        float2 tw = factored_twiddle(tw_lo, tw_hi, tw_bits, (unsigned)k * (unsigned)(col0 + m));
         y = cmul(y, INV ? conj2(tw) : tw);
       }
       row[k] = y;
@@ -207,11 +209,12 @@ stream_column_kernel(const void* __restrict__ in, void* __restrict__ out, int lo
 // The pass over `batch` (L, M) matrices with C columns a block: C*L/16
 // threads and C*column_stride(L, C) float2 of shared memory a block
 // (fourier/stream.py block_columns chooses C). `valid`: the floats of the
-// input that a BOUNDED pass reads.
+// input that a BOUNDED pass reads; `col0`: the global column of column 0
+// in the twiddle of kStoreRowsTwiddled (k*(col0 + m) < L*n2 <= 2^32).
 template <bool INV, bool REAL_IN, int STORE, bool REAL_OUT, bool BOUNDED = false>
 int launch_columns(const void* in, void* out, int batch, int L, int M, int C, const void* w,
                    const void* tw_lo, const void* tw_hi, int tw_bits, float scale,
-                   void* stream, long valid = 0) {
+                   void* stream, long valid = 0, int col0 = 0) {
   const int log2L = ilog2(L), log2M = ilog2(M), log2C = ilog2(C);
   if (L < 256 || L > 8192 || (1 << log2L) != L || (1 << log2M) != M || (1 << log2C) != C ||
       C > M || C * (L / kRadix) > kColumnThreads)
@@ -226,7 +229,7 @@ int launch_columns(const void* in, void* out, int batch, int L, int M, int C, co
   stream_column_kernel<INV, REAL_IN, STORE, REAL_OUT, BOUNDED>
       <<<(unsigned)blocks, C * (L / kRadix), smem, (cudaStream_t)stream>>>(
           in, out, log2L, log2M, log2C, cstride, (const float2*)w, (const float2*)tw_lo,
-          (const float2*)tw_hi, tw_bits, scale, valid);
+          (const float2*)tw_hi, tw_bits, scale, valid, col0);
   return (int)cudaGetLastError();
 }
 

@@ -195,12 +195,17 @@ def get_plan(n: int, fft_type: str, dtype: torch.dtype, device=None) -> Tuple[Tu
 
     fft_type: 'complex', 'real' (reference dsc_fft_type), 'packed' or
     'stream'.
-    ``dtype`` is the complex working dtype. Returns (spec, tables).
+    ``dtype`` is the complex working dtype; ``device``: where the tables
+    live (None: the context's device; a CUDA device without an index is
+    the current one). Returns (spec, tables).
     """
     if device is None:
         from ..context import device as _device
 
         device = _device()
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
     key = (n, fft_type, dtype, str(device))
     with _lock:
         if key in _plans:

@@ -27,9 +27,21 @@ pass that K6, K7, K8, K10 and the packed K1, K4 share
 (csrc/stream_columns.cuh); the launcher derives the rest of the geometry
 from C.
 
+The d-way sharded four-step (parallel/sharded_fft.py) runs the two
+kernels on one shard's blocks (pallas_stream.py:728 ``phase_a_local_p``
+and :767 ``phase_b_local_p``), with the tables of the whole n-point plan:
+
+  K6 local  phase_a_local: the shard's columns col0 .. col0 + m - 1 of x
+            viewed as (n1, n2), as an (n1, m) block -> (m, n1), row j
+            times W_n^(s*k1*(col0 + j))
+  K7 local  phase_b_local: the exchanged (n2, n1/d) block, column
+            DFT_n2 in place, 1/n on the inverse (n the whole length)
+
+``dist_supported`` is the JAX package's rule for which splits shard.
+
 Each kernel has a plain PyTorch version (``*_plain``) with the same inputs
-and outputs; the wrappers launch the kernel for CUDA tensors and run the
-plain version for CPU tensors.
+and outputs; the wrappers launch the kernel for CUDA tensors, on the
+tensor's own device, and run the plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -104,6 +116,25 @@ def block_columns(L: int, M: int, batch: int, out_bytes: int = 8) -> int:
     return c
 
 
+def _complex64(dtype) -> bool:
+    if isinstance(dtype, torch.dtype):
+        return dtype == torch.complex64
+    return np.dtype(dtype) == np.complex64
+
+
+def dist_supported(n1: int, n2: int, d: int, dtype) -> bool:
+    """pallas_stream.py:712: complex64, a supported split, and each factor
+    divisible by the d shards into an even count of >= 2 LANES-wide
+    blocks."""
+    if not _complex64(dtype) or not supported(n1, n2, np.complex64):
+        return False
+    for f in (n1, n2):
+        loc = f // d
+        if f % d or loc % LANES or (loc // LANES) % 2 or loc < 2 * LANES:
+            return False
+    return True
+
+
 def _sizes(t: plan.StreamTables):
     n1, n2 = 2 * t.w_n1.shape[0], 2 * t.w_n2.shape[0]
     return n1, n2, n1 * n2
@@ -143,15 +174,49 @@ def phase_b_plain(z: torch.Tensor, t: plan.StreamTables, inverse: bool,
     return y.real.contiguous() if real_output else y
 
 
+def phase_a_local_plain(x: torch.Tensor, t: plan.StreamTables, col0: int,
+                        inverse: bool) -> torch.Tensor:
+    """K6 on one shard: x (n1, m) f32 or c64, columns col0 .. col0 + m - 1
+    of the whole (n1, n2) input of the plan's n -> Z (m, n1) c64, row j
+    times W_n^(s*k1*(col0 + j))."""
+    n1, n2, _ = _sizes(t)
+    m = x.shape[1]
+    if x.shape[0] != n1 or not 0 <= col0 <= n2 - m:
+        raise ValueError(f'phase_a_local: block {tuple(x.shape)} at column {col0} of '
+                         f'({n1}, {n2})')
+    cols = x.transpose(0, 1).to(torch.complex64).contiguous()
+    a = core.stockham_fft(cols, _table(t.w_n1, inverse))
+    dev = x.device
+    e = (col0 + torch.arange(m, device=dev))[:, None] * torch.arange(n1, device=dev)[None, :]
+    return a * _table(t.twiddle.at(e), inverse)
+
+
+def phase_b_local_plain(z: torch.Tensor, t: plan.StreamTables, n1_local: int, inverse: bool,
+                        real_output: bool = False) -> torch.Tensor:
+    """K7 on one shard: the exchanged Z (n2, n1_local) c64 -> X (n2,
+    n1_local), the column DFT_n2 in place, scaled by 1/n (the plan's whole
+    n) on the inverse; c64 or (``real_output``) f32."""
+    _, n2, n = _sizes(t)
+    if tuple(z.shape) != (n2, n1_local):
+        raise ValueError(f'phase_b_local: block {tuple(z.shape)}, want {(n2, n1_local)}')
+    c = core.stockham_fft(z.transpose(0, 1).contiguous(), _table(t.w_n2, inverse))
+    y = c.transpose(0, 1)
+    if inverse:
+        y = y * (1.0 / n)
+    return y.real.contiguous() if real_output else y.contiguous()
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
 
-def _check_tables(t: plan.StreamTables) -> None:
+def _check_tables(t: plan.StreamTables, device=None) -> None:
     for name, tab in (('w_n1', t.w_n1), ('w_n2', t.w_n2),
                       ('twiddle.lo', t.twiddle.lo), ('twiddle.hi', t.twiddle.hi)):
         build.check(tab, torch.complex64, tab.shape, name)
+        if device is not None and tab.device != device:
+            raise RuntimeError(f'{name}: tables on {tab.device}, data on {device}')
 
 
 def phase_a(x: torch.Tensor, t: plan.StreamTables, inverse: bool) -> torch.Tensor:
@@ -206,6 +271,63 @@ def _launch_phase_b(z: torch.Tensor, t: plan.StreamTables, inverse: bool, real_o
     return out
 
 
+def phase_a_local(x: torch.Tensor, t: plan.StreamTables, col0: int,
+                  inverse: bool) -> torch.Tensor:
+    """K6 local on a CUDA tensor (launched on its device), its plain
+    version on a CPU tensor."""
+    if x.device.type == 'cpu':
+        return phase_a_local_plain(x, t, col0, inverse)
+    n1 = 2 * t.w_n1.shape[0]
+    return _launch_phase_a_local(x, t, col0, inverse, block_columns(n1, x.shape[-1], 1))
+
+
+def _launch_phase_a_local(x: torch.Tensor, t: plan.StreamTables, col0: int, inverse: bool,
+                          columns: int) -> torch.Tensor:
+    """K6 local with ``columns`` columns a block."""
+    n1, n2, _ = _sizes(t)
+    m = x.shape[-1]
+    if x.dtype not in (torch.float32, torch.complex64):
+        raise RuntimeError(f'stream_phase_a_local: x must be float32 or complex64, '
+                           f'got {x.dtype}')
+    build.check(x, x.dtype, (n1, m), 'x')
+    _check_tables(t, x.device)
+    if not 0 <= col0 <= n2 - m:
+        raise RuntimeError(f'stream_phase_a_local: columns {col0} .. {col0 + m - 1} '
+                           f'outside 0 .. {n2 - 1}')
+    z = torch.empty((m, n1), dtype=torch.complex64, device=x.device)
+    build.launch('stream_phase_a_local', x.data_ptr(), z.data_ptr(), n1, m, int(col0),
+                 int(x.dtype == torch.float32), int(inverse), t.w_n1.data_ptr(),
+                 t.twiddle.lo.data_ptr(), t.twiddle.hi.data_ptr(), t.twiddle.bits, columns,
+                 device=x.device)
+    return z
+
+
+def phase_b_local(z: torch.Tensor, t: plan.StreamTables, n1_local: int, inverse: bool,
+                  real_output: bool = False) -> torch.Tensor:
+    """K7 local on a CUDA tensor (launched on its device), its plain
+    version on a CPU tensor."""
+    if z.device.type == 'cpu':
+        return phase_b_local_plain(z, t, n1_local, inverse, real_output)
+    n2 = 2 * t.w_n2.shape[0]
+    return _launch_phase_b_local(z, t, n1_local, inverse, real_output,
+                                 block_columns(n2, n1_local, 1, 4 if real_output else 8))
+
+
+def _launch_phase_b_local(z: torch.Tensor, t: plan.StreamTables, n1_local: int, inverse: bool,
+                          real_output: bool, columns: int) -> torch.Tensor:
+    """K7 local with ``columns`` columns a block: K7's entry point over one
+    (n2, n1_local) matrix, scaled by 1/n of the whole transform."""
+    _, n2, n = _sizes(t)
+    build.check(z, torch.complex64, (n2, n1_local), 'z')
+    _check_tables(t, z.device)
+    out = torch.empty((n2, n1_local), dtype=torch.float32 if real_output else torch.complex64,
+                      device=z.device)
+    build.launch('stream_phase_b_local', z.data_ptr(), out.data_ptr(), 1, n1_local, n2,
+                 int(inverse), int(real_output), t.w_n2.data_ptr(),
+                 (1.0 / n) if inverse else 1.0, columns, device=z.device)
+    return out
+
+
 def fourstep_stream(x: torch.Tensor, n1: int, n2: int, inverse: bool,
                     real_output: bool = False) -> torch.Tensor:
     """n-point FFT of each row of x, (B, n) or (n,), float32 (real input)
@@ -216,7 +338,7 @@ def fourstep_stream(x: torch.Tensor, n1: int, n2: int, inverse: bool,
     if (n1, n2) != factors(n):
         raise ValueError(f'fourstep_stream: split {(n1, n2)} is not factors({n}) = '
                          f'{factors(n)}')
-    _, t = plan.get_plan(n, 'stream', torch.complex64)
+    _, t = plan.get_plan(n, 'stream', torch.complex64, x.device)
     lead = x.shape[:-1]
     z = phase_a(build.aligned(x.reshape(-1, n)), t, inverse)
     return phase_b(z, t, inverse, real_output).reshape(*lead, n)

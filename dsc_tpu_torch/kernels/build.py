@@ -77,6 +77,15 @@ KERNELS = {
                        (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I)),
     # z, out, batch, n1, n2, inverse, real output, w_n2, scale, columns a block
     'stream_phase_b': ('dsc_stream_phase_b', (_P, _P, _I, _I, _I, _I, _I, _P, _F, _I)),
+    # one shard of the sharded four-step (fourier/stream.py phase_a_local):
+    # x, z, n1, columns of the shard, col0, real input, inverse, w_n1,
+    # twiddle lo, hi, bits, columns a block
+    'stream_phase_a_local': ('dsc_stream_phase_a_local',
+                             (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I)),
+    # K7's entry point over one shard's exchanged block, counted apart
+    # (phase_b_local): z, out, 1, n1/d, n2, inverse, real output, w_n2,
+    # 1/n or 1, columns a block
+    'stream_phase_b_local': ('dsc_stream_phase_b', (_P, _P, _I, _I, _I, _I, _I, _P, _F, _I)),
     # z, s, n1, n2, half, w_n2, columns a block
     'stream_phase_b_t': ('dsc_stream_phase_b_t', (_P, _P, _I, _I, _I, _P, _I)),
     # s, y, n1, n2, half, w_n2, twiddle lo, hi, bits, rows a block
@@ -243,12 +252,17 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def launch(kernel: str, *args) -> None:
-    """Launch ``kernel`` on the current stream with ``args``; raise if the
-    launch was refused."""
+def launch(kernel: str, *args, device: Optional[torch.device] = None) -> None:
+    """Launch ``kernel`` with ``args`` on the current stream of ``device``
+    (the device of the tensors the pointers come from; None: the current
+    device); raise if the launch was refused."""
     lib = load()
     entry = KERNELS[kernel][0]
-    err = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
+    if device is None:
+        err = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         msg = lib.dsc_error_string(err).decode()
         raise RuntimeError(f'{entry} failed: CUDA error {err} ({msg})')

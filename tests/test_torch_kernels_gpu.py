@@ -894,3 +894,44 @@ def test_cspline1d_on_the_card_against_scipy(lamb):
     ref = sps.cspline1d(x.astype(np.float64), lamb)
     out = got.numpy()
     assert np.isfinite(out).all() and np.abs(out - ref).max() <= 1e-6 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize('inverse', [False, True])
+@pytest.mark.parametrize('p', [0, 1, 2, 3])
+def test_stream_local_kernels(p, inverse):
+    """K6 local (col0 = p * n2/4) and K7 local (n1/4 columns, 1/n on the
+    inverse, also the real output) of the 4-way sharded 2^24 four-step
+    against their plain versions, each launch counted under its own name."""
+    n, d = 2**24, 4
+    n1, n2 = stream.factors(n)
+    t = plan.get_plan(n, 'stream', torch.complex64, torch.device('cuda', 0))[1]
+    x = _cnormal((n1, n2 // d), 60 + p)
+    before = dict(build.launches)
+    z = stream.phase_a_local(x, t, p * n2 // d, inverse)
+    assert build.launches['stream_phase_a_local'] == before['stream_phase_a_local'] + 1
+    assert build.launches['stream_phase_a'] == before['stream_phase_a']
+    assert _rel(z, stream.phase_a_local_plain(x, t, p * n2 // d, inverse)) < REL
+    zx = _cnormal((n2, n1 // d), 70 + p)
+    for real_output in (False, True):
+        got = stream.phase_b_local(zx, t, n1 // d, inverse, real_output)
+        assert _rel(got, stream.phase_b_local_plain(zx, t, n1 // d, inverse, real_output)) < REL
+    assert build.launches['stream_phase_b_local'] == before['stream_phase_b_local'] + 2
+    assert build.launches['stream_phase_b'] == before['stream_phase_b']
+
+
+def test_distributed_fft_stream_on_a_virtual_mesh():
+    """The 2^24 sharded streaming fft -> ifft over 4 entries of cuda:0: 4
+    launches of each local kernel a call, within 1e-4 of np.fft."""
+    from dsc_tpu_torch.parallel import distributed_fft_stream, make_mesh
+
+    mesh = make_mesh((1, 4), devices=[torch.device('cuda', 0)] * 4)
+    v = _cnormal(2**24, 80)
+    build.reset_launches()
+    got = distributed_fft_stream(v, mesh)
+    torch.cuda.synchronize()
+    assert {k: c for k, c in build.launches.items() if c} == {
+        'stream_phase_a_local': 4, 'stream_phase_b_local': 4}
+    ref = np.fft.fft(v.cpu().numpy().astype(np.complex128))
+    assert np.abs(np.asarray(got) - ref).max() / np.abs(ref).max() < 1e-4
+    back = distributed_fft_stream(got, mesh, inverse=True)
+    assert float((back.full() - v).abs().max()) < 1e-4
