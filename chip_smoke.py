@@ -236,9 +236,10 @@ Phases, each raising on failure (exit code 0 means all passed):
    the host rows' host time, and the phase's time split.
 
 13. the sharded tier (parallel/) and the C front door: the local K6 and
-   K7 of the sharded four-step (pallas_stream.py:753, :792) against their
-   plain versions at n = 2^24 over d = 4 (each col0) and d = 8 and at 2^26
-   over d = 4, both directions and K7's real output (REL_BOUND); then on
+   K7 of the sharded four-step (pallas_stream.py:753, :792; the cluster
+   column pass, csrc/stream_local.cu) against their plain versions at n =
+   2^24 over d = 4 (each col0) and d = 8 and at 2^26 over d = 4, both
+   directions, K6's float32 input and K7's real output (REL_BOUND); then on
    a virtual mesh of 4 entries of cuda:0 and on the mesh of every card,
    distributed_fft_stream of 2^24 complex64 (against np.fft in float64
    and the single-card K6 + K7 of the same vector) and its inverse, the
@@ -247,8 +248,13 @@ Phases, each raising on failure (exit code 0 means all passed):
    4 x 2^22 on (1, d), each within 1e-4 of np.fft, its launches held to
    the routing and no plain version run on a CUDA shard; each call's host
    and device time (tensor in, gathered out) beside the single-card call
-   on the same data, the copies' share of its device time, the local
-   kernels against their bytes' bound; and cpp/tests/test_filterfft.cpp
+   on the same data, the copies' and the local kernels' shares of its
+   device time; K6 and K7 local at (4096, 1024), (4096, 512) and (8192,
+   2048) against their bytes' bound, their plain versions and
+   torch.fft.fft over the columns, with each one's cluster geometry,
+   registers and shared memory; the cluster pass over K7's whole (4096,
+   4096) matrix of 2^24 beside K7 (a finding, ROADMAP R6); and
+   cpp/tests/test_filterfft.cpp
    over dsc_tpu_torch.capi (dsc_tpu_torch/cpp, g++ beside the card work)
    on the card, which must print "ALL OK".
 
@@ -388,9 +394,9 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     'stream_map_gen': ('dsc_tpu_torch/csrc/stream_map.cuh',
                        'dsc_tpu/ops/pallas_map.py:83'),
     # the sharded four-step's per-shard sites (parallel/sharded_fft.py)
-    'stream_phase_a_local': ('dsc_tpu_torch/csrc/fourstep_stream.cu',
+    'stream_phase_a_local': ('dsc_tpu_torch/csrc/stream_local.cu',
                              'dsc_tpu/fourier/pallas_stream.py:753'),
-    'stream_phase_b_local': ('dsc_tpu_torch/csrc/fourstep_stream.cu',
+    'stream_phase_b_local': ('dsc_tpu_torch/csrc/stream_local.cu',
                              'dsc_tpu/fourier/pallas_stream.py:792'),
 }
 # the launches the filterFFT path must make (fourier/config.py): K1 + K2 for
@@ -2802,6 +2808,9 @@ SHARD_N = 2**24
 SHARD_ROWS = (16, 2**20)
 SHARD_TP = (4, 2**22)
 LOCAL_KERNELS = ('stream_phase_a_local', 'stream_phase_b_local')
+# the local kernels' timed blocks: K6 and K7 local at (4096, 1024),
+# (4096, 512) and (8192, 2048)
+LOCAL_TIMED = ((2**24, 4), (2**24, 8), (2**26, 4))
 
 
 def plain_versions():
@@ -2893,13 +2902,17 @@ def sharded_phase(dsc, card: str, compare, timed) -> dict:
                         stream.phase_a_local_plain(blk, t, col0, inv),
                         f'2^{n.bit_length() - 1} d={d} col0={col0} '
                         f'{"inverse" if inv else "forward"}')
+            re = blk.real.contiguous()
+            compare('stream_phase_a_local', stream.phase_a_local(re, t, col0, False),
+                    stream.phase_a_local_plain(re, t, col0, False),
+                    f'2^{n.bit_length() - 1} d={d} col0={col0} float32 input')
         z = cn((n2, n1 // d))
         for inv, real_output in ((False, False), (True, False), (True, True)):
             compare('stream_phase_b_local', stream.phase_b_local(z, t, n1 // d, inv, real_output),
                     stream.phase_b_local_plain(z, t, n1 // d, inv, real_output),
                     f'2^{n.bit_length() - 1} d={d} {"inverse" if inv else "forward"}'
                     f'{" real output" if real_output else ""}')
-        del x, z, blk
+        del x, z, blk, re
 
     # -- 13b. the public calls at full size, launches held to the routing ------
     rng = np.random.default_rng(13)
@@ -3045,16 +3058,19 @@ def sharded_phase(dsc, card: str, compare, timed) -> dict:
                                             card, 5)
             require(busy > 0 and busy1 > 0, f'{what} on {label}: no device time')
             copies = copy_share(prof_rows)
+            local = sum(ms for ms, _, key in prof_rows if 'cluster_column_kernel' in key)
             print(f'  {what} on {label}: host {wall:.4f} ms, device {busy:.4f} ms ({how}), '
                   f'copies and memcpys {copies:.4f} ms ({copies / busy:.3f} of the device '
-                  f'time); single card {single_what}: host {wall1:.4f} ms, device '
+                  f'time), the local K6/K7 {local:.4f} ms ({local / busy:.3f}); single card '
+                  f'{single_what}: host {wall1:.4f} ms, device '
                   f'{busy1:.4f} ms ({how1}); sharded / single host time {wall / wall1:.2f}x; '
                   f'bound of the copies scatter, exchange and gather '
                   f'{n_bytes * 2 / PEAK_BYTES_S * 1e3:.4f} ms [{card}]')
         del placed_half
     del half_t, r_t
-    # the local kernels against their bytes' bound, one shard's block
-    for n, d in ((2**24, 4), (2**26, 4)):
+    # the local kernels against their bytes' bound, one shard's block, with
+    # their cluster geometry (csrc/cluster_columns.cuh)
+    for n, d in LOCAL_TIMED:
         ln1, ln2 = stream.factors(n)
         t = tables if n == SHARD_N else plan.get_plan(n, 'stream', torch.complex64, dev0)[1]
         tb_ = nbytes(t.w_n1, t.w_n2, t.twiddle.lo, t.twiddle.hi)
@@ -3062,17 +3078,45 @@ def sharded_phase(dsc, card: str, compare, timed) -> dict:
         z = stream.phase_a_local(blk, t, col0, False)
         zx = cn((ln2, ln1 // d))
         what = f'2^{n.bit_length() - 1} d={d}: one shard\'s block'
+        for name, L, M, phase_b in (('stream_phase_a_local', ln1, ln2 // d, False),
+                                    ('stream_phase_b_local', ln2, ln1 // d, True)):
+            geo = stream.local_geometry(L, M)
+            info = stream.local_launch_info(phase_b, False, False, L, M, geo, 0)
+            print(f'  {name} ({L}, {M}): W = {geo.columns} columns a group, Q = '
+                  f'{geo.cluster} CTAs a cluster, {info["threads"]} threads, {info["smem"]} bytes '
+                  f'of shared memory a CTA, {info["registers"]} registers and '
+                  f'{info["local_bytes"]} bytes of local memory a thread, {info["clusters"]} '
+                  f'clusters active at once, {stream.grid_clusters(M, geo, info["clusters"])} in '
+                  f'the grid [{card}]')
         # no single PyTorch call computes K6 local's DFT, twiddle and
-        # transpose; torch.fft.fft over the columns computes K7 local's function
+        # transpose (its column FFT alone is printed beside it);
+        # torch.fft.fft over the columns computes K7 local's function
         timed('stream_phase_a_local', f'{what} ({ln1}, {ln2 // d}) at col0={col0}',
               lambda: stream.phase_a_local(blk, t, col0, False),
               lambda: stream.phase_a_local_plain(blk, t, col0, False), None,
               nbytes(blk, z) + tb_, fft_ops(blk.numel(), ln1) + 6 * blk.numel())
+        print(f'  torch.fft.fft over the columns of that ({ln1}, {ln2 // d}) block: '
+              f'{back_to_back_ms(lambda: torch.fft.fft(blk, dim=0), 50):.4f} ms [{card}]')
         timed('stream_phase_b_local', f'{what} ({ln2}, {ln1 // d})',
               lambda: stream.phase_b_local(zx, t, ln1 // d, False),
               lambda: stream.phase_b_local_plain(zx, t, ln1 // d, False),
               lambda: torch.fft.fft(zx, dim=0), 2 * nbytes(zx) + tb_, fft_ops(zx.numel(), ln2))
         del blk, z, zx
+    # ROADMAP R6: the cluster pass over the global K7's whole (4096, 4096)
+    # matrix of 2^24, beside K7 (stream_columns.cuh) on the same Z; a
+    # finding only, the routes keep K7
+    ln1, ln2 = stream.factors(SHARD_N)
+    zg = cn((ln2, ln1))
+    e = rel_err(stream.phase_b_local(zg, tables, ln1, False).reshape(1, -1),
+                stream.phase_b(zg, tables, False))
+    local_ms = back_to_back_ms(lambda: stream.phase_b_local(zg, tables, ln1, False), 50)
+    k7_ms = back_to_back_ms(lambda: stream.phase_b(zg, tables, False), 50)
+    print(f'  the cluster column pass over K7\'s whole ({ln2}, {ln1}) Z of 2^24: '
+          f'{local_ms:.4f} ms against K7 {k7_ms:.4f} ms (bound '
+          f'{2 * nbytes(zg) / PEAK_BYTES_S * 1e3:.4f} ms; the two outputs within {e:.3e}) '
+          f'[{card}]')
+    require(e <= REL_BOUND, f'cluster pass vs K7 at (4096, 4096): {e}')
+    del zg
     timed_s = time.perf_counter() - t_timed
 
     # -- 13d. the C++ harness over the port's C front door, on the card ------

@@ -64,7 +64,12 @@
 //   cap C*L at 16384, so at L = 8192 a run is at most 16 bytes (C = 2);
 //   an in-place write of runs under a 32-byte sector costs over twice the
 //   time, so at L = 4096 the block takes C = 4 and 1024 threads, one block
-//   a SM, and its load, passes and store no longer overlap another's;
+//   a SM, and its load, passes and store no longer overlap another's. A
+//   shard's narrow block of the sharded four-step, which took C = 2 here
+//   (16-byte runs), now takes the cluster column pass of
+//   cluster_columns.cuh instead (K6 local, K7 local: 128-byte runs, W = 16
+//   columns held across a thread-block cluster); col0 is 0 for every
+//   caller of this pass since;
 // - a thread moves 8 bytes an access (16 bytes would take two columns a
 //   thread, 64 registers of values);
 // - every pass after the first reads R - 1 stage twiddles a thread from

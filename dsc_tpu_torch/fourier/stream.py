@@ -37,7 +37,12 @@ and :767 ``phase_b_local_p``), with the tables of the whole n-point plan:
   K7 local  phase_b_local: the exchanged (n2, n1/d) block, column
             DFT_n2 in place, 1/n on the inverse (n the whole length)
 
-``dist_supported`` is the JAX package's rule for which splits shard.
+``dist_supported`` is the JAX package's rule for which splits shard. The
+two local kernels have a column pass of their own (csrc/stream_local.cu on
+csrc/cluster_columns.cuh): groups of W = 4 columns of the (L, M) block (8
+where the block or the output is float32) held across a thread-block
+cluster of Q CTAs, P = L/Q rows each, the clusters persistent; the
+geometry from ``local_geometry``, the grid from ``grid_clusters``.
 
 Each kernel has a plain PyTorch version (``*_plain``) with the same inputs
 and outputs; the wrappers launch the kernel for CUDA tensors, on the
@@ -46,8 +51,9 @@ tensor's own device, and run the plain version for CPU tensors.
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -114,6 +120,81 @@ def block_columns(L: int, M: int, batch: int, out_bytes: int = 8) -> int:
     while c > 1 and batch * (M // c) < MIN_BLOCKS:
         c //= 2
     return c
+
+
+class LocalGeometry(NamedTuple):
+    """The cluster column pass of one (L, M) block (K6 local, K7 local):
+    groups of ``columns`` (W) columns, clusters of ``cluster`` (Q) CTAs of
+    ``threads`` threads and ``smem`` bytes of shared memory each."""
+    columns: int
+    cluster: int
+    threads: int
+    smem: int
+
+
+LOCAL_MAX_ROWS = 1024     # P = L/Q rows a CTA, P*W/16 threads of 16 values
+LOCAL_L = (512, 8192)     # the column lengths a shard's block has
+LOCAL_M_MIN = 256         # the narrowest block: 2 x 128 lanes a shard
+
+
+@functools.lru_cache(maxsize=None)
+def local_geometry(L: int, M: int, out_bytes: int = 8, in_bytes: int = 8) -> LocalGeometry:
+    """(W, Q, threads, shared bytes) of the cluster column pass over an
+    (L, M) block whose input and output values take ``in_bytes`` and
+    ``out_bytes`` (8: complex64, 4: K6 local's float32 input or K7 local's
+    float32 real output): runs of 32 bytes, so W = 4 columns a group of
+    complex64 and 8 where either side is float32; Q = L/1024 CTAs a cluster
+    (1 up to L = 1024), so that a CTA holds P = L/Q <= 1024 rows of the W
+    columns, 16 values a thread in registers; its shared memory is the
+    ring's tile (P x W), the exchange between passes (W columns of
+    P + P/16 + 16/W float2; csrc/cluster_columns.cuh local_smem_bytes) and
+    the mbarrier."""
+    lo, hi = LOCAL_L
+    if (not lo <= L <= hi or L & (L - 1) or M < LOCAL_M_MIN or M & (M - 1)
+            or out_bytes not in (4, 8) or in_bytes not in (4, 8)):
+        raise ValueError(f'cluster column pass: L = {L}, M = {M}, {in_bytes}-byte input, '
+                         f'{out_bytes}-byte output not supported')
+    q = max(1, L // LOCAL_MAX_ROWS)
+    p = L // q
+    w = 32 // min(in_bytes, out_bytes)
+    return LocalGeometry(w, q, p * w // 16, (p * w + w * (p + p // 16 + 16 // w)) * 8 + 8)
+
+
+def grid_clusters(M: int, geo: LocalGeometry, active: int) -> int:
+    """The persistent grid's clusters for M/W column groups when ``active``
+    clusters fit the card at once: as few as take the same number of
+    rounds, so that every cluster walks as many groups (but the last
+    round's)."""
+    groups = M // geo.columns
+    rounds = -(-groups // min(groups, active))
+    return -(-groups // rounds)
+
+
+@functools.lru_cache(maxsize=None)
+def local_launch_info(phase_b: bool, flag: bool, inverse: bool, L: int, M: int,
+                      geo: LocalGeometry, device_index: int) -> dict:
+    """What a launch of K6 local (``phase_b`` False, ``flag``: real input)
+    or K7 local (``flag``: real output) at ``geo`` gets on the card
+    ``device_index``: the clusters that can be active at once, registers and
+    local memory a thread, shared memory and threads a CTA. Raises when the
+    card can hold no cluster of that geometry; the wrappers call it before
+    the first launch at a geometry."""
+    lib = build.load()
+    info = (ctypes.c_int * 5)()
+    with torch.cuda.device(device_index):
+        err = lib.dsc_stream_local_info(int(phase_b), int(flag), int(inverse), L, M,
+                                        geo.columns, geo.cluster, info)
+    who = 'stream_phase_b_local' if phase_b else 'stream_phase_a_local'
+    if err:
+        raise RuntimeError(f'{who}: ({L}, {M}) at {geo}: CUDA error {err} '
+                           f'({lib.dsc_error_string(err).decode()})')
+    out = dict(zip(('clusters', 'registers', 'local_bytes', 'smem', 'threads'), info))
+    if out['clusters'] <= 0:
+        raise RuntimeError(f'{who}: no cluster of {geo.cluster} CTAs with {geo.smem} bytes of '
+                           f'shared memory fits cuda:{device_index}')
+    if (out['smem'], out['threads']) != (geo.smem, geo.threads):
+        raise RuntimeError(f'{who}: the launcher takes {out}, local_geometry says {geo}')
+    return out
 
 
 def _complex64(dtype) -> bool:
@@ -278,12 +359,14 @@ def phase_a_local(x: torch.Tensor, t: plan.StreamTables, col0: int,
     if x.device.type == 'cpu':
         return phase_a_local_plain(x, t, col0, inverse)
     n1 = 2 * t.w_n1.shape[0]
-    return _launch_phase_a_local(x, t, col0, inverse, block_columns(n1, x.shape[-1], 1))
+    return _launch_phase_a_local(x, t, col0, inverse,
+                                 local_geometry(n1, x.shape[-1], 8,
+                                                4 if x.dtype == torch.float32 else 8))
 
 
 def _launch_phase_a_local(x: torch.Tensor, t: plan.StreamTables, col0: int, inverse: bool,
-                          columns: int) -> torch.Tensor:
-    """K6 local with ``columns`` columns a block."""
+                          geo: LocalGeometry) -> torch.Tensor:
+    """K6 local at the cluster geometry ``geo``."""
     n1, n2, _ = _sizes(t)
     m = x.shape[-1]
     if x.dtype not in (torch.float32, torch.complex64):
@@ -294,11 +377,13 @@ def _launch_phase_a_local(x: torch.Tensor, t: plan.StreamTables, col0: int, inve
     if not 0 <= col0 <= n2 - m:
         raise RuntimeError(f'stream_phase_a_local: columns {col0} .. {col0 + m - 1} '
                            f'outside 0 .. {n2 - 1}')
+    real = x.dtype == torch.float32
+    info = local_launch_info(False, real, inverse, n1, m, geo, x.device.index)
     z = torch.empty((m, n1), dtype=torch.complex64, device=x.device)
     build.launch('stream_phase_a_local', x.data_ptr(), z.data_ptr(), n1, m, int(col0),
-                 int(x.dtype == torch.float32), int(inverse), t.w_n1.data_ptr(),
-                 t.twiddle.lo.data_ptr(), t.twiddle.hi.data_ptr(), t.twiddle.bits, columns,
-                 device=x.device)
+                 int(real), int(inverse), t.w_n1.data_ptr(), t.twiddle.lo.data_ptr(),
+                 t.twiddle.hi.data_ptr(), t.twiddle.bits, geo.columns, geo.cluster,
+                 grid_clusters(m, geo, info['clusters']), device=x.device)
     return z
 
 
@@ -310,21 +395,23 @@ def phase_b_local(z: torch.Tensor, t: plan.StreamTables, n1_local: int, inverse:
         return phase_b_local_plain(z, t, n1_local, inverse, real_output)
     n2 = 2 * t.w_n2.shape[0]
     return _launch_phase_b_local(z, t, n1_local, inverse, real_output,
-                                 block_columns(n2, n1_local, 1, 4 if real_output else 8))
+                                 local_geometry(n2, n1_local, 4 if real_output else 8))
 
 
 def _launch_phase_b_local(z: torch.Tensor, t: plan.StreamTables, n1_local: int, inverse: bool,
-                          real_output: bool, columns: int) -> torch.Tensor:
-    """K7 local with ``columns`` columns a block: K7's entry point over one
-    (n2, n1_local) matrix, scaled by 1/n of the whole transform."""
+                          real_output: bool, geo: LocalGeometry) -> torch.Tensor:
+    """K7 local at the cluster geometry ``geo``: one (n2, n1_local) block,
+    scaled by 1/n of the whole transform on the inverse."""
     _, n2, n = _sizes(t)
     build.check(z, torch.complex64, (n2, n1_local), 'z')
     _check_tables(t, z.device)
+    info = local_launch_info(True, real_output, inverse, n2, n1_local, geo, z.device.index)
     out = torch.empty((n2, n1_local), dtype=torch.float32 if real_output else torch.complex64,
                       device=z.device)
-    build.launch('stream_phase_b_local', z.data_ptr(), out.data_ptr(), 1, n1_local, n2,
+    build.launch('stream_phase_b_local', z.data_ptr(), out.data_ptr(), n2, n1_local,
                  int(inverse), int(real_output), t.w_n2.data_ptr(),
-                 (1.0 / n) if inverse else 1.0, columns, device=z.device)
+                 (1.0 / n) if inverse else 1.0, geo.columns, geo.cluster,
+                 grid_clusters(n1_local, geo, info['clusters']), device=z.device)
     return out
 
 

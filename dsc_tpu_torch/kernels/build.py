@@ -41,9 +41,9 @@ CSRC_DIR = PACKAGE_DIR / 'csrc'
 BUILD_DIR = PACKAGE_DIR.parent / 'build' / 'kernels'
 LIB_PATH = BUILD_DIR / 'libdsc_tpu_torch_kernels.so'
 SOURCES = ('base_fft.cu', 'packed_rfft.cu', 'stream_map.cu', 'fourstep_stream.cu',
-           'fourstep_stream_t.cu', 'reconstruct.cu')
+           'fourstep_stream_t.cu', 'reconstruct.cu', 'stream_local.cu')
 HEADERS = ('fft_core.cuh', 'fft_radix.cuh', 'fft_rows_reg.cuh', 'stream_columns.cuh',
-           'stream_map.cuh')
+           'stream_map.cuh', 'cluster_columns.cuh')
 GEN_DIR = BUILD_DIR / 'gen'
 # the headers a generated source includes
 GEN_HEADERS = ('stream_map.cuh',)
@@ -77,15 +77,17 @@ KERNELS = {
                        (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I)),
     # z, out, batch, n1, n2, inverse, real output, w_n2, scale, columns a block
     'stream_phase_b': ('dsc_stream_phase_b', (_P, _P, _I, _I, _I, _I, _I, _P, _F, _I)),
-    # one shard of the sharded four-step (fourier/stream.py phase_a_local):
-    # x, z, n1, columns of the shard, col0, real input, inverse, w_n1,
-    # twiddle lo, hi, bits, columns a block
+    # one shard of the sharded four-step (fourier/stream.py phase_a_local,
+    # csrc/stream_local.cu): x, z, n1, columns of the shard, col0, real
+    # input, inverse, w_n1, twiddle lo, hi, bits, columns a group, CTAs a
+    # cluster, clusters in the grid
     'stream_phase_a_local': ('dsc_stream_phase_a_local',
-                             (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I)),
-    # K7's entry point over one shard's exchanged block, counted apart
-    # (phase_b_local): z, out, 1, n1/d, n2, inverse, real output, w_n2,
-    # 1/n or 1, columns a block
-    'stream_phase_b_local': ('dsc_stream_phase_b', (_P, _P, _I, _I, _I, _I, _I, _P, _F, _I)),
+                             (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I)),
+    # the exchanged block of one shard (phase_b_local): z, out, n2, n1/d,
+    # inverse, real output, w_n2, 1/n or 1, columns a group, CTAs a cluster,
+    # clusters in the grid
+    'stream_phase_b_local': ('dsc_stream_phase_b_local',
+                             (_P, _P, _I, _I, _I, _I, _P, _F, _I, _I, _I)),
     # z, s, n1, n2, half, w_n2, columns a block
     'stream_phase_b_t': ('dsc_stream_phase_b_t', (_P, _P, _I, _I, _I, _P, _I)),
     # s, y, n1, n2, half, w_n2, twiddle lo, hi, bits, rows a block
@@ -174,6 +176,10 @@ def load() -> ctypes.CDLL:
                 fn.restype = _I
             lib.dsc_error_string.argtypes = [_I]
             lib.dsc_error_string.restype = ctypes.c_char_p
+            # phase B?, real input / output, inverse, L, M, columns, cluster,
+            # int[5] (fourier/stream.py local_launch_info)
+            lib.dsc_stream_local_info.argtypes = [_I] * 7 + [_P]
+            lib.dsc_stream_local_info.restype = _I
             _lib = lib
     return _lib
 

@@ -190,6 +190,62 @@ def test_column_schedule_refuses_lengths_off_the_pass():
             stream.block_columns(L, M, 1)
 
 
+def _local_passes():
+    """(L, M, out_bytes, in_bytes) of every local column pass the sharded
+    tier sends: K6 local (n1, n2/d), complex64 and float32 input, and K7
+    local (n2, n1/d), complex64 and float32 (real) output, for each split
+    of n = 2^18 ... 2^28 that ``stream.dist_supported`` admits over d = 2,
+    4, 8."""
+    cases = set()
+    for e in range(18, 29):
+        n1, n2 = stream.factors(2**e)
+        for d in (2, 4, 8):
+            if stream.dist_supported(n1, n2, d, np.complex64):
+                cases |= {(n1, n2 // d, 8, 8), (n1, n2 // d, 8, 4), (n2, n1 // d, 8, 8),
+                          (n2, n1 // d, 4, 8)}
+    return sorted(cases)
+
+
+@pytest.mark.parametrize('L,M,out_bytes,in_bytes', _local_passes())
+def test_local_geometry(L, M, out_bytes, in_bytes):
+    """The cluster column pass's geometry (csrc/cluster_columns.cuh) for
+    every block the sharded tier sends: groups of W columns dividing M, runs
+    of a 32-byte sector or more on the input (complex64 and K6 local's
+    float32) and the output, a cluster of at most 8 CTAs (the portable
+    size), P = L/Q rows a CTA in [512, 1024] (16 values a thread, at most
+    1024 threads), and the CTA's shared memory, the ring's tile and the
+    exchange buffer, within the 232,448 bytes a block can take (a third of
+    it at W = 4, where three CTAs share an SM)."""
+    geo = stream.local_geometry(L, M, out_bytes, in_bytes)
+    assert M % geo.columns == 0
+    assert geo.columns * in_bytes >= 32 and geo.columns * out_bytes >= 32
+    assert geo.cluster in (1, 2, 4, 8) and L % geo.cluster == 0
+    p = L // geo.cluster
+    assert 512 <= p <= 1024 and geo.threads == p * geo.columns // 16 <= 1024
+    # the tile (P x W) and the exchange (W padded columns, at least P x W)
+    # and the 8-byte mbarrier
+    slots = (geo.smem - 8) // 8
+    assert slots >= 2 * p * geo.columns and geo.smem <= 232448
+    if geo.columns == 4:
+        assert 3 * geo.smem <= 232448
+    assert geo == stream.local_geometry(L, M, out_bytes, in_bytes)
+    # the persistent grid: as many rounds of groups as the active clusters
+    # need, every cluster with the same number of groups but in the last
+    groups = M // geo.columns
+    for active in (1, 7, 15, 30, 66, 132, 264):
+        n = stream.grid_clusters(M, geo, active)
+        rounds = -(-groups // min(groups, active))
+        assert 1 <= n <= min(groups, active) and -(-groups // n) == rounds
+
+
+@pytest.mark.parametrize('L,M,out_bytes,in_bytes', [
+    (256, 512, 8, 8), (16384, 512, 8, 8), (3072, 512, 8, 8), (4096, 128, 8, 8),
+    (4096, 384, 8, 8), (4096, 512, 2, 8), (4096, 512, 8, 2)])
+def test_local_geometry_refuses_shapes_off_the_pass(L, M, out_bytes, in_bytes):
+    with pytest.raises(ValueError, match='cluster column pass'):
+        stream.local_geometry(L, M, out_bytes, in_bytes)
+
+
 @pytest.fixture(scope='module')
 def spectrum():
     n = 8192

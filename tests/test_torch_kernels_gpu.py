@@ -896,27 +896,47 @@ def test_cspline1d_on_the_card_against_scipy(lamb):
     assert np.isfinite(out).all() and np.abs(out - ref).max() <= 1e-6 * np.abs(ref).max()
 
 
+# the sharded four-step's local blocks: (n, d) -> K6 local (n1, n2/d), K7
+# local (n2, n1/d); 2^24 over 8 gives the narrowest grid, (4096, 512)
+LOCAL_CASES = [(2**24, 4), (2**24, 8), (2**26, 4), (2**20, 4)]
+
+
 @pytest.mark.parametrize('inverse', [False, True])
-@pytest.mark.parametrize('p', [0, 1, 2, 3])
-def test_stream_local_kernels(p, inverse):
-    """K6 local (col0 = p * n2/4) and K7 local (n1/4 columns, 1/n on the
-    inverse, also the real output) of the 4-way sharded 2^24 four-step
-    against their plain versions, each launch counted under its own name."""
-    n, d = 2**24, 4
+@pytest.mark.parametrize('n,d,p', [(n, d, p) for n, d in LOCAL_CASES for p in range(d)])
+def test_stream_local_kernels(n, d, p, inverse):
+    """K6 local (col0 = p * n2/d, complex64 and float32 input) and K7 local
+    (n1/d columns, 1/n on the inverse, complex64 and the real output) of the
+    d-way sharded n-point four-step against their plain versions, each
+    launch counted under its own name (the cluster column pass, not K6's or
+    K7's entry point)."""
     n1, n2 = stream.factors(n)
     t = plan.get_plan(n, 'stream', torch.complex64, torch.device('cuda', 0))[1]
-    x = _cnormal((n1, n2 // d), 60 + p)
+    x = _cnormal((n1, n2 // d), 60 + p + d)
     before = dict(build.launches)
-    z = stream.phase_a_local(x, t, p * n2 // d, inverse)
-    assert build.launches['stream_phase_a_local'] == before['stream_phase_a_local'] + 1
-    assert build.launches['stream_phase_a'] == before['stream_phase_a']
-    assert _rel(z, stream.phase_a_local_plain(x, t, p * n2 // d, inverse)) < REL
-    zx = _cnormal((n2, n1 // d), 70 + p)
+    for blk in (x, x.real.contiguous()):
+        z = stream.phase_a_local(blk, t, p * n2 // d, inverse)
+        assert _rel(z, stream.phase_a_local_plain(blk, t, p * n2 // d, inverse)) < REL
+    zx = _cnormal((n2, n1 // d), 70 + p + d)
     for real_output in (False, True):
         got = stream.phase_b_local(zx, t, n1 // d, inverse, real_output)
         assert _rel(got, stream.phase_b_local_plain(zx, t, n1 // d, inverse, real_output)) < REL
+    assert build.launches['stream_phase_a_local'] == before['stream_phase_a_local'] + 2
     assert build.launches['stream_phase_b_local'] == before['stream_phase_b_local'] + 2
+    assert build.launches['stream_phase_a'] == before['stream_phase_a']
     assert build.launches['stream_phase_b'] == before['stream_phase_b']
+
+
+def test_stream_local_kernels_refuse_a_misaligned_block():
+    """A block that is not 16-byte aligned raises (TMA reads from a 16-byte
+    aligned base); nothing is launched and no plain version runs."""
+    n, d = 2**24, 4
+    n1, n2 = stream.factors(n)
+    t = plan.get_plan(n, 'stream', torch.complex64, torch.device('cuda', 0))[1]
+    flat = torch.zeros(n1 * n2 // d + 1, dtype=torch.complex64, device='cuda')
+    before = build.launches['stream_phase_a_local']
+    with pytest.raises(RuntimeError, match='aligned'):
+        stream.phase_a_local(flat[1:].view(n1, n2 // d), t, 0, False)
+    assert build.launches['stream_phase_a_local'] == before
 
 
 def test_distributed_fft_stream_on_a_virtual_mesh():

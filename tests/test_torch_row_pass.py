@@ -18,7 +18,7 @@ import pytest
 torch = pytest.importorskip('torch')
 
 from dsc_tpu_torch.fourier import packed_fused as pf  # noqa: E402
-from dsc_tpu_torch.fourier import plan, stream_t  # noqa: E402
+from dsc_tpu_torch.fourier import plan, stream, stream_t  # noqa: E402
 
 RADIX, LOG2_RADIX = 16, 4
 
@@ -519,3 +519,175 @@ def test_store_twiddle_products_in_float32(n1, n2):
     f = store_twiddles(W, rows * tt, rows * T + 0 * tt)
     err = max(float(np.abs(f[u] - W(rows * (tt + u * T))).max()) for u in range(RADIX))
     assert f[0].dtype == np.complex64 and err < 5e-7, err
+
+
+# ---------------------------------------------------------------------------
+# the cluster column pass of K6 local and K7 local (csrc/cluster_columns.cuh)
+# ---------------------------------------------------------------------------
+
+
+def local_radix_pass(v, t, log2P, log2L, log2Ns, w, log2r):
+    """cluster_columns.cuh local_radix_pass: a Stockham pass over the P
+    values of a decimated column, the stage twiddles read one a value from
+    the L-point table."""
+    r, g, log2T = 1 << log2r, RADIX >> log2r, log2P - LOG2_RADIX
+    shift = log2L - log2Ns - log2r
+    for s in range(g):
+        if log2Ns > 0:
+            k = (t + (s << log2T)) & ((1 << log2Ns) - 1)
+            for q in range(1, r):
+                v[:, s + q * g] *= stage_twiddle(w, (k * q) << shift, log2L)
+    for s in range(g):
+        idx = [s + q * g for q in range(r)]
+        v[:, idx] = np.fft.fft(v[:, idx], axis=1)
+
+
+def local_pass_store(sh, base, v, t, log2P, log2Ns, log2r):
+    """fft_radix.cuh pass_store into the column at ``base``."""
+    r, g, log2T = 1 << log2r, RADIX >> log2r, log2P - LOG2_RADIX
+    for s in range(g):
+        jj = t + (s << log2T)
+        o0 = ((jj >> log2Ns) << (log2Ns + log2r)) + (jj & ((1 << log2Ns) - 1))
+        for q in range(r):
+            sh.store(base + pad16(o0 + (q << log2Ns)), v[:, s + q * g])
+
+
+def emulate_cluster_pass(x, w, geo, groups, rows_out, tw=None, col0=0, scale=1.0):
+    """cluster_column_kernel (forward) over the column groups ``groups`` of
+    the (L, M) block x (complex, or float for the real input), each as the
+    Q CTAs of one cluster take it: the stored values {address: value} of
+    the (M, L) output (``rows_out``, K6 local, times ``tw``(k*(col0 + m)))
+    or the (L, M) one (K7 local, times ``scale``), the shared memory (tile
+    and exchange buffer) of every CTA, and the runs of each warp's device
+    stores."""
+    L, M = x.shape
+    W, Q = geo.columns, geo.cluster
+    P = L // Q
+    log2P, log2L, log2Q = P.bit_length() - 1, L.bit_length() - 1, Q.bit_length() - 1
+    log2W = W.bit_length() - 1
+    log2T, log2K, log2NT = log2P - LOG2_RADIX, log2P - log2Q, log2P + log2W - LOG2_RADIX
+    cstride = column_stride(P, W)
+    assert geo.threads == 1 << log2NT and geo.smem == (P * W + W * cstride) * 8 + 8
+    tid = np.arange(1 << log2NT)
+    c, t = tid & (W - 1), tid >> log2W
+
+    def slot(k, col):   # cluster_columns.cuh exchange_slot
+        return col * cstride + pad16(k) if rows_out else k * W + col
+
+    out, runs, shared, stored = {}, [], [], 0
+    for grp in groups:
+        m0 = grp * W
+        exch = []
+        for q in range(Q):
+            # 1. the TMA tile: tile[i*W + c] = x[i*Q + q, m0 + c]
+            tile = x[q::Q, m0:m0 + W].reshape(-1)
+            if np.iscomplexobj(x):
+                sh = Shared(P * W)
+                sh.mem[:] = tile
+                v = np.stack([sh.load((t + (u << log2T)) * W + c) for u in range(RADIX)], 1)
+                shared.append(sh)
+            else:   # floats: 32 lanes on 128 contiguous bytes, one wavefront
+                v = np.stack([tile[(t + (u << log2T)) * W + c] for u in range(RADIX)],
+                             1).astype(complex)
+            # 2. the P-point FFT of each column
+            sh = Shared(W * cstride)
+            base = c * cstride
+            log2Ns = 0
+            while True:
+                log2r = min(LOG2_RADIX, log2P - log2Ns)
+                local_radix_pass(v, t, log2P, log2L, log2Ns, w, log2r)
+                if log2Ns + log2r == log2P:
+                    break
+                local_pass_store(sh, base, v, t, log2P, log2Ns, log2r)
+                log2Ns += log2r
+                v = np.stack([sh.load(base + pad16(t + (u << log2T))) for u in range(RADIX)], 1)
+            # 3. times W_L^(q*k'), into the exchange buffer
+            for u in range(RADIX):
+                k = t + (u << log2T)
+                sh.store(slot(k, c), v[:, u] * stage_twiddle(w, q * k, log2L))
+            exch.append(sh)
+        # 5-6. CTA q: its G = 16/Q pairs a thread, the DFT_Q over the ranks
+        G = RADIX // Q
+        for q in range(Q):
+            for g in range(G):
+                p = tid + (g << log2NT)
+                cc = (p >> log2K) if rows_out else p & (W - 1)
+                kk = (q << log2K) + ((p & ((1 << log2K) - 1)) if rows_out else p >> log2W)
+                vals = np.stack([exch[j].load(slot(kk, cc)) for j in range(Q)], 1)
+                X = np.fft.fft(vals, axis=1)          # X[k' + r*P], r < Q
+                m = m0 + cc
+                for r in range(Q):
+                    k = kk + (r << log2P)
+                    if rows_out:   # W^(k'(col0 + m)) * W^(P(col0 + m))^r
+                        f = tw(kk * (col0 + m)) * tw(P * (col0 + m)) ** r
+                        addr, y = m * L + k, X[:, r] * f
+                    else:
+                        addr, y = k * M + m, X[:, r] * scale
+                    stored += len(addr)
+                    out.update(zip(addr.tolist(), y))
+                    runs += warp_runs(addr, np.ones(len(tid), bool))
+        shared += exch
+    assert stored == len(out)   # no value stored twice
+    return out, shared, runs
+
+
+def _local_cases():
+    """(L, phase): each column length a shard's block has (P = 512 and
+    1024 rows a CTA, Q = 1, 2, 4, 8), K6 local ('a') and K7 local ('b')."""
+    return [(L, ph) for L in (512, 1024, 2048, 4096, 8192) for ph in ('a', 'b')]
+
+
+@pytest.mark.parametrize('variant', ['forward', 'inverse', 'real'])
+@pytest.mark.parametrize('L,phase', _local_cases())
+def test_cluster_column_pass_index_maps(L, phase, variant):
+    """K6 local (the (L, 256) block at col0 = 256 of an (L, 1024) matrix)
+    and K7 local (an (L, 256) block of n = L*1024, scale 1/n) at
+    ``stream.local_geometry``, emulated CTA by CTA over the first and last
+    column groups, against their plain versions; the inverse as the
+    conjugate of the forward over the same maps ('real': K6 local's float32
+    input, K7 local's inverse with the float32 real output). Every
+    shared-memory access of a full warp, the distributed reads of step 5
+    among them, takes the least wavefronts; K6 local stores 256-byte runs a
+    warp, K7 local 32-byte runs (W lanes a row: 4 complex64, 8 float32)."""
+    M, other = 256, 1024
+    rng = np.random.default_rng(L + len(variant))
+    inverse = variant != 'forward' and not (variant == 'real' and phase == 'a')
+    real_out = variant == 'real' and phase == 'b'
+    x = rng.standard_normal((L, M)) + 1j * rng.standard_normal((L, M))
+    if variant == 'real' and phase == 'a':
+        x = x.real
+    x = x.astype(np.complex64 if np.iscomplexobj(x) else np.float32)
+    if phase == 'a':
+        t = plan.stream_tables(L, other, torch.complex64, 'cpu')
+        w = t.w_n1.numpy().astype(complex)
+        geo = stream.local_geometry(L, M, 8, 8 if np.iscomplexobj(x) else 4)
+        tw, col0 = factored(t.twiddle), 256
+        ref = stream.phase_a_local_plain(torch.from_numpy(x), t, col0, inverse).numpy()
+    else:
+        t = plan.stream_tables(other, L, torch.complex64, 'cpu')
+        w = t.w_n2.numpy().astype(complex)
+        geo = stream.local_geometry(L, M, 4 if real_out else 8)
+        tw, col0 = None, 0
+        ref = stream.phase_b_local_plain(torch.from_numpy(x), t, M, inverse, real_out).numpy()
+    xin = x.astype(complex) if np.iscomplexobj(x) else x.astype(np.float64)
+    if inverse:   # INV: the conjugate of the forward pass of the conjugate
+        xin = np.conj(xin)
+    groups = [0, M // geo.columns - 1]
+    scale = 1.0 / (L * other) if inverse and phase == 'b' else 1.0
+    out, shared, runs = emulate_cluster_pass(xin, w, geo, groups, phase == 'a', tw, col0, scale)
+    for sh in shared:
+        sh.check_wavefronts()
+    addr = np.array(sorted(out))
+    got = np.array([out[a] for a in addr])
+    if inverse:
+        got = np.conj(got)
+    if real_out:
+        got = got.real
+    want = ref.reshape(-1)[addr]
+    assert np.abs(got - want).max() / np.abs(ref).max() < 1e-5
+    cols = (addr // L if phase == 'a' else addr % M)
+    assert sorted(set(cols.tolist())) == [c for g in groups
+                                          for c in range(g * geo.columns, (g + 1) * geo.columns)]
+    assert len(addr) == 2 * geo.columns * L
+    run = 32 if phase == 'a' else geo.columns
+    assert all((r == run).all() for r in runs)
