@@ -12,7 +12,7 @@ splines), the signal-generation and design tier (the waves, the
 median, rank and Wiener filters, iirdesign) and the system-object and
 design-support tier (fftconvolve, lfiltic, the lti / dlti classes,
 find_peaks, remez, place_poles), the sharded tier (FFTs over a mesh of
-devices) and the C front door.
+devices), the C front door and dsc.compile over a device mesh.
 
     python3 chip_smoke.py
 
@@ -257,10 +257,27 @@ Phases, each raising on failure (exit code 0 means all passed):
    cpp/tests/test_filterfft.cpp
    over dsc_tpu_torch.capi (dsc_tpu_torch/cpp, g++ beside the card work)
    on the card, which must print "ALL OK".
+14. dsc.compile(fn, mesh=, in_specs=, out_specs=) (fuse.py): on a virtual
+   mesh of 4 entries of cuda:0 and, with more than one card, on the mesh
+   of every card, three programs cut over 'data': the filterFFT of 16 x
+   2^20 (rfft of the rows, K6 + K7; the replicated 4097 Blackman taps'
+   rfft at n = 2^20, K1 + K2; the product; the irfft, K6 + K7), STFT ->
+   mask -> ISTFT of 16 x 2^18 (frame 1024, hop 256, K12) and sosfilt
+   butter(4, 0.25) of 8 x 2^20; each with every kernel launch of one
+   shard's eager call held to its plain version, the first call's
+   launches held to its two global check runs' (seeded probe arguments,
+   then the caller's) plus one shard's trace run and capture a distinct
+   device, a later call to no launch from the host and one graph replay
+   a shard, no plain version run on a CUDA tensor, the result within 1e-4 of NumPy / scipy
+   in float64 and beside the single-device compiled call, and host ms,
+   device time, busy share and peak memory of the mesh-compiled, the
+   single-device compiled and the eager call; then the separability
+   check's refusal of the rows less their mean over a 'model'-cut
+   dimension.
 
 The last lines are the kernels' JSON record (its ``launches_by_path``
 holds each path's launches, 'models', 'transforms', 'recurrence',
-'scans', 'signals', 'systems' and 'sharded' among them), the card line and the
+'scans', 'signals', 'systems', 'sharded' and 'mesh' among them), the card line and the
 result line. Without a CUDA device the script exits non-zero before any of
 them.
 
@@ -323,6 +340,10 @@ runs phases 1-2 and phase 12 alone.
     python3 chip_smoke.py --sharded
 
 runs phases 1-2 and phase 13 alone.
+
+    python3 chip_smoke.py --mesh
+
+runs phases 1-2 and phase 14 alone.
 
     python3 chip_smoke.py --map-candidates TREE [TREE ...]
 
@@ -475,18 +496,25 @@ def cuda_ms(fn, runs: int = RUNS) -> float:
     return float(np.median(times))
 
 
+def sync_cards() -> None:
+    """Wait for the work of every card (``torch.cuda.synchronize()`` waits
+    for the current one only)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def host_ms(fn, runs: int = RUNS) -> float:
     """Median host-clock time of one call of ``fn`` followed by a
-    synchronize, after WARMUP_S seconds of warm-up calls."""
+    synchronize of every card, after WARMUP_S seconds of warm-up calls."""
     stop = time.perf_counter() + WARMUP_S
     while time.perf_counter() < stop:
         fn()
-    torch.cuda.synchronize()
+    sync_cards()
     times = []
     for _ in range(runs):
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        sync_cards()
         times.append(1e3 * (time.perf_counter() - t0))
     return float(np.median(times))
 
@@ -2814,25 +2842,34 @@ LOCAL_TIMED = ((2**24, 4), (2**24, 8), (2**26, 4))
 
 
 def plain_versions():
-    """The plain versions a call of the sharded tier can reach through a
-    wrapper: (module, name)."""
-    from dsc_tpu_torch.fourier import base_fft, reconstruct, stream
+    """The plain versions a call of the sharded tier or a mesh program can
+    reach through a wrapper: (module, name)."""
+    from dsc_tpu_torch.fourier import base_fft, packed_fused as pf, reconstruct, stream
+    from dsc_tpu_torch.ops import stream_map as sm
 
     return ((stream, 'phase_a_local_plain'), (stream, 'phase_b_local_plain'),
             (stream, 'phase_a_plain'), (stream, 'phase_b_plain'),
-            (base_fft, 'fft_base_plain'), (reconstruct, 'reconstruct_plain'))
+            (base_fft, 'fft_base_plain'), (reconstruct, 'reconstruct_plain'),
+            (pf, 'rfft_phase_a_plain'), (pf, 'rfft_phase_b_plain'),
+            (pf, 'irfft_phase_a_plain'), (pf, 'irfft_phase_b_plain'),
+            (sm, 'stream_map_plain'))
 
 
 @contextlib.contextmanager
 def no_plain_on_cuda():
     """Within the block, a wrapper that runs its plain version on a CUDA
-    tensor raises: a CUDA shard takes the kernel or fails."""
+    tensor raises: a CUDA shard takes the kernel or fails. The plain
+    reconstruction of a spectrum K11 does not take (a batch: the route,
+    fourier/reconstruct.py) is not a fallback and runs."""
+    from dsc_tpu_torch.fourier import reconstruct
+
     saved = []
     for module, name in plain_versions():
         fn = getattr(module, name)
 
         def spy(*args, name=name, fn=fn, **kw):
-            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+            if (any(isinstance(a, torch.Tensor) and a.is_cuda for a in args)
+                    and (name != 'reconstruct_plain' or reconstruct.kernel_takes(*args))):
                 raise RuntimeError(f'{name} ran on a CUDA tensor')
             return fn(*args, **kw)
 
@@ -3136,6 +3173,224 @@ def sharded_phase(dsc, card: str, compare, timed) -> dict:
     return launches
 
 
+# phase 14's sizes (dsc.compile(mesh=...)): the batch-sharded filterFFT of
+# 16 x 2^20 with 4097 Blackman taps, the STFT -> mask -> ISTFT pipeline of
+# 16 x 2^18 (frame 1024, hop 256), sosfilt butter(4, 0.25) of 8 x 2^20
+MESH_ROWS = (16, 2**20)
+MESH_TAPS = 4097
+MESH_STFT = (16, 2**18)
+MESH_FRAME, MESH_HOP = 1024, 256
+MESH_IIR = (8, 2**20)
+MESH_SHARDS = 4
+
+
+def stft_mask_istft64(x: np.ndarray, frame: int, hop: int) -> np.ndarray:
+    """The STFT -> mask -> ISTFT pipeline of tests/test_compile.py in
+    float64 NumPy: hann frames, the gate clip(|Z| / mean |Z| - 2, 0, 1) over
+    each frame's bins, windowed overlap-add over the sum of squared
+    windows (models/stft.py)."""
+    w = np.hanning(frame).astype(np.float32).astype(np.float64)
+    b, n = x.shape
+    nf = 1 + (n - frame) // hop
+    idx = np.arange(nf)[:, None] * hop + np.arange(frame)
+    z = np.fft.rfft(x.astype(np.float64)[:, idx] * w, axis=-1)
+    mag = np.abs(z)
+    z *= np.clip(mag / mag.mean(axis=2, keepdims=True) - 2.0, 0.0, 1.0)
+    del mag
+    y = np.fft.irfft(z, frame, axis=-1) * w
+    del z
+    span = (nf - 1) * hop + frame
+    out, wsq = np.zeros((b, span)), np.zeros(span)
+    for i in range(nf):
+        out[:, i * hop:i * hop + frame] += y[:, i]
+        wsq[i * hop:i * hop + frame] += w * w
+    return (out / np.maximum(wsq, float(np.finfo(np.float32).tiny)))[:, :n]
+
+
+def mesh_phase(dsc, card: str, compare) -> dict:
+    """Phase 14, ``dsc.compile(fn, mesh=, in_specs=, out_specs=)`` (fuse.py):
+    the batch-sharded filterFFT, the STFT -> mask -> ISTFT pipeline and
+    sosfilt, each cut over 'data', on a virtual mesh of 4 x cuda:0 and, on a
+    machine of more than one card, on the mesh of every card. Each program:
+    every kernel launch of one shard's eager call held to its plain version
+    (the launch shapes the shards run); the first mesh call's launches held
+    to its two global check runs' (the probe's and the caller's arguments)
+    plus the trace run's and the capture's on each distinct device, and a
+    later call to no launch from the host and one graph replay a shard,
+    with no plain version run on a CUDA tensor; the result against NumPy / scipy in float64 and against the
+    single-device compiled call; host ms a call of the mesh-compiled, the
+    single-device compiled and the eager call with their device time and
+    busy share, and peak memory above the inputs. Then the separability
+    check's refusal of a reduction over a 'model'-cut dimension. Returns
+    the launches of each kernel."""
+    import scipy.signal as sps
+
+    from dsc_tpu_torch.kernels import build
+    from dsc_tpu_torch.models import ISTFT, STFT, butter, sosfilt
+    from dsc_tpu_torch.parallel import P, Sharded, make_mesh
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    print(f'phase 14: dsc.compile(mesh=...) on a virtual mesh of {MESH_SHARDS} x cuda:0'
+          f'{"" if n_cards == 1 else f" and on the {n_cards} cards"} [{card}]')
+    dev0 = torch.device('cuda', 0)
+    rng = np.random.default_rng(14)
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def counted(what, fn, want=None):
+        build.reset_launches()
+        out = fn()
+        sync_cards()
+        got = {name: count for name, count in build.launches.items() if count}
+        require(want is None or got == want, f'{what}: launches {got}, want {want}')
+        for name, count in got.items():
+            launches[name] += count
+        return out, got
+
+    # the CUDA graph replays of a call, while the spy is in place
+    replays = []
+    graph_replay = torch.cuda.CUDAGraph.replay
+
+    def spy_replay(graph):
+        replays.append(graph)
+        return graph_replay(graph)
+
+    def peak_mib(fn):
+        sync_cards()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        sync_cards()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        del out
+        return peak
+
+    sos = butter(4, 0.25)
+    sig_np = rng.standard_normal(MESH_ROWS).astype(np.float32)
+    taps_np = np.blackman(MESH_TAPS).astype(np.float32)
+    stft_np = rng.standard_normal(MESH_STFT).astype(np.float32)
+    iir_np = rng.standard_normal(MESH_IIR).astype(np.float32)
+    t_ref = time.perf_counter()
+    fft_n = MESH_ROWS[1]
+    refs = {
+        'filterFFT': np.fft.irfft(np.fft.rfft(sig_np.astype(np.float64), axis=-1)
+                                  * np.fft.rfft(taps_np.astype(np.float64), n=fft_n),
+                                  n=fft_n, axis=-1),
+        'STFT -> mask -> ISTFT': stft_mask_istft64(stft_np, MESH_FRAME, MESH_HOP),
+        'sosfilt': sps.sosfilt(sos, iir_np.astype(np.float64), axis=-1),
+    }
+    refs_s = time.perf_counter() - t_ref
+    stc = STFT(MESH_FRAME, MESH_HOP, 'hann', mode='complex')
+    ist = ISTFT(MESH_FRAME, MESH_HOP, 'hann')
+
+    def filter_fft(sig, taps):
+        return dsc.irfft(dsc.mul(dsc.rfft(sig), dsc.rfft(taps, n=fft_n)))
+
+    def stft_mask_istft(x):
+        z = stc(x)
+        mag = dsc.absolute(z)
+        gate = dsc.clip(dsc.sub(dsc.true_div(mag, dsc.mean(mag, axis=2, keepdims=True)), 2.0),
+                        0.0, 1.0)
+        return ist(dsc.mul(z, gate), length=MESH_STFT[1])
+
+    def iir(x):
+        return sosfilt(sos, x)
+
+    # (what, fn, arguments, in_specs, out_specs, the samples held to float64
+    # beside the whole result)
+    programs = (
+        ('filterFFT', filter_fft, (sig_np, taps_np), (P('data'), P()), P('data'), slice(None)),
+        # at the ends 1/sum(w^2) reaches 1/w[1]^2 ~ 1e10, which magnifies
+        # float32 rounding there and sets max |ref|: the samples every frame
+        # position covers are held to their own largest value too
+        ('STFT -> mask -> ISTFT', stft_mask_istft, (stft_np,), (P('data'),), None,
+         slice(MESH_FRAME, MESH_STFT[1] - MESH_FRAME)),
+        ('sosfilt', iir, (iir_np,), (P('data'),), P('data'), slice(None)),
+    )
+    meshes = [(f'virtual {MESH_SHARDS} x cuda:0', [dev0] * MESH_SHARDS)]
+    if n_cards > 1:
+        meshes.append((f'{n_cards} cards', [torch.device('cuda', i) for i in range(n_cards)]))
+    for label, devs in meshes:
+        mesh = make_mesh((len(devs), 1), devices=devs)
+        d, distinct = len(devs), len(set(devs))
+        for what, fn, args_np, in_specs, out_specs, held in programs:
+            args = [dsc.from_numpy(a) for a in args_np]
+            rows = args_np[0].shape[0] // d
+            shard = [dsc.from_numpy(args_np[0][:rows])] + args[1:]
+            with held_launches(compare, lambda: f'{what}, one shard ({rows} rows)'):
+                _, one = counted(f'{what}: one shard, eager', lambda: fn(*shard))
+            _, whole = counted(f'{what}: eager, global', lambda: fn(*args))
+            mp = dsc.compile(fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs)
+            want = {k: 2 * whole.get(k, 0) + 2 * distinct * one.get(k, 0)
+                    for k in set(whole) | set(one)}
+            with no_plain_on_cuda():
+                out, _ = counted(f'{what} on {label}: first call (check runs, trace and capture)',
+                                 lambda: mp(*args), {k: c for k, c in want.items() if c})
+                # a later call launches nothing from the host and replays each
+                # shard's graph, which holds what its capture launched: one
+                # shard's kernels (held just above), d times in all
+                replays.clear()
+                torch.cuda.CUDAGraph.replay = spy_replay
+                try:
+                    out, _ = counted(f'{what} on {label}: a replay', lambda: mp(*args), {})
+                finally:
+                    torch.cuda.CUDAGraph.replay = graph_replay
+            require(len(replays) == d,
+                    f'{what} on {label}: {len(replays)} graph replays a call, want {d}')
+            require(isinstance(out, Sharded) and out.shape == args_np[0].shape,
+                    f'{what} on {label}: {type(out).__name__} {getattr(out, "shape", None)}')
+            got = out.numpy()
+            ref = refs[what]
+            require(np.isfinite(got).all(), f'{what} on {label}: not finite')
+            e, e_in = (float(np.abs(got[:, h] - ref[:, h]).max()
+                             / max(1.0, float(np.abs(ref[:, h]).max())))
+                       for h in (slice(None), held))
+            sp = dsc.compile(fn)
+            single = sp(*args).numpy()
+            e1 = float(np.abs(got - single).max() / max(1.0, float(np.abs(single).max())))
+            print(f'  {what} {args_np[0].shape} on {label}: vs float64 {e:.3e}, the samples '
+                  f'{held.start or 0}:{held.stop or args_np[0].shape[1]} {e_in:.3e} (bound '
+                  f'{NUMPY_BOUND:g}), vs the single-device compiled call {e1:.3e}; launches a '
+                  f'first call {want}, {len(replays)} graph replays a later call [{card}]')
+            require(max(e, e_in) <= NUMPY_BOUND,
+                    f'{what} on {label}: {e}, {e_in} > {NUMPY_BOUND}')
+            calls = (('mesh-compiled', lambda: mp(*args)), ('compiled', lambda: sp(*args)),
+                     ('eager', lambda: fn(*args)))
+            # on several cards torch.profiler sums the cards' device time and
+            # the peak is cuda:0's
+            cards = '' if distinct == 1 else f', summed over {distinct} cards'
+            for name, call in calls:
+                wall = host_ms(call)
+                busy, _, _, how = device_busy(call, f'{what} {name} on {label}', wall, card, 5)
+                print(f'  {what} {name} on {label}: {wall:.4f} ms a call, device {busy:.4f} ms '
+                      f'({how}{cards}), busy share {busy / wall:.3f}, peak '
+                      f'{peak_mib(call):.1f} MiB above the inputs on cuda:0 [{card}]')
+            del out, got, single, args, shard, mp, sp
+            torch.cuda.empty_cache()
+
+    # -- the separability check refuses a reduction over a cut dimension ------
+    # (the rows less their mean: the shapes tile, the values do not)
+    grid = make_mesh((2, 2), devices=[dev0] * 4)
+    stats = dsc.compile(lambda x: dsc.sub(x, dsc.mean(x, axis=-1, keepdims=True)), mesh=grid,
+                        in_specs=(P('data', 'model'),))
+    x = dsc.from_numpy(sig_np[:, :2**16])
+    try:
+        stats(x)
+        refused = None
+    except NotImplementedError as err:
+        refused = str(err)
+    require(refused is not None and stats.n_programs == 0,
+            'a mean over a model-cut dimension was not refused')
+    print(f'  the rows less their mean over a \'model\'-cut dimension, (2, 2) mesh of cuda:0: '
+          f'refused: {refused[:160]}...')
+    print(f'  launches on the mesh path: {launches}')
+    require(launches['stream_phase_a'] > 0 and launches['stream_phase_b'] > 0,
+            'K6/K7 were not launched on the mesh path')
+    print(f'  phase 14: {time.perf_counter() - t_phase:.1f} s (float64 references '
+          f'{refs_s:.1f} s) [{card}]')
+    return launches
+
+
 def _tensors_in(entry):
     """The torch tensors of a cache entry of models/iir.py (nested tuples)."""
     if isinstance(entry, torch.Tensor):
@@ -3179,6 +3434,9 @@ def main() -> int:
     parser.add_argument('--sharded', action='store_true',
                         help='run phase 13 (the sharded tier and the C front door) alone after '
                              'the build')
+    parser.add_argument('--mesh', action='store_true',
+                        help='run phase 14 (dsc.compile over a device mesh) alone after the '
+                             'build')
     parser.add_argument('--map-candidates', nargs='+', metavar='TREE',
                         help='time K5 of each tree (a checkout of the port) in turns, '
                              'in place of the checks')
@@ -3303,6 +3561,9 @@ def main() -> int:
         return 0
     if args.sharded:
         sharded_phase(dsc, card, compare, timed)
+        return 0
+    if args.mesh:
+        mesh_phase(dsc, card, compare)
         return 0
 
     # -- 3. kernels vs plain versions --------------------------------------
@@ -3971,6 +4232,11 @@ def main() -> int:
     for name in KERNELS:
         by_path[name]['sharded'] = shard_launches[name]
     launches.update({name: shard_launches[name] for name in LOCAL_KERNELS})
+
+    # -- 14. dsc.compile over a device mesh ----------------------------------
+    mesh_launches = mesh_phase(dsc, card, compare)
+    for name in KERNELS:
+        by_path[name]['mesh'] = mesh_launches[name]
 
     # the main path's shape of each kernel: the filterFFT at n = 2^21 for the
     # packed passes, the n = 4096 pair's 2048 x 1 for K12, bench's fma for K5,

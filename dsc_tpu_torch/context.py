@@ -14,6 +14,11 @@ python/dsc/context.py) on one explicit torch device:
 - allocation beyond the cap raises ``MemoryError`` (reference
   dsc_allocator.cpp:112-114)
 
+``on_device(dev)`` makes ``device()`` read ``dev`` on the calling thread
+for a block: a mesh program (fuse.py) runs each shard so, and what the
+shard's function creates (constants, FFT plans, windows) lands on the
+shard's device.
+
 Op temporaries live in PyTorch's caching allocator, as they live in XLA's
 arena in the JAX package; only tensor buffers count against the cap.
 """
@@ -22,6 +27,7 @@ from __future__ import annotations
 
 import os
 import threading
+from contextlib import contextmanager
 from typing import Optional
 
 import torch
@@ -145,5 +151,22 @@ def manual_seed(seed: int) -> None:
     _get_ctx().manual_seed(seed)
 
 
+_local = threading.local()
+
+
+@contextmanager
+def on_device(dev: torch.device):
+    """Within the block, ``device()`` is ``dev`` on this thread."""
+    prev = getattr(_local, 'device', None)
+    _local.device = dev
+    try:
+        yield
+    finally:
+        _local.device = prev
+
+
 def device() -> torch.device:
-    return _get_ctx().device
+    """The device tensors are created on: the context's, or the one an
+    enclosing ``on_device`` names."""
+    dev = getattr(_local, 'device', None)
+    return _get_ctx().device if dev is None else dev

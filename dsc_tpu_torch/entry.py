@@ -12,7 +12,7 @@ It runs on the context's device: the card unless ``init(device='cpu')``.
 
 ``dryrun_multichip(n_devices)`` (__graft_entry__.dryrun_multichip) runs
 one step of each leg of the sharded tier over an n_devices ('data',
-'model') mesh, each held to np.fft: the cards where there are n_devices,
+'model') mesh, each held to NumPy: the cards where there are n_devices,
 else a virtual mesh of n_devices entries of cuda:0, or of the CPU with
 ``device='cpu'``.
 """
@@ -62,14 +62,15 @@ def dryrun_multichip(n_devices: int = 8, device: str = 'cuda') -> None:
     STFT power), the transform-sharded leg on a 'model' axis of 2
     (distributed_fft at 1024 points, distributed_fft_stream and the
     distributed rfft -> irfft pair at 2^20) and the model=4 leg
-    (distributed_fft at 4096, distributed_rfft_stream at 2^21). On fewer
-    cards than n_devices the mesh repeats cuda:0; ``device='cpu'`` builds
-    it of the CPU. The mesh-compiled legs of the JAX entry
-    (dsc.compile(mesh=...)) are not here."""
+    (distributed_fft at 4096, distributed_rfft_stream at 2^21), then the
+    JAX entry's two mesh-compiled legs (dsc.compile(mesh=...)): the
+    filterFFT with the signal cut over 'data' and the taps replicated, and
+    the batch-sharded sosfilt. On fewer cards than n_devices the mesh
+    repeats cuda:0; ``device='cpu'`` builds it of the CPU. Without a
+    context, one is made on the mesh's first device for the run."""
     import torch
 
-    from .parallel import (distributed_fft, distributed_fft_stream, distributed_irfft_stream,
-                           distributed_rfft_stream, make_mesh, sharded_batched_rfft)
+    from . import context
 
     if device == 'cpu':
         devs = [torch.device('cpu')] * n_devices
@@ -79,6 +80,21 @@ def dryrun_multichip(n_devices: int = 8, device: str = 'cuda') -> None:
         devs = [torch.device('cuda', i) for i in range(n_devices)]
     else:
         devs = [torch.device('cuda', 0)] * n_devices
+    own = context._ctx is None
+    if own:
+        context.init(context._default_mem(devs[0]), device=devs[0])
+    try:
+        _dryrun_legs(n_devices, devs)
+    finally:
+        if own:
+            context.shutdown()
+
+
+def _dryrun_legs(n_devices: int, devs) -> None:
+    from .models import butter, sosfilt
+    from .parallel import (P, distributed_fft, distributed_fft_stream, distributed_irfft_stream,
+                           distributed_rfft_stream, make_mesh, sharded_batched_rfft)
+
     model = 2 if n_devices % 2 == 0 else 1
     mesh = make_mesh((n_devices // model, model), devices=devs)
 
@@ -123,4 +139,36 @@ def dryrun_multichip(n_devices: int = 8, device: str = 'cuda') -> None:
         x4 = np.random.default_rng(13).standard_normal(nr4).astype(np.float32)
         _check('model=4 STREAM rfft', distributed_rfft_stream(x4, mesh4, axis='model'),
                np.fft.rfft(x4.astype(np.float64)))
+    # --- the public SPMD tier: the mesh-compiled filterFFT -------------------
+    pipe = _compile(lambda sig, flt: irfft(mul(rfft(sig), rfft(flt))), mesh=mesh,
+                    in_specs=(P('data'), P()), out_specs=P('data'))
+    sn = np.random.default_rng(4).standard_normal((batch, 128)).astype(np.float32)
+    fl = np.blackman(128).astype(np.float32)
+    ref = np.fft.irfft(np.fft.rfft(sn.astype(np.float64), axis=-1)
+                       * np.fft.rfft(fl.astype(np.float64)), axis=-1)
+    _check('mesh-compiled filterFFT', pipe(sn, fl), ref)
+
+    # --- the model tier: the batch-sharded IIR --------------------------------
+    sos = butter(3, 0.25, 'low')
+    iir = _compile(lambda v: sosfilt(sos, v), mesh=mesh, in_specs=(P('data'),))
+    xi = np.random.default_rng(5).standard_normal((batch, 256)).astype(np.float32)
+    _check('mesh-compiled IIR', iir(xi), _sosfilt64(sos, xi))
     print(f'dryrun_multichip OK: mesh={dict(mesh.shape)} devices={sorted(set(map(str, devs)))}')
+
+
+def _sosfilt64(sos: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """The rows of ``x`` through the cascade ``sos`` in float64, section by
+    section in transposed direct form II (a NumPy oracle, no scipy)."""
+    y = x.astype(np.float64)
+    for b0, b1, b2, _, a1, a2 in np.asarray(sos, np.float64):
+        out = np.empty_like(y)
+        z1 = np.zeros(y.shape[0])
+        z2 = np.zeros(y.shape[0])
+        for t in range(y.shape[1]):
+            v = y[:, t]
+            o = b0 * v + z1
+            z1 = b1 * v - a1 * o + z2
+            z2 = b2 * v - a2 * o
+            out[:, t] = o
+        y = out
+    return y

@@ -69,6 +69,18 @@ def _device_array(host: np.ndarray, like: Optional[torch.Tensor] = None) -> torc
     return capture.created(lambda: Tensor._from_torch(torch.from_numpy(host).to(dev))).torch
 
 
+def _placed(cache: dict, t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A model's device array ``t`` on ``dev``: itself where it lies, else a
+    copy kept in ``cache``, made at the first call there (a mesh program's
+    shard on another card runs its trace run so, fuse.py)."""
+    if t.device == dev:
+        return t
+    got = cache.get(dev)
+    if got is None:
+        got = cache[dev] = t.to(dev)
+    return got
+
+
 def _fft_convolve_rows(x: torch.Tensor, h: torch.Tensor, fft_n: int) -> torch.Tensor:
     """Full linear convolution of the rows of x (b, m) with the rows of h
     (c, k), b or c being 1 (broadcast), by one batched rfft of x, one of h
@@ -138,6 +150,7 @@ class STFT:
         self.mode = mode
         self.log_eps = log_eps if mode == 'log' else None
         self._window = _device_array(_make_window(window, frame))
+        self._windows: dict = {}
 
     def __call__(self, x: Tensor) -> Tensor:
         """x: (n,) or (batch, n) float32 -> (n_frames, fft_n//2+1) float32
@@ -156,7 +169,8 @@ class STFT:
         with tracing.trace_op('stft', 'op;pipeline', tracing.tensor_args(x=x)):
             b = data.shape[0]
             frames = _frame_dense(data, frame, self.hop, n_frames)
-            fx = (frames * self._window).reshape(b * n_frames, frame)
+            fx = (frames * _placed(self._windows, self._window, data.device)).reshape(
+                b * n_frames, frame)
             if frame != fft_n:  # a frame that is not a power of two: zero-padded
                 fx = torch.nn.functional.pad(fx, (0, fft_n - frame))
             z = fft_core.rfft_batched(fx, spec, tables, fft_n).reshape(b, n_frames, -1)
@@ -190,21 +204,22 @@ class ISTFT:
         self.fft_n = fft_plan.next_pow2(frame)
         self._window_np = _make_window(window, frame)
         self._window = _device_array(self._window_np)
+        self._windows: dict = {}
         self._inv_wsq_cache: dict = {}
 
-    def _inv_wsq(self, n_frames: int, span: int) -> torch.Tensor:
+    def _inv_wsq(self, n_frames: int, span: int, like: torch.Tensor) -> torch.Tensor:
         """1 / sum of squared windows at each output sample: it depends only
         on (window, hop, n_frames), so it is computed on the host in
-        float64, once per spectrogram length."""
-        got = self._inv_wsq_cache.get(n_frames)
+        float64, once per spectrogram length and device (``like``'s)."""
+        got = self._inv_wsq_cache.get((n_frames, like.device))
         if got is None:
             w2 = self._window_np.astype(np.float64) ** 2
             wsq = np.zeros(span, np.float64)
             for i in range(0, n_frames * self.hop, self.hop):
                 wsq[i:i + self.frame] += w2
             tiny = float(np.finfo(np.float32).tiny)
-            got = _device_array((1.0 / np.maximum(wsq, tiny)).astype(np.float32))
-            self._inv_wsq_cache[n_frames] = got
+            got = _device_array((1.0 / np.maximum(wsq, tiny)).astype(np.float32), like)
+            self._inv_wsq_cache[(n_frames, like.device)] = got
         return got
 
     def __call__(self, z: Tensor, length: Optional[int] = None) -> Tensor:
@@ -227,9 +242,10 @@ class ISTFT:
         data = z.torch.to(torch.complex64)
         if not batched:
             data = data[None]
-        inv_wsq = self._inv_wsq(n_frames, span)
+        inv_wsq = self._inv_wsq(n_frames, span, data)
         with tracing.trace_op('istft', 'op;pipeline', tracing.tensor_args(z=z)):
-            out = _istft_program(data, self._window, inv_wsq, tables, frame, hop, n_frames,
+            window = _placed(self._windows, self._window, data.device)
+            out = _istft_program(data, window, inv_wsq, tables, frame, hop, n_frames,
                                  spec, self.fft_n, span)[:, :length]
             res = Tensor._from_torch(out if batched else out[0])
         return res

@@ -1,7 +1,7 @@
 """The sharded tier (dsc_tpu/parallel): device meshes and FFTs sharded
 over them, in one process (mesh.py)."""
 
-from .mesh import Mesh, Sharded, make_mesh
+from .mesh import Mesh, P, PartitionSpec, Sharded, make_mesh
 from .sharded_fft import (
     distributed_fft,
     distributed_fft_stream,
@@ -12,6 +12,8 @@ from .sharded_fft import (
     sharded_batched_rfft,
 )
 
+# the JAX package's names; P / PartitionSpec (jax.sharding's there) are
+# importable from here too
 __all__ = [
     'make_mesh',
     'shard_batch',

@@ -13,7 +13,10 @@ port keeps that shape in one process:
   gives the JAX package eight host devices;
 - a ``Sharded`` value holds one shard a mesh device: the block of the
   global array that the device's coordinate along one mesh axis selects,
-  replicated over the other axes.
+  replicated over the other axes;
+- a ``PartitionSpec`` (``P``) says how ``dsc.compile(mesh=...)`` places an
+  argument or a result (fuse.py): one entry a dimension, a mesh axis name
+  or None, as ``jax.sharding.PartitionSpec``; ``P()`` replicates.
 
 There is no process group here: an exchange between shards is a set of
 block copies (``Tensor.copy_``), peer copies between distinct cards and
@@ -66,6 +69,21 @@ class Mesh:
 
     def __repr__(self) -> str:
         return f'Mesh({dict(self.shape)}, devices={[str(d) for d in self.device_list]})'
+
+
+class PartitionSpec(tuple):
+    """The mesh axis that cuts each dimension (None: not cut), as
+    ``jax.sharding.PartitionSpec``; trailing dimensions not named are not
+    cut, and ``P()`` replicates."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f'P({", ".join(map(repr, self))})'
+
+
+P = PartitionSpec
 
 
 def _device(d) -> torch.device:

@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from . import capture, interop, tracing
-from .context import _get_ctx
+from .context import _get_ctx, device as _device
 from .dtype import DTYPE_TO_NP, Dtype, ScalarType, np_to_dtype, promote, scalar_dtype
 from .interop import DTYPE_OF_TORCH, TORCH_DTYPE
 from .ops import kernels as K
@@ -134,7 +134,7 @@ class Tensor:
                 raise RuntimeError(f'cannot create a Tensor of dtype {data.dtype}')
 
             def make():
-                return Tensor._from_torch(data.to(_get_ctx().device, copy=True))
+                return Tensor._from_torch(data.to(_device(), copy=True))
         else:
             host = np.asarray(data)
             if dtype is not None:
@@ -724,7 +724,7 @@ def _wrap(x, dtype: Dtype) -> Tensor:
 def arange(n: int, dtype: Dtype = Dtype.F32) -> Tensor:
     def make():
         with tracing.trace_op('arange', 'op;creation', {'n': n}):
-            return Tensor._from_torch(K.arange(n, TORCH_DTYPE[dtype], _get_ctx().device))
+            return Tensor._from_torch(K.arange(n, TORCH_DTYPE[dtype], _device()))
 
     return capture.created(make)
 
@@ -738,7 +738,7 @@ def randn(*shape: int, dtype: Dtype = Dtype.F32) -> Tensor:
 
     def make():
         host = torch.randn(shape, generator=ctx.generator, dtype=TORCH_DTYPE[dtype])
-        return Tensor._from_torch(host.to(ctx.device))
+        return Tensor._from_torch(host.to(_device()))
 
     return capture.created(make)
 
@@ -750,7 +750,7 @@ def full(shape, fill_value: ScalarType, dtype: Dtype = Dtype.F32) -> Tensor:
     def make():
         with tracing.trace_op('full', 'op;creation', {'shape': list(shape)}):
             return Tensor._from_torch(
-                K.full(shape, fill_value, TORCH_DTYPE[dtype], _get_ctx().device))
+                K.full(shape, fill_value, TORCH_DTYPE[dtype], _device()))
 
     return capture.created(make)
 

@@ -1,10 +1,11 @@
 """The fusion tier of dsc_tpu_torch (fuse.py, capture.py, ops/map_gen.py)
 against dsc_tpu's (dsc_tpu/fuse.py) on the same inputs, on the CPU:
 
-- ``dsc.compile``: the non-mesh cases of tests/test_compile.py, program
-  constants, ``mesh=`` refused, and the repairs that make a CUDA graph
-  capture possible (no synchronize while capturing, concrete reads refused
-  inside a program, a plan missing during a capture refused);
+- ``dsc.compile``: the non-mesh cases of tests/test_compile.py (the mesh
+  cases are tests/test_torch_compile_mesh.py), program constants, and the
+  repairs that make a CUDA graph capture possible (no synchronize while
+  capturing, concrete reads refused inside a program, a plan missing during
+  a capture refused);
 - ``dsc.map``: the cases of tests/test_pallas_map.py with K5's thresholds
   set small on both sides (the JAX kernel in interpret mode), each with the
   same stream-or-compile decision as dsc_tpu, the lowering table case by
@@ -326,12 +327,6 @@ def test_compile_tracing_events():
     tracing.clear_traces()
     assert names[0][0] == 'compile:<lambda>' and {'mul', 'add'} <= set(names[0])
     assert names[1] == ['compile:<lambda>']  # op events in the trace run only
-
-
-@pytest.mark.parametrize('kw', ['mesh', 'in_specs', 'out_specs'])
-def test_compile_mesh_not_ported(kw):
-    with pytest.raises(NotImplementedError, match='queue 1 item 9'):
-        dt.compile(lambda x: x, **{kw: object()})
 
 
 def test_trace_op_does_not_synchronize_while_capturing(monkeypatch):

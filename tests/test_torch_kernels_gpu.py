@@ -955,3 +955,85 @@ def test_distributed_fft_stream_on_a_virtual_mesh():
     assert np.abs(np.asarray(got) - ref).max() / np.abs(ref).max() < 1e-4
     back = distributed_fft_stream(got, mesh, inverse=True)
     assert float((back.full() - v).abs().max()) < 1e-4
+
+
+def test_compile_mesh_filter_fft_on_a_virtual_mesh():
+    """The batch-sharded filterFFT of 16 x 2^20 with 4097 Blackman taps as a
+    mesh program over 4 entries of cuda:0 (one captured graph, replayed a
+    shard) equals the single-device compiled call within 1e-5, on its first
+    call and on a replay; its shards' runs launch K6/K7."""
+    from dsc_tpu_torch.parallel import P, Sharded, make_mesh
+
+    def filt(sig, taps):
+        return dt.irfft(dt.mul(dt.rfft(sig), dt.rfft(taps, n=2**20)))
+
+    mesh = make_mesh((4, 1), devices=[torch.device('cuda', 0)] * 4)
+    rng = np.random.default_rng(90)
+    sig = dt.from_numpy(rng.standard_normal((16, 2**20)).astype(np.float32))
+    taps = dt.from_numpy(np.blackman(4097).astype(np.float32))
+    mp = dt.compile(filt, mesh=mesh, in_specs=(P('data'), P()), out_specs=P('data'))
+    build.reset_launches()
+    got = mp(sig, taps)
+    torch.cuda.synchronize()
+    assert build.launches['stream_phase_a'] > 0 and build.launches['stream_phase_b'] > 0
+    assert isinstance(got, Sharded) and [tuple(s.shape) for s in got.shards] == [(4, 2**20)] * 4
+    single = dt.compile(filt)(sig, taps).torch
+    assert _rel(got.full(), single) < 1e-5
+    assert _rel(mp(sig, taps).full(), single) < 1e-5
+    assert mp.n_programs == 1
+
+
+def test_compile_mesh_on_a_mesh_of_two_devices():
+    """A mesh of two distinct devices, cuda:0 and the CPU, twice each: one
+    program a device (a captured graph on the card, ``fn`` re-run on the
+    CPU), the replicated taps copied to both, the STFT's windows and
+    1/sum(w^2) placed on each, the shards joined across the two. The
+    filterFFT against float64 NumPy, the STFT -> mask -> ISTFT pipeline
+    against its eager call on the card, each within 1e-4; the card's
+    shards launch K6/K7."""
+    from dsc_tpu_torch.models import ISTFT, STFT
+    from dsc_tpu_torch.parallel import P, Sharded, make_mesh
+
+    cuda, cpu = torch.device('cuda', 0), torch.device('cpu')
+    mesh = make_mesh((4, 1), devices=[cuda, cpu] * 2)
+    rng = np.random.default_rng(91)
+    sig_np = rng.standard_normal((16, 2**20)).astype(np.float32)
+    taps_np = np.blackman(4097).astype(np.float32)
+
+    def filt(sig, taps):
+        return dt.irfft(dt.mul(dt.rfft(sig), dt.rfft(taps, n=2**20)))
+
+    mp = dt.compile(filt, mesh=mesh, in_specs=(P('data'), P()), out_specs=P('data'))
+    taps = dt.from_numpy(taps_np)
+    build.reset_launches()
+    got = mp(sig_np, taps)
+    torch.cuda.synchronize()
+    assert build.launches['stream_phase_a'] > 0 and build.launches['stream_phase_b'] > 0
+    assert isinstance(got, Sharded) and [s.device for s in got.shards] == mesh.device_list
+    prog, = mp._programs.values()
+    assert set(prog.programs) == {cuda, cpu}
+    assert prog.programs[cuda].graph is not None and prog.programs[cpu].graph is None
+    assert {dev for dev in mp._replicas[taps._buf][2]} == {cuda, cpu}
+    ref = torch.from_numpy(np.fft.irfft(np.fft.rfft(sig_np.astype(np.float64), axis=-1)
+                                        * np.fft.rfft(taps_np.astype(np.float64), n=2**20),
+                                        n=2**20, axis=-1))
+    assert _rel(got.full().cpu().double(), ref) < 1e-4
+    assert _rel(mp(sig_np, taps).full().cpu().double(), ref) < 1e-4
+
+    stc, ist = STFT(1024, 256, 'hann', mode='complex'), ISTFT(1024, 256, 'hann')
+
+    def pipe(x):
+        z = stc(x)
+        mag = dt.absolute(z)
+        gate = dt.clip(dt.sub(dt.true_div(mag, dt.mean(mag, axis=2, keepdims=True)), 2.0),
+                       0.0, 1.0)
+        return ist(dt.mul(z, gate), length=2**16)
+
+    x_np = rng.standard_normal((8, 2**16)).astype(np.float32)
+    sp = dt.compile(pipe, mesh=mesh, in_specs=(P('data'),))
+    got = sp(x_np)
+    assert isinstance(got, Sharded) and [s.device for s in got.shards] == mesh.device_list
+    assert {dev for _, dev in ist._inv_wsq_cache} >= {cuda, cpu}
+    eager = pipe(dt.from_numpy(x_np)).torch
+    assert _rel(got.full(), eager) < 1e-4
+    assert _rel(sp(x_np).full(), eager) < 1e-4
