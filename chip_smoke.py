@@ -246,7 +246,12 @@ Phases, each raising on failure (exit code 0 means all passed):
    distributed rfft -> irfft pair of 2^24 float32, sharded_batched_fft
    and sharded_batched_rfft of 16 x 2^20 on (d, 1) and distributed_fft of
    4 x 2^22 on (1, d), each within 1e-4 of np.fft, its launches held to
-   the routing and no plain version run on a CUDA shard; each call's host
+   the routing and no plain version run on a CUDA shard; sharded_batched_fft
+   and sharded_batched_rfft of 16 x 2^20 with axis=('data', 'model') and
+   ('model', 'data') on a (2, 2) mesh of 4 x cuda:0 (and of four cards
+   where the machine has four), each K6/K7 launch held to its plain
+   version, the launches to the routing, the result to np.fft and each
+   shard to the block c_a * 2 + c_b of the tuple (a, b); each call's host
    and device time (tensor in, gathered out) beside the single-card call
    on the same data, the copies' and the local kernels' shares of its
    device time; K6 and K7 local at (4096, 1024), (4096, 512) and (8192,
@@ -271,9 +276,16 @@ Phases, each raising on failure (exit code 0 means all passed):
    a shard, no plain version run on a CUDA tensor, the result within 1e-4 of NumPy / scipy
    in float64 and beside the single-device compiled call, and host ms,
    device time, busy share and peak memory of the mesh-compiled, the
-   single-device compiled and the eager call; then the separability
-   check's refusal of the rows less their mean over a 'model'-cut
-   dimension.
+   single-device compiled and the eager call; then the filterFFT with
+   in_specs/out_specs P(('data', 'model')) and P(('model', 'data')) on a
+   (2, 2) mesh of 4 x cuda:0 (and of four cards where the machine has
+   four), with the same launch, replay and plain-version checks, each
+   shard holding block c_a * 2 + c_b of the tuple (a, b) bit for bit as
+   the single-device compiled call does, and host ms a call of the
+   one-axis program over the same devices and of the tuple programs, in
+   turns; then the separability check's refusal of the rows
+   less their mean over a 'model'-cut dimension and over one cut by
+   ('data', 'model').
 
 The last lines are the kernels' JSON record (its ``launches_by_path``
 holds each path's launches, 'models', 'transforms', 'recurrence',
@@ -2836,6 +2848,8 @@ SHARD_N = 2**24
 SHARD_ROWS = (16, 2**20)
 SHARD_TP = (4, 2**22)
 LOCAL_KERNELS = ('stream_phase_a_local', 'stream_phase_b_local')
+# the axis tuples phases 13 and 14 cut the batch over, on a (2, 2) mesh
+AXIS_TUPLES = (('data', 'model'), ('model', 'data'))
 # the local kernels' timed blocks: K6 and K7 local at (4096, 1024),
 # (4096, 512) and (8192, 2048)
 LOCAL_TIMED = ((2**24, 4), (2**24, 8), (2**26, 4))
@@ -2898,14 +2912,15 @@ def sharded_phase(dsc, card: str, compare, timed) -> dict:
     no plain version run on a CUDA shard; then the calls' host and device
     time beside the single-card call on the same data, the exchange copies'
     share, the local kernels against their bytes' bound; and the C++ harness
-    over the port's C front door on the card. Returns the launches of each
-    kernel."""
+    over the port's C front door on the card. The batch functions also run
+    cut over each axis tuple on a (2, 2) mesh (13b'). Returns the launches
+    of each kernel."""
     import threading
 
     from dsc_tpu_torch.cpp import build as cbuild
     from dsc_tpu_torch.fourier import core, plan, stream
     from dsc_tpu_torch.kernels import build
-    from dsc_tpu_torch.parallel import (distributed_fft, distributed_fft_stream,
+    from dsc_tpu_torch.parallel import (Sharded, distributed_fft, distributed_fft_stream,
                                         distributed_irfft_stream, distributed_rfft_stream,
                                         make_mesh, sharded_batched_fft, sharded_batched_rfft,
                                         sharded_fft)
@@ -3041,6 +3056,41 @@ def sharded_phase(dsc, card: str, compare, timed) -> dict:
         against(f'distributed_fft {tb} x 2^22 on (1, {d}) {label} vs np.fft', got, refs['tp'])
         calls[label] = (tp_mesh, dp_mesh)
         del spec, back, half, got
+    # -- 13b'. the batch cut over a tuple of mesh axes: on a (2, 2) mesh the
+    # device at (c_data, c_model) holds block c_a * 2 + c_b of the tuple
+    # (a, b), as NamedSharding orders it; every K6/K7 launch held to its
+    # plain version, the launches to the routing
+    rb, rn = SHARD_ROWS
+    per = rb // 4
+    grids = [('(2, 2) of 4 x cuda:0', [dev0] * 4)]
+    if n_cards >= 4:
+        grids.append(('(2, 2) of 4 cards', [torch.device('cuda', i) for i in range(4)]))
+    for label, devs in grids:
+        grid = make_mesh((2, 2), devices=devs)
+        for axes in AXIS_TUPLES:
+            for what, call, kind, ref in (
+                    ('sharded_batched_fft', lambda: sharded_batched_fft(b, grid, axis=axes), 'c2c',
+                     refs['rows']),
+                    ('sharded_batched_rfft', lambda: sharded_batched_rfft(rows, grid, axis=axes),
+                     'r2c', refs['rows rfft'])):
+                name = f'{what} {rb} x 2^20 axis={axes} on {label}'
+                with held_launches(compare, lambda: name):
+                    got = routed(name, call, scaled(core_launches([(kind, per, rn)]), 4))
+                require(isinstance(got, Sharded) and got.axis == axes and got.dim == 0,
+                        f'{name}: {got!r}')
+                against(f'{name} vs np.fft', got, ref)
+                worst = 0.0
+                for i, shard in enumerate(got.shards):
+                    c = dict(zip(grid.axis_names, np.unravel_index(i, (2, 2))))
+                    block = c[axes[0]] * 2 + c[axes[1]]
+                    want = ref[block * per:(block + 1) * per]
+                    e = float(np.abs(shard.cpu().numpy() - want).max() / np.abs(want).max())
+                    require(shard.device == devs[i] and e <= NUMPY_BOUND,
+                            f'{name}: shard {i} on {shard.device} against block {block}: {e}')
+                    worst = max(worst, e)
+                print(f'  {name}: each shard holds its block of the rule, worst {worst:.3e} '
+                      f'(rel, bound {NUMPY_BOUND:g}) [{card}]')
+                del got
     print(f'  launches on the sharded path: {launches}')
     for name in LOCAL_KERNELS:
         require(launches[name] > 0, f'kernel {name} was not launched on the sharded path')
@@ -3221,8 +3271,9 @@ def mesh_phase(dsc, card: str, compare) -> dict:
     single-device compiled call; host ms a call of the mesh-compiled, the
     single-device compiled and the eager call with their device time and
     busy share, and peak memory above the inputs. Then the separability
-    check's refusal of a reduction over a 'model'-cut dimension. Returns
-    the launches of each kernel."""
+    check's refusal of a reduction over a 'model'-cut dimension. Between
+    them (14b), the filterFFT cut over each axis tuple on a (2, 2) mesh,
+    with the same checks. Returns the launches of each kernel."""
     import scipy.signal as sps
 
     from dsc_tpu_torch.kernels import build
@@ -3368,21 +3419,93 @@ def mesh_phase(dsc, card: str, compare) -> dict:
             del out, got, single, args, shard, mp, sp
             torch.cuda.empty_cache()
 
+    # -- 14b. the filterFFT cut over a tuple of mesh axes, on a (2, 2) mesh -----
+    # (the device at (c_data, c_model) holds block c_a * 2 + c_b of the tuple
+    # (a, b)), with the one-axis programs' checks; then host ms a call of the
+    # one-axis program over the same devices and of the two tuple programs,
+    # in turns
+    grids = [(f'(2, 2) of {MESH_SHARDS} x cuda:0', [dev0] * MESH_SHARDS)]
+    if n_cards >= 4:
+        grids.append(('(2, 2) of 4 cards', [torch.device('cuda', i) for i in range(4)]))
+    args = [dsc.from_numpy(a) for a in (sig_np, taps_np)]
+    rows = MESH_ROWS[0] // 4
+    shard = [dsc.from_numpy(sig_np[:rows]), args[1]]
+    with held_launches(compare, lambda: f'filterFFT, one shard of a tuple cut ({rows} rows)'):
+        _, one = counted('filterFFT: one shard of a tuple cut, eager', lambda: filter_fft(*shard))
+    _, whole = counted('filterFFT: eager, global', lambda: filter_fft(*args))
+    single = dsc.compile(filter_fft)(*args).numpy()
+    ref = refs['filterFFT']
+    for label, devs in grids:
+        grid = make_mesh((2, 2), devices=devs)
+        distinct = len(set(devs))
+        line = make_mesh((4, 1), devices=devs)
+        timed_programs = {"P('data') on (4, 1)": dsc.compile(
+            filter_fft, mesh=line, in_specs=(P('data'), P()), out_specs=P('data'))}
+        timed_programs["P('data') on (4, 1)"](*args)  # its first call, the check
+        for axes in AXIS_TUPLES:
+            what = f'filterFFT {MESH_ROWS} with P({axes!r}) on {label}'
+            mp = dsc.compile(filter_fft, mesh=grid, in_specs=(P(axes), P()), out_specs=P(axes))
+            want = {k: 2 * whole.get(k, 0) + 2 * distinct * one.get(k, 0)
+                    for k in set(whole) | set(one)}
+            with no_plain_on_cuda():
+                out, _ = counted(f'{what}: first call (check runs, trace and capture)',
+                                 lambda: mp(*args), {k: c for k, c in want.items() if c})
+                replays.clear()
+                torch.cuda.CUDAGraph.replay = spy_replay
+                try:
+                    out, _ = counted(f'{what}: a replay', lambda: mp(*args), {})
+                finally:
+                    torch.cuda.CUDAGraph.replay = graph_replay
+            require(len(replays) == 4, f'{what}: {len(replays)} graph replays a call, want 4')
+            require(isinstance(out, Sharded) and out.axis == axes and out.shape == MESH_ROWS,
+                    f'{what}: {out!r}')
+            for i, s in enumerate(out.shards):
+                c = dict(zip(grid.axis_names, np.unravel_index(i, (2, 2))))
+                block = c[axes[0]] * 2 + c[axes[1]]
+                require(s.device == devs[i] and np.array_equal(
+                    s.cpu().numpy(), single[block * rows:(block + 1) * rows]),
+                    f'{what}: shard {i} on {s.device} is not block {block} of the single-device '
+                    'compiled call')
+            got = out.numpy()
+            require(np.isfinite(got).all(), f'{what}: not finite')
+            e = float(np.abs(got - ref).max() / max(1.0, float(np.abs(ref).max())))
+            e1 = float(np.abs(got - single).max())
+            require(e <= NUMPY_BOUND and e1 == 0.0, f'{what}: {e} vs float64, {e1} vs single')
+            print(f'  {what}: vs float64 {e:.3e} (bound {NUMPY_BOUND:g}), each shard its block and '
+                  f'bit for bit the single-device compiled call; launches a first call {want}, '
+                  f'{len(replays)} graph replays a later call [{card}]')
+            timed_programs[f'P({axes!r}) on (2, 2)'] = mp
+            del out, got
+        names = list(timed_programs)
+        walls = {name: [] for name in names}
+        for name in names + names[::-1]:
+            walls[name].append(host_ms(lambda: timed_programs[name](*args)))
+        print(f'  filterFFT {MESH_ROWS} on {label} devices, host ms a call in turns (there and '
+              'back): ' + '; '.join(f'{name} {w[0]:.4f}, {w[1]:.4f}' for name, w in walls.items())
+              + f' [{card}]')
+        del timed_programs, mp
+        torch.cuda.empty_cache()
+    del args, shard, single
+
     # -- the separability check refuses a reduction over a cut dimension ------
-    # (the rows less their mean: the shapes tile, the values do not)
+    # (the rows less their mean: the shapes tile, the values do not), over
+    # a 'model'-cut dimension and over one cut by an axis tuple
     grid = make_mesh((2, 2), devices=[dev0] * 4)
-    stats = dsc.compile(lambda x: dsc.sub(x, dsc.mean(x, axis=-1, keepdims=True)), mesh=grid,
-                        in_specs=(P('data', 'model'),))
     x = dsc.from_numpy(sig_np[:, :2**16])
-    try:
-        stats(x)
-        refused = None
-    except NotImplementedError as err:
-        refused = str(err)
-    require(refused is not None and stats.n_programs == 0,
-            'a mean over a model-cut dimension was not refused')
-    print(f'  the rows less their mean over a \'model\'-cut dimension, (2, 2) mesh of cuda:0: '
-          f'refused: {refused[:160]}...')
+    for cut, axis, spec in (("a 'model'-cut dimension", -1, P('data', 'model')),
+                            ("a dimension cut over ('data', 'model')", 0,
+                             P(('data', 'model')))):
+        stats = dsc.compile(lambda v, axis=axis: dsc.sub(v, dsc.mean(v, axis=axis, keepdims=True)),
+                            mesh=grid, in_specs=(spec,))
+        try:
+            stats(x)
+            refused = None
+        except NotImplementedError as err:
+            refused = str(err)
+        require(refused is not None and stats.n_programs == 0,
+                f'a mean over {cut} was not refused')
+        print(f'  the rows less their mean over {cut}, (2, 2) mesh of cuda:0: '
+              f'refused: {refused[:160]}...')
     print(f'  launches on the mesh path: {launches}')
     require(launches['stream_phase_a'] > 0 and launches['stream_phase_b'] > 0,
             'K6/K7 were not launched on the mesh path')

@@ -165,6 +165,13 @@ def on_device(dev: torch.device):
         _local.device = prev
 
 
+def default_device() -> torch.device:
+    """The context's device: cuda:0 unless ``init(device=...)`` named
+    another (``'cpu'`` among them); never a CPU fallback."""
+    dev = _get_ctx().device
+    return torch.device('cuda', 0) if dev.type == 'cuda' and dev.index is None else dev
+
+
 def device() -> torch.device:
     """The device tensors are created on: the context's, or the one an
     enclosing ``on_device`` names."""

@@ -50,17 +50,20 @@ single-device call launches.
 - ``in_specs`` align with the positional arguments, one
   ``PartitionSpec`` (``parallel.P``) or None each. A Tensor or NumPy
   argument with ``P('data')`` is cut along dim 0 into one block a 'data'
-  coordinate, replicated over the other axes. ``P()`` or no spec
+  coordinate, replicated over the other axes; with ``P(('data',
+  'model'))`` into one block a device, block c_data * |model| + c_model,
+  as ``NamedSharding`` orders a tuple (parallel/mesh.py). ``P()`` or no spec
   replicates it: one copy a distinct device, kept while the Tensor's
   buffer is unchanged (``torch.Tensor._version``), so a replicated filter
   uploads once. A ``Sharded`` argument with no spec, or with the spec of
   its placement, is used where it lies; any other is gathered and placed.
   A Tensor in the T or half-T layout raises.
-- Results: with ``out_specs=P('data')``, or with no spec for a result
-  whose blocks tile along the first sharded argument's layout, a
-  ``Sharded`` over the mesh; a result equal on every shard comes back as
-  one Tensor on the mesh's first device, and so does a result with
-  ``P()`` whose blocks tile (gathered there) or one cut along two axes.
+- Results: with ``out_specs=P('data')`` (or an axis tuple), or with no
+  spec for a result whose blocks tile along the first sharded argument's
+  layout, a ``Sharded`` over the mesh, cut over that axis or tuple; a
+  result equal on every shard comes back as one Tensor on the mesh's first
+  device, and so does a result with ``P()`` whose blocks tile (gathered
+  there) or one cut along two dimensions.
 - The separability check. Running ``fn`` once a shard is exact only where
   the program mixes no values across a cut dimension; GSPMD would insert a
   collective where it does, and the port has none. So the first call of
@@ -75,6 +78,15 @@ single-device call launches.
   raises NotImplementedError and caches nothing. The cost: two global
   evaluations and one more run of the shards a signature, and the global
   problem's memory on the first device; later calls pay nothing.
+- Arguments cut differently. Where the shards of the specs' own placement
+  fail the check, or cannot run (an elementwise product of a block and a
+  replicated argument of the global shape, or of blocks cut over other
+  axes), the first call tries each cut argument's layout in turn on every
+  argument of its rank and of its size along the cut dimensions, the
+  others replicated: the reshard GSPMD would do with a collective, done
+  here by placing those arguments anew, on this call and every later one.
+  The first placement that the check passes is the program's; where none
+  does, the specs' own failure is raised.
 
 ``dsc.map(fn)`` fuses an elementwise function into one streaming pass,
 kernel K5g (ops/map_gen.py): the signature's route is decided from the
@@ -99,7 +111,7 @@ from . import capture, context, flags, tracing
 from .interop import DTYPE_OF_TORCH, TORCH_DTYPE
 from .ops import map_gen
 from .ops import stream_map as sm
-from .parallel.mesh import Mesh, PartitionSpec, Sharded, on
+from .parallel.mesh import Mesh, PartitionSpec, Sharded, axes_of, on
 from .tensor import Tensor, _Buffer, from_numpy
 
 __all__ = ['compile', 'map']
@@ -318,14 +330,20 @@ MESH_BOUND = 1e-4
 _PROBE_SEED = 0
 
 
+# a layout: {dimension: the mesh axes that cut it, major to minor}, in
+# dimension order; axes of size 1 are left out, and so is a dimension
+# they alone cut
+Layout = Dict[int, Tuple[str, ...]]
+
+
 class _Input(NamedTuple):
     """A Tensor argument of a mesh program: its block on each mesh device
     (the buffer a shard's program copies in), the shard's slot payload
-    (``_spec_of``'s tuple), the layout {mesh axis: dimension it cuts}, and
-    the global buffer (a callable) with its payload, for the check."""
+    (``_spec_of``'s tuple), its layout, and the global buffer (a callable)
+    with its payload, for the check."""
     blocks: List[torch.Tensor]
     spec: Tuple
-    layout: Dict[str, int]
+    layout: Layout
     glob: Any
     glob_spec: Tuple
 
@@ -333,54 +351,73 @@ class _Input(NamedTuple):
 class _Output(NamedTuple):
     """How a result leaves a mesh program: its layout (empty: equal on every
     shard), whether it is joined into one Tensor, and its global shape."""
-    layout: Dict[str, int]
+    layout: Layout
     joined: bool
     shape: Tuple[int, ...]
 
 
 def _layout_of(spec, shape: Tuple[int, ...], mesh: Mesh, who: str,
-               divide: bool = True) -> Dict[str, int]:
-    """{mesh axis: dimension it cuts} of the PartitionSpec ``spec`` over
-    ``shape``; an axis of size 1 cuts nothing."""
+               divide: bool = True) -> Layout:
+    """The layout of the PartitionSpec ``spec`` over ``shape``: each entry
+    a mesh axis, a tuple of them or None."""
     if not isinstance(spec, PartitionSpec):
         raise RuntimeError(f'dsc.compile: {who}: expected a PartitionSpec or None, got {spec!r}')
     if len(spec) > len(shape):
         raise RuntimeError(f'dsc.compile: {who}: {spec} names {len(spec)} dimensions of a '
                            f'{len(shape)}-D value {shape}')
-    layout: Dict[str, int] = {}
-    for dim, axis in enumerate(spec):
-        if axis is None:
+    layout: Layout = {}
+    named: List[str] = []
+    for dim, entry in enumerate(spec):
+        if entry is None:
             continue
-        if not isinstance(axis, str):
-            raise NotImplementedError(
-                f'dsc.compile: {who}: {spec} cuts dimension {dim} over several mesh axes; the '
-                'port cuts a dimension over one axis')
-        if axis not in mesh.axis_names:
-            raise RuntimeError(f'dsc.compile: {who}: mesh axis {axis!r} not in {mesh.axis_names}')
-        if axis in layout:
-            raise RuntimeError(f'dsc.compile: {who}: {spec} names mesh axis {axis!r} twice')
-        size = mesh.shape[axis]
+        axes = axes_of(entry) if isinstance(entry, (str, tuple, list)) else (entry,)
+        for axis in axes:
+            if not isinstance(axis, str):
+                raise RuntimeError(f'dsc.compile: {who}: {spec}: {axis!r} is not a mesh axis name')
+            if axis not in mesh.axis_names:
+                raise RuntimeError(
+                    f'dsc.compile: {who}: mesh axis {axis!r} not in {mesh.axis_names}')
+            if axis in named:
+                raise RuntimeError(f'dsc.compile: {who}: {spec} names mesh axis {axis!r} twice')
+            named.append(axis)
+        size = mesh.axis_size(axes)
         if divide and shape[dim] % size:
             raise RuntimeError(f'dsc.compile: {who}: dimension {dim} of {shape} is not divisible '
-                               f'by the mesh axis {axis!r} ({size})')
-        if size > 1:
-            layout[axis] = dim
+                               f'by the mesh axes {entry!r} ({size})')
+        axes = tuple(a for a in axes if mesh.shape[a] > 1)
+        if axes:
+            layout[dim] = axes
     return layout
 
 
-def _spec_text(layout: Dict[str, int]) -> str:
-    parts = [None] * (max(layout.values()) + 1 if layout else 0)
-    for axis, dim in layout.items():
-        parts[dim] = axis
+def _spec_text(layout: Layout) -> str:
+    parts = [None] * (max(layout) + 1 if layout else 0)
+    for dim, axes in layout.items():
+        parts[dim] = axes[0] if len(axes) == 1 else axes
     return repr(PartitionSpec(*parts))
 
 
-def _tiled(shape: Tuple[int, ...], layout: Dict[str, int], mesh: Mesh) -> Tuple[int, ...]:
+def _tiled(shape: Tuple[int, ...], layout: Layout, mesh: Mesh) -> Tuple[int, ...]:
     """The global shape whose blocks under ``layout`` have ``shape``."""
     out = list(shape)
-    for axis, dim in layout.items():
-        out[dim] *= mesh.shape[axis]
+    for dim, axes in layout.items():
+        out[dim] *= mesh.axis_size(axes)
     return tuple(out)
+
+
+def _free_axes(layout: Layout, mesh: Mesh) -> List[str]:
+    """The mesh axes that ``layout`` does not cut along."""
+    cut = [a for axes in layout.values() for a in axes]
+    return [a for a in mesh.axis_names if a not in cut]
+
+
+def _block_index(axes: Tuple[str, ...], coords: Dict[str, int], mesh: Mesh) -> int:
+    """The block of a dimension cut over ``axes`` that the device at
+    ``coords`` holds: its flat index over ``axes``, major to minor."""
+    index = 0
+    for axis in axes:
+        index = index * mesh.shape[axis] + coords[axis]
+    return index
 
 
 def _natural(t: Tensor) -> torch.Tensor:
@@ -425,6 +462,8 @@ class _MeshProgram:
         self.programs = {dev: _Program(fn, name, slots, dev) for dev in devices}
         self.struct: Optional[Tuple] = None
         self.outputs: List[_Output] = []
+        # the layout each argument runs in (_MeshCompiled._placements)
+        self.layouts: List[Layout] = []
 
     def run(self, mesh: Mesh, inputs: Sequence[_Input]) -> List[List[torch.Tensor]]:
         """Each shard's results, in natural order, in mesh device order."""
@@ -469,30 +508,32 @@ class _MeshCompiled(_Wrapper):
             self._replicas[buf] = hit
         return [hit[2][dev] for dev in self._mesh.device_list]
 
-    def _cut(self, g: torch.Tensor, layout: Dict[str, int]) -> List[torch.Tensor]:
+    def _cut(self, g: torch.Tensor, layout: Layout) -> List[torch.Tensor]:
         """The block of ``g`` each mesh device's coordinates select, on that
         device (a view where it lies there and is contiguous)."""
+        mesh = self._mesh
         blocks = []
-        for dev, coords in zip(self._mesh.device_list, self._coords):
+        for dev, coords in zip(mesh.device_list, self._coords):
             b = g
-            for axis, dim in layout.items():
-                size = g.shape[dim] // self._mesh.shape[axis]
-                b = b.narrow(dim, coords[axis] * size, size)
+            for dim, axes in layout.items():
+                size = g.shape[dim] // mesh.axis_size(axes)
+                b = b.narrow(dim, _block_index(axes, coords, mesh) * size, size)
             blocks.append(b.to(dev).contiguous())
         return blocks
 
-    def _lies(self, a: Sharded, spec, who: str) -> Optional[Dict[str, int]]:
+    def _lies(self, a: Sharded, spec, who: str) -> Optional[Layout]:
         """The layout of a Sharded argument laid out on this mesh as ``spec``
         asks (None: as it is), else None."""
         mesh = self._mesh
         if a.mesh is not mesh or a.tail is not None or a.dtype not in DTYPE_OF_TORCH:
             return None
-        layout = {a.axis: a.dim} if mesh.shape[a.axis] > 1 else {}
+        axes = tuple(x for x in axes_of(a.axis) if mesh.shape[x] > 1)
+        layout = {a.dim: axes} if axes else {}
         if spec is not None and _layout_of(spec, a.shape, mesh, who) != layout:
             return None
         block = list(a.shape)
-        for axis, dim in layout.items():
-            block[dim] //= mesh.shape[axis]
+        for dim, axes in layout.items():
+            block[dim] //= mesh.axis_size(axes)
         if all(tuple(s.shape) == tuple(block) and s.device == dev
                for s, dev in zip(a.shards, mesh.device_list)):
             return layout
@@ -539,6 +580,38 @@ class _MeshCompiled(_Wrapper):
         copies = {dev: g.to(dev) for dev in self._devices}
         return inp._replace(blocks=[copies[dev] for dev in mesh.device_list], glob=lambda: g)
 
+    def _placed(self, inp: _Input, layout: Layout) -> _Input:
+        """``inp`` placed under ``layout`` from its global value: cut, or
+        replicated where ``layout`` is empty; ``inp`` where it lies so."""
+        if layout == inp.layout:
+            return inp
+        shape, dtype = inp.glob_spec[0], inp.glob_spec[1]
+        g = inp.glob().reshape(shape)
+        if layout:
+            blocks = self._cut(g, layout)
+            block = tuple(blocks[0].shape)
+            return inp._replace(blocks=blocks, spec=(block, dtype, block, None), layout=layout)
+        copies = {dev: g.to(dev).contiguous() for dev in self._devices}
+        return inp._replace(blocks=[copies[dev] for dev in self._mesh.device_list],
+                            spec=(shape, dtype, shape, None), layout={})
+
+    def _placements(self, inputs: Sequence[_Input]) -> List[List[Layout]]:
+        """The argument layouts a first call tries, in order (the module
+        docstring): the specs' own, then each cut argument's layout on every
+        argument of its rank and of its size along the dimensions it cuts,
+        the others replicated."""
+        out = [[inp.layout for inp in inputs]]
+        for lead in inputs:
+            if not lead.layout:
+                continue
+            shape = lead.glob_spec[0]
+            cand = [lead.layout if len(inp.glob_spec[0]) == len(shape)
+                    and all(inp.glob_spec[0][d] == shape[d] for d in lead.layout) else {}
+                    for inp in inputs]
+            if cand not in out:
+                out.append(cand)
+        return out
+
     # -- the separability check ----------------------------------------------
 
     def _global_run(self, slots: Tuple, inputs: Sequence[_Input]) -> List[torch.Tensor]:
@@ -553,24 +626,28 @@ class _MeshCompiled(_Wrapper):
         with on(dev), context.on_device(dev), flags.xla_only():
             return [_natural(o) for o in prog._execute()[1]]
 
-    def _join(self, blocks: Sequence[torch.Tensor], layout: Dict[str, int],
+    def _join(self, blocks: Sequence[torch.Tensor], layout: Layout,
               rest: Dict[str, int]) -> torch.Tensor:
         """The blocks of the shards at coordinates ``rest`` of the axes
         outside ``layout``, joined on the mesh's first device."""
         mesh = self._mesh
         dev = mesh.device_list[0]
-        idx = np.arange(mesh.size).reshape(mesh.devices.shape)
-        sub = idx[tuple(rest[a] if a in rest else slice(None) for a in mesh.axis_names)]
-        cut = [a for a in mesh.axis_names if a not in rest]
+        dims = list(layout)
+        # the shard holding each combination of blocks, one array axis a
+        # cut dimension
+        holder = np.empty([mesh.axis_size(layout[d]) for d in dims], dtype=np.int64)
+        for i, coords in enumerate(self._coords):
+            if all(coords[a] == c for a, c in rest.items()):
+                holder[tuple(_block_index(layout[d], coords, mesh) for d in dims)] = i
 
         def cat(arr, k):
-            if k == len(cut):
+            if k == len(dims):
                 return blocks[int(arr)].to(dev)
-            return torch.cat([cat(arr[c], k + 1) for c in range(arr.shape[0])], layout[cut[k]])
+            return torch.cat([cat(arr[c], k + 1) for c in range(arr.shape[0])], dims[k])
 
-        return cat(sub, 0)
+        return cat(holder, 0)
 
-    def _outputs(self, results, glob: List[torch.Tensor], default: Dict[str, int],
+    def _outputs(self, results, glob: List[torch.Tensor], default: Layout,
                  inputs: Sequence[_Input]) -> List[_Output]:
         """Each result's ``_Output``, once the shards' results are held to
         the global run; NotImplementedError where they disagree."""
@@ -589,7 +666,7 @@ class _MeshCompiled(_Wrapper):
             local, shape = tuple(results[0][k].shape), tuple(want.shape)
             replicate = spec is None or spec == PartitionSpec()
             if replicate:
-                layout = {a: d for a, d in default.items() if d < len(local)}
+                layout = {d: axes for d, axes in default.items() if d < len(local)}
             else:
                 layout = _layout_of(spec, local, mesh, f'out_specs of output {k}', divide=False)
             if layout and _tiled(local, layout, mesh) == shape:
@@ -602,7 +679,7 @@ class _MeshCompiled(_Wrapper):
                     f'dsc.compile(mesh=...) of {self._name}: output {k} of shape {local} on a '
                     f'shard does not tile to the global {shape} with {cut}; the port has no '
                     'collective to reshard it')
-            free = [a for a in mesh.axis_names if a not in out.layout]
+            free = _free_axes(out.layout, mesh)
             for rest in itertools.product(*(range(mesh.shape[a]) for a in free)):
                 joined = self._join([r[k] for r in results], out.layout, dict(zip(free, rest)))
                 if not _agree(joined, want):
@@ -636,21 +713,10 @@ class _MeshCompiled(_Wrapper):
         fresh = prog is None
         with tracing.trace_op(f'compile:{self._name}', 'op;compile', {'n_args': len(inputs)}):
             if fresh:
-                shard_slots = tuple((kind, name, p[0] if kind == _SLOT_TENSOR else p)
-                                    for kind, name, p in key)
-                prog = _MeshProgram(self._fn, self._name, shard_slots, self._devices)
-                default = next((inp.layout for inp in inputs if inp.layout), {})
-                # the check, on seeded arguments (the shards' trace runs and
-                # captures), then on the caller's
-                gen = torch.Generator(self._mesh.device_list[0]).manual_seed(_PROBE_SEED)
-                probe = [self._probe(inp, gen) for inp in inputs]
-                prog.outputs = self._outputs(prog.run(self._mesh, probe),
-                                             self._global_run(key, probe), default, inputs)
-                del probe
-                results = prog.run(self._mesh, inputs)
-                self._outputs(results, self._global_run(key, inputs), default, inputs)
+                prog, results = self._certify(key, inputs)
             else:
-                results = prog.run(self._mesh, inputs)
+                results = prog.run(self._mesh, [self._placed(inp, layout) for inp, layout
+                                                in zip(inputs, prog.layouts)])
             values = [self._result(out, [r[k] for r in results])
                       for k, out in enumerate(prog.outputs)]
         if fresh:
@@ -658,15 +724,47 @@ class _MeshCompiled(_Wrapper):
             self._keep(key, prog)
         return _unflatten_result(prog.struct, iter(values))
 
+    def _certify(self, key: Tuple, inputs: Sequence[_Input]):
+        """A signature's first call: (the program, its results on the
+        caller's arguments) of the first placement (``_placements``) whose
+        shards join to ``fn`` on the global arguments, on seeded probe
+        values (the shards' trace runs and captures) and then on the
+        caller's. Where none does, the specs' own failure is raised."""
+        mesh = self._mesh
+        gen = torch.Generator(mesh.device_list[0]).manual_seed(_PROBE_SEED)
+        probe = [self._probe(inp, gen) for inp in inputs]
+        glob_probe, glob = self._global_run(key, probe), None
+        failure = None
+        for layouts in self._placements(inputs):
+            placed = [self._placed(inp, layout) for inp, layout in zip(inputs, layouts)]
+            it = iter(placed)
+            slots = tuple((kind, name, next(it).spec if kind == _SLOT_TENSOR else p)
+                          for kind, name, p in key)
+            prog = _MeshProgram(self._fn, self._name, slots, self._devices)
+            prog.layouts = layouts
+            default = next((layout for layout in layouts if layout), {})
+            try:
+                prog.outputs = self._outputs(
+                    prog.run(mesh, [self._placed(p, layout) for p, layout in zip(probe, layouts)]),
+                    glob_probe, default, placed)
+                results = prog.run(mesh, placed)
+                if glob is None:
+                    glob = self._global_run(key, inputs)
+                self._outputs(results, glob, default, placed)
+                return prog, results
+            except Exception as err:  # a shard run that raises, or the check
+                failure = failure or err
+        raise failure
+
     def _result(self, out: _Output, blocks: List[torch.Tensor]):
         """One result: a Sharded, or a Tensor on the mesh's first device."""
         if not out.layout:
             return Tensor._from_torch(blocks[0])
         if out.joined:
-            return Tensor._from_torch(self._join(blocks, out.layout, {
-                a: 0 for a in self._mesh.axis_names if a not in out.layout}))
-        (axis, dim), = out.layout.items()
-        return Sharded(self._mesh, axis, dim, blocks, out.shape)
+            return Tensor._from_torch(self._join(
+                blocks, out.layout, dict.fromkeys(_free_axes(out.layout, self._mesh), 0)))
+        (dim, axes), = out.layout.items()
+        return Sharded(self._mesh, axes, dim, blocks, out.shape)
 
 
 def compile(fn=None, *, mesh=None, in_specs=None, out_specs=None):  # noqa: A001

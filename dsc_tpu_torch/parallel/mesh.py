@@ -12,11 +12,18 @@ port keeps that shape in one process:
   included, on one card, as ``--xla_force_host_platform_device_count``
   gives the JAX package eight host devices;
 - a ``Sharded`` value holds one shard a mesh device: the block of the
-  global array that the device's coordinate along one mesh axis selects,
-  replicated over the other axes;
+  global array that the device's coordinates along one mesh axis, or a
+  tuple of them, select, replicated over the other axes;
 - a ``PartitionSpec`` (``P``) says how ``dsc.compile(mesh=...)`` places an
-  argument or a result (fuse.py): one entry a dimension, a mesh axis name
-  or None, as ``jax.sharding.PartitionSpec``; ``P()`` replicates.
+  argument or a result (fuse.py): one entry a dimension, a mesh axis name,
+  a tuple of them or None, as ``jax.sharding.PartitionSpec``; ``P()``
+  replicates.
+
+A dimension cut over a tuple of axes is cut into the product of their
+sizes, in ``NamedSharding``'s order, major to minor over the tuple: under
+``P(('data', 'model'))`` the device at (c_data, c_model) holds block
+c_data * |model| + c_model, under ``P(('model', 'data'))`` block
+c_model * |data| + c_data.
 
 There is no process group here: an exchange between shards is a set of
 block copies (``Tensor.copy_``), peer copies between distinct cards and
@@ -27,10 +34,25 @@ from __future__ import annotations
 
 import contextlib
 from collections import OrderedDict
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+# one mesh axis name, or a tuple of them cutting one dimension
+Axes = Union[str, Tuple[str, ...]]
+
+
+def axes_of(axis: Axes) -> Tuple[str, ...]:
+    """The tuple of mesh axis names that ``axis`` names."""
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def axis_key(axis: Axes) -> Axes:
+    """``axis`` as a name where it names one axis, else as a tuple: the
+    form a Sharded value keeps (``P(('data',))`` is ``P('data')``)."""
+    axes = axes_of(axis)
+    return axes[0] if len(axes) == 1 else axes
 
 
 class Mesh:
@@ -57,22 +79,39 @@ class Mesh:
         device_list[i]."""
         return list(self.devices.flat)
 
-    def groups(self, axis: str) -> List[List[int]]:
-        """The flat device indices grouped along ``axis``: one group for
-        each coordinate of the other axes, ordered by the coordinate along
-        ``axis``."""
-        if axis not in self.axis_names:
-            raise RuntimeError(f'mesh axis {axis!r} not in {self.axis_names}')
+    def _dims(self, axis: Axes) -> List[int]:
+        """The positions of the axes ``axis`` names; RuntimeError for an
+        axis the mesh lacks or one named twice."""
+        axes = axes_of(axis)
+        for a in axes:
+            if a not in self.axis_names:
+                raise RuntimeError(f'mesh axis {a!r} not in {self.axis_names}')
+        if len(set(axes)) != len(axes):
+            raise RuntimeError(f'mesh axes {axes} name an axis twice')
+        return [self.axis_names.index(a) for a in axes]
+
+    def axis_size(self, axis: Axes) -> int:
+        """The number of blocks ``axis`` cuts a dimension into: the product
+        of the sizes of the axes it names."""
+        return int(np.prod([self.devices.shape[d] for d in self._dims(axis)], dtype=np.int64))
+
+    def groups(self, axis: Axes) -> List[List[int]]:
+        """The flat device indices grouped along ``axis`` (one axis or a
+        tuple): one group for each coordinate of the other axes, ordered by
+        the flat index over ``axis``, major to minor, which is the block
+        each device holds."""
+        dims = self._dims(axis)
         idx = np.arange(self.size).reshape(self.devices.shape)
-        ax = self.axis_names.index(axis)
-        return np.moveaxis(idx, ax, -1).reshape(-1, self.devices.shape[ax]).tolist()
+        moved = np.moveaxis(idx, dims, range(idx.ndim - len(dims), idx.ndim))
+        return moved.reshape(-1, self.axis_size(axis)).tolist()
 
     def __repr__(self) -> str:
         return f'Mesh({dict(self.shape)}, devices={[str(d) for d in self.device_list]})'
 
 
 class PartitionSpec(tuple):
-    """The mesh axis that cuts each dimension (None: not cut), as
+    """The mesh axis, or tuple of axes, that cuts each dimension (None: not
+    cut), as
     ``jax.sharding.PartitionSpec``; trailing dimensions not named are not
     cut, and ``P()`` replicates."""
 
@@ -128,17 +167,19 @@ def on(device: torch.device):
 
 class Sharded:
     """A value over ``mesh`` cut along ``dim`` into one block a coordinate
-    of mesh axis ``axis``: ``shards[i]`` lies on ``mesh.device_list[i]``.
+    of mesh axis ``axis``, or a flat coordinate over a tuple of axes (the
+    module docstring): ``shards[i]`` lies on ``mesh.device_list[i]``.
     The global value is the blocks of any group (``mesh.groups(axis)``)
     joined along ``dim``, flattened and followed by ``tail`` where there
     is one (the last bin of a half spectrum), and reshaped to ``shape``.
     ``np.asarray`` and ``full()`` gather it."""
 
-    def __init__(self, mesh: Mesh, axis: str, dim: int, shards: Sequence[torch.Tensor],
+    def __init__(self, mesh: Mesh, axis: Axes, dim: int, shards: Sequence[torch.Tensor],
                  shape: Tuple[int, ...], tail: Optional[torch.Tensor] = None):
         if len(shards) != mesh.size:
             raise RuntimeError(f'{len(shards)} shards for a mesh of {mesh.size} devices')
-        self.mesh, self.axis, self.dim = mesh, axis, dim
+        mesh.axis_size(axis)  # raises for an axis the mesh lacks or one named twice
+        self.mesh, self.axis, self.dim = mesh, axis_key(axis), dim
         self.shards = list(shards)
         self.tail = tail
         self.shape = tuple(shape)

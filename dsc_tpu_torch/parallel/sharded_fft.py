@@ -30,6 +30,12 @@ Inputs are tensors (or numpy arrays), which are placed, or ``Sharded``
 values: one laid out on this mesh as the function needs is used where it
 lies, any other is gathered and placed anew. Results are ``Sharded``
 values (``np.asarray`` gathers them).
+
+The batch functions take ``axis`` as one mesh axis or a tuple of them (the
+batch cut into the product of their sizes, major to minor over the tuple,
+as ``NamedSharding`` cuts it: mesh.py). The transform-sharded functions
+split one transform over one mesh axis and raise for a tuple, as the JAX
+package's do.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ from ..fourier import core as fft_core
 from ..fourier import plan as fft_plan
 from ..fourier import stream
 from ..kernels import build
-from .mesh import Mesh, Sharded, on
+from .mesh import Axes, Mesh, Sharded, axis_key, on
 
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128,
             torch.complex64: torch.complex64, torch.complex128: torch.complex128}
@@ -64,14 +70,15 @@ def _as_tensor(x) -> torch.Tensor:
                     f'got {type(x).__name__}')
 
 
-def _place(x, mesh: Mesh, axis: str, dim: int, layout: Tuple[int, ...],
+def _place(x, mesh: Mesh, axis: Axes, dim: int, layout: Tuple[int, ...],
            shape: Tuple[int, ...], dtype: Optional[torch.dtype] = None,
            has_tail: bool = False, who: str = 'shard') -> Sharded:
     """``x`` as a Sharded value whose blocks cut ``layout`` (the value's
     data, after the tail where ``has_tail``, viewed so) along ``dim`` over
-    mesh axis ``axis``; a Sharded ``x`` so laid out on this mesh stays
-    where it lies (cast where ``dtype`` differs)."""
-    d = mesh.shape[axis]
+    mesh axis ``axis`` (or a tuple of axes); a Sharded ``x`` so laid out on
+    this mesh stays where it lies (cast where ``dtype`` differs)."""
+    d = mesh.axis_size(axis)
+    axis = axis_key(axis)
     if layout[dim] % d:
         raise RuntimeError(f'{who}: dimension {dim} of {layout} is not divisible by the '
                            f'mesh axis {axis!r} ({d})')
@@ -148,16 +155,25 @@ def _all_to_all(blocks: Sequence[torch.Tensor], devices: Sequence[torch.device],
 # ---------------------------------------------------------------------------
 
 
-def shard_batch(x, mesh: Mesh, axis: str = 'data') -> Sharded:
+def _one_axis(mesh: Mesh, axis: Axes, who: str) -> int:
+    """The size of the one mesh axis a transform is split over; a tuple
+    raises, as ``mesh.shape[axis]`` does in the JAX package."""
+    if not isinstance(axis, str):
+        raise RuntimeError(f'{who}: the transform is split over one mesh axis, got {axis!r}')
+    return mesh.shape[axis]
+
+
+def shard_batch(x, mesh: Mesh, axis: Axes = 'data') -> Sharded:
     """Place a (batch, ...) array with the batch dim sharded over ``axis``."""
     x = _input(x)
     shape = tuple(x.shape)
     return _place(x, mesh, axis, 0, shape, shape, who='shard_batch')
 
 
-def sharded_batched_fft(x, mesh: Mesh, inverse: bool = False, axis: str = 'data') -> Sharded:
+def sharded_batched_fft(x, mesh: Mesh, inverse: bool = False, axis: Axes = 'data') -> Sharded:
     """Batched FFT with the batch dimension sharded over the mesh (DP).
-    x: (b, n) complex, b divisible by mesh axis size."""
+    x: (b, n) complex, b divisible by mesh axis size (the product of the
+    sizes for a tuple of axes)."""
     x = _input(x)
     b, n = x.shape
     cdt = _COMPLEX[x.dtype]
@@ -174,7 +190,7 @@ def sharded_batched_fft(x, mesh: Mesh, inverse: bool = False, axis: str = 'data'
     return _map_groups(xs, body, 0, (b, n))
 
 
-def sharded_batched_rfft(x, mesh: Mesh, axis: str = 'data') -> Sharded:
+def sharded_batched_rfft(x, mesh: Mesh, axis: Axes = 'data') -> Sharded:
     """Batch-sharded REAL FFT: rows of x (b, n) f32 are transformed
     independently, one shard of rows per device, each running the
     single-device rfft engine (K6/K7 at large n). Returns (b, n/2+1)
@@ -228,9 +244,9 @@ def distributed_fft(x, mesh: Mesh, axis: str = 'model', inverse: bool = False) -
     mesh axis: local column FFTs -> sharded twiddle -> all_to_all -> local
     row FFTs. Returns (b, n) in natural order.
     """
+    d = _one_axis(mesh, axis, 'distributed_fft')
     x = _input(x)
     b, n = x.shape
-    d = mesh.shape[axis]
     n1, n2 = _choose_split(n, d)
     cdt = _COMPLEX[x.dtype]
     xs = _place(x, mesh, axis, 2, (b, n1, n2), (b, n), cdt, who='distributed_fft')
@@ -305,6 +321,7 @@ def distributed_fft_stream(x, mesh: Mesh, axis: str = 'model', inverse: bool = F
     divisible by the mesh axis into >= 2 even 128-wide blocks
     (stream.dist_supported). Returns (n,) natural order.
     """
+    d = _one_axis(mesh, axis, 'distributed_fft_stream')
     x = _input(x)
     n = x.shape[-1]
     if len(x.shape) != 1:
@@ -312,7 +329,6 @@ def distributed_fft_stream(x, mesh: Mesh, axis: str = 'model', inverse: bool = F
             f'distributed_fft_stream expects a single (n,) vector, got '
             f'{len(x.shape)}-D (batch rows shard with sharded_batched_fft)'
         )
-    d = mesh.shape[axis]
     n1, n2 = stream.factors(n)
     if not stream.dist_supported(n1, n2, d, x.dtype):
         raise RuntimeError(
@@ -377,7 +393,7 @@ def _dist_stream_mapped(mesh: Mesh, axis: str, n1: int, n2: int, inverse: bool,
 
 
 def _dist_rfft_supported(n: int, mesh: Mesh, axis: str, who: str):
-    d = mesh.shape[axis]
+    d = _one_axis(mesh, axis, who)
     if n % 2:
         raise RuntimeError(f'{who}: n must be even, got {n}')
     h = n // 2

@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import math
 import weakref
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -56,6 +56,8 @@ from .interop import DTYPE_OF_TORCH, TORCH_DTYPE
 from .ops import kernels as K
 
 DSC_MAX_DIMS = 4  # reference dsc.h:72-76
+
+TensorType = Union['Tensor', np.ndarray]
 
 
 def _logical_shape(layout) -> Tuple[int, ...]:

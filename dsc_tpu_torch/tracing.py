@@ -55,6 +55,10 @@ def suppressed():
         _suppressed.on = prev
 
 
+def is_recording() -> bool:
+    return _record
+
+
 def set_recording(record: bool) -> None:
     """dsc_traces_record equivalent (reference dsc.cpp:327-329)."""
     global _record
@@ -65,6 +69,10 @@ def clear_traces() -> None:
     """dsc_clear_traces equivalent (reference dsc.cpp:335-337)."""
     with _lock:
         _events.clear()
+
+
+def num_traces() -> int:
+    return len(_events)
 
 
 def _append(ev: Dict[str, Any]) -> None:

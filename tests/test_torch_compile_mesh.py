@@ -497,3 +497,156 @@ def test_map_records_its_body_under_kernel_trace():
     out = dt.map(body)(xs, xs)
     assert seen[0] is True and not flags.kernel_trace_active()
     _close(out.numpy(), xs.numpy() ** 2 + 1.0)
+
+
+# ---------------------------------------------------------------------------
+# a dimension cut over a tuple of mesh axes (NamedSharding's order: the
+# device at (c_data, c_model) holds block c_data * |model| + c_model under
+# P(('data', 'model')), block c_model * |data| + c_data under
+# P(('model', 'data')))
+# ---------------------------------------------------------------------------
+
+TUPLE_SPECS = {'(data, model)': (('data', 'model'),), '(model, data)': (('model', 'data'),),
+               '(data, model), None': (('data', 'model'), None)}
+
+
+def _tuple_program(pkg, program):
+    if program == '2x + 1':
+        return lambda x: pkg.add(pkg.mul(x, 2.0), 1.0)
+    return lambda sig, flt: pkg.irfft(pkg.mul(pkg.rfft(sig), pkg.rfft(flt)))
+
+
+def _held_to_jax_shards(got, ref, jmesh):
+    """Each port shard equals the block the JAX array holds on the device
+    at the same mesh position."""
+    jdevices = list(jmesh.devices.flat)
+    arr = ref.jax
+    assert len(arr.addressable_shards) == len(got.shards)
+    for shard in arr.addressable_shards:
+        _close(got.shards[jdevices.index(shard.device)].numpy(), np.asarray(shard.data))
+
+
+@pytest.mark.parametrize('program', ['2x + 1', 'filterFFT'])
+@pytest.mark.parametrize('spec', list(TUPLE_SPECS))
+@pytest.mark.parametrize('shape', [(4, 2), (2, 4)])
+def test_compile_mesh_tuple_cut_matches_jax(shape, spec, program):
+    parts = TUPLE_SPECS[spec]
+    axes = parts[0]
+    sn, fn_ = _rand((16, 512), 28), _rand(512, 29)
+    args_np = (sn,) if program == '2x + 1' else (sn, fn_)
+    jmesh = _jax_mesh(shape)
+    jin = (JP(*parts),) + (JP(),) * (len(args_np) - 1)
+    jf = dsc_tpu.compile(_tuple_program(dsc_tpu, program), mesh=jmesh, in_specs=jin,
+                         out_specs=JP(*parts))
+    ref = jf(*[dsc_tpu.from_numpy(a) for a in args_np])
+    mesh = _mesh(shape)
+    f = dt.compile(_tuple_program(dt, program), mesh=mesh,
+                   in_specs=(P(*parts),) + (P(),) * (len(args_np) - 1), out_specs=P(*parts))
+    got = f(*[dt.from_numpy(a) for a in args_np])
+    assert isinstance(got, Sharded) and got.mesh is mesh and got.shape == (16, 512)
+    assert (got.axis, got.dim) == (axes, 0)
+    assert [tuple(s.shape) for s in got.shards] == [(2, 512)] * 8
+    # the block rule: the device at (c0, c1) holds block c_a * |b| + c_b
+    size = dict(mesh.shape)
+    x64 = sn.astype(np.float64)
+    want = (2.0 * x64 + 1.0 if program == '2x + 1' else np.fft.irfft(
+        np.fft.rfft(x64, axis=-1) * np.fft.rfft(fn_.astype(np.float64)), axis=-1))
+    for i, s in enumerate(got.shards):
+        coords = dict(zip(mesh.axis_names, np.unravel_index(i, mesh.devices.shape)))
+        block = coords[axes[0]] * size[axes[1]] + coords[axes[1]]
+        _close(s.numpy(), want[2 * block:2 * block + 2])
+    _held_to_jax_shards(got, ref, jmesh)
+    _close(got.numpy(), ref.numpy())
+    _close(got.numpy(), want)
+
+
+def test_compile_mesh_tuple_cut_chains_without_a_gather(monkeypatch):
+    """A result cut over an axis tuple feeds the next call where it lies,
+    with the spec and with none; the value against the JAX package's chain."""
+    xn = _rand((16, 64), 30)
+    step = _tuple_program(dt, '2x + 1')
+    jstep = _tuple_program(dsc_tpu, '2x + 1')
+    spec = ('model', 'data')
+    jf = dsc_tpu.compile(jstep, mesh=_jax_mesh((4, 2)), in_specs=(JP(spec),),
+                         out_specs=JP(spec))
+    mesh = _mesh((4, 2))
+    f = dt.compile(step, mesh=mesh, in_specs=(P(spec),), out_specs=P(spec))
+    y, jy = f(xn), jf(dsc_tpu.from_numpy(xn))
+    assert isinstance(y, Sharded) and y.axis == spec
+    gathers = []
+    full = Sharded.full
+    monkeypatch.setattr(Sharded, 'full', lambda self: gathers.append(self) or full(self))
+    for _ in range(2):
+        y, jy = f(y), jf(jy)
+    assert gathers == [] and f.n_programs == 1
+    f2 = dt.compile(step, mesh=mesh)  # no spec: the Sharded argument keeps its placement
+    z = f2(y)
+    assert isinstance(z, Sharded) and (z.axis, z.dim) == (spec, 0)
+    assert gathers == [y]  # the first call of a signature gathers once, for its check
+    gathers.clear()
+    z = f2(z)
+    assert gathers == [] and f2.n_programs == 1
+    monkeypatch.setattr(Sharded, 'full', full)
+    want = xn.astype(np.float64)
+    for _ in range(5):
+        want = 2.0 * want + 1.0
+    _close(z.numpy(), want)
+    _close(y.numpy(), jy.numpy())
+
+
+@pytest.mark.parametrize('spec', [('data', 'model'), ('model', 'data')])
+def test_compile_mesh_tuple_cut_refuses_a_sum_over_it(spec):
+    x = _rand((16, 64), 31)
+    f = dt.compile(lambda v: dt.sum(v, axis=0, keepdims=True), mesh=_mesh((2, 4)),
+                   in_specs=(P(spec),))
+    with pytest.raises(NotImplementedError, match=r"argument 0 with P\(\(" + repr(spec[0])):
+        f(x)
+    assert f.n_programs == 0
+
+
+def test_compile_mesh_tuple_cut_must_divide_by_the_product():
+    x = _rand((12, 64), 32)  # 12 rows over 4 x 2 = 8 blocks
+    spec = ('data', 'model')
+    jf = dsc_tpu.compile(lambda v: dsc_tpu.add(v, 1.0), mesh=_jax_mesh((4, 2)),
+                         in_specs=(JP(spec),))
+    with pytest.raises(ValueError, match='divisible'):
+        jf(dsc_tpu.from_numpy(x))
+    f = dt.compile(lambda v: dt.add(v, 1.0), mesh=_mesh((4, 2)), in_specs=(P(spec),))
+    with pytest.raises(RuntimeError, match=r"not divisible by the mesh axes \('data', 'model'\) "
+                                           r'\(8\)'):
+        f(x)
+    # 16 rows divide by 8 and by each axis alone
+    _close(f(_rand((16, 64), 32)).numpy(), _rand((16, 64), 32) + 1.0)
+
+
+@pytest.mark.parametrize('spec', [P(('data', 'data')), P('data', ('model', 'data')),
+                                  P(('data', 'batch'))])
+def test_compile_mesh_tuple_names_checked(spec):
+    f = dt.compile(lambda v: v, mesh=_mesh((4, 2)), in_specs=(spec,))
+    with pytest.raises(RuntimeError, match='twice|not in'):
+        f(_rand((16, 64), 33))
+
+
+def test_compile_mesh_arguments_cut_differently_are_placed_anew():
+    """x cut over 'data', y replicated, z over ('model', 'data'), all of
+    one shape: the specs' own shards cannot run (blocks of other sizes),
+    so y and z are placed as x is, as GSPMD reshards them; the value is
+    the JAX package's, and later calls place them so again."""
+    xn, yn, zn = _rand((16, 64), 34), _rand((16, 64), 35), _rand((16, 64), 36)
+
+    def fma(pkg):
+        return lambda x, y, z: pkg.add(pkg.mul(x, y), z)
+
+    specs = ('data', None, ('model', 'data'))
+    jf = dsc_tpu.compile(fma(dsc_tpu), mesh=_jax_mesh((4, 2)),
+                         in_specs=tuple(JP(s) if s else None for s in specs))
+    ref = jf(*[dsc_tpu.from_numpy(a) for a in (xn, yn, zn)]).numpy()
+    f = dt.compile(fma(dt), mesh=_mesh((4, 2)),
+                   in_specs=tuple(P(s) if s else None for s in specs))
+    for _ in range(2):
+        got = f(xn, yn, zn)
+        assert isinstance(got, Sharded) and (got.axis, got.dim) == ('data', 0)
+        _close(got.numpy(), ref)
+        _close(got.numpy(), xn.astype(np.float64) * yn + zn)
+    prog = next(iter(f._programs.values()))
+    assert prog.layouts == [{0: ('data',)}] * 3 and f.n_programs == 1

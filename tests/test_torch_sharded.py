@@ -402,3 +402,132 @@ def test_error_paths(case):
 def test_dryrun_multichip_on_the_cpu(capsys):
     dryrun_multichip(8, device='cpu')
     assert 'dryrun_multichip OK' in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the batch cut over a tuple of mesh axes
+# ---------------------------------------------------------------------------
+
+AXIS_TUPLES = [('data', 'model'), ('model', 'data')]
+TUPLE_MESHES = [(4, 2), (2, 4)]
+
+
+def _tuple_inputs():
+    rng = np.random.default_rng(21)
+    rows = (rng.standard_normal((16, 256)) + 1j * rng.standard_normal((16, 256))).astype(
+        np.complex64)
+    return {'shard_batch': rng.standard_normal((16, 8, 3)).astype(np.float32),
+            'sharded_batched_fft': rows,
+            'sharded_batched_rfft': rng.standard_normal((16, 512)).astype(np.float32)}
+
+
+TUPLE_INPUTS = _tuple_inputs()
+TUPLE_REFS = {'shard_batch': TUPLE_INPUTS['shard_batch'].astype(np.float64),
+              'sharded_batched_fft': np.fft.fft(
+                  TUPLE_INPUTS['sharded_batched_fft'].astype(np.complex128)),
+              'sharded_batched_rfft': np.fft.rfft(
+                  TUPLE_INPUTS['sharded_batched_rfft'].astype(np.float64))}
+
+
+@pytest.fixture(scope='module')
+def jax_tuple_results():
+    """The JAX package's three batch functions with an axis tuple: the
+    global value and each device's block, by mesh position."""
+    if len(jax.devices()) < 8:
+        pytest.skip('needs 8 (virtual) devices')
+    out = {}
+    for shape in TUPLE_MESHES:
+        jmesh = jpar.make_mesh(shape)
+        jdevices = list(jmesh.devices.flat)
+        for axis in AXIS_TUPLES:
+            for name, x in TUPLE_INPUTS.items():
+                arr = getattr(jpar, name)(jnp.asarray(x), jmesh, axis=axis)
+                blocks = [None] * len(jdevices)
+                for shard in arr.addressable_shards:
+                    blocks[jdevices.index(shard.device)] = np.asarray(shard.data)
+                out[name, shape, axis] = (np.asarray(arr), blocks, arr.sharding.spec)
+    return out
+
+
+@pytest.mark.parametrize('axis', AXIS_TUPLES, ids='-'.join)
+@pytest.mark.parametrize('shape', TUPLE_MESHES)
+@pytest.mark.parametrize('name', list(TUPLE_INPUTS))
+def test_batch_cut_over_an_axis_tuple(name, shape, axis, jax_tuple_results):
+    """The block on port device i is the JAX array's block on JAX device
+    i: block c_a * |b| + c_b at coordinates (c_a, c_b) of the tuple (a, b)."""
+    mesh = tpar.make_mesh(shape, devices=CPU8)
+    x = TUPLE_INPUTS[name]
+    got = getattr(tpar, name)(torch.from_numpy(x), mesh, axis=axis)
+    ref, blocks, spec = jax_tuple_results[name, shape, axis]
+    assert spec[0] == axis
+    assert isinstance(got, tmesh.Sharded) and got.axis == axis and got.dim == 0
+    rows = x.shape[0] // 8
+    for i, (mine, theirs) in enumerate(zip(got.shards, blocks)):
+        c = dict(zip(mesh.axis_names, np.unravel_index(i, shape)))
+        block = c[axis[0]] * mesh.shape[axis[1]] + c[axis[1]]
+        assert tuple(mine.shape) == theirs.shape and mine.shape[0] == rows
+        assert _rel(mine.numpy(), theirs) < JAX_BOUND
+        assert _rel(mine.numpy(), TUPLE_REFS[name][rows * block:rows * (block + 1)]) < NUMPY_BOUND
+    g = np.asarray(got)
+    assert _rel(g, ref) < JAX_BOUND and _rel(g, TUPLE_REFS[name]) < NUMPY_BOUND
+
+
+def test_tuple_sharded_input_is_not_moved(monkeypatch):
+    """A Sharded value cut over the tuple the function asks for is used
+    where it lies; over the other order it is gathered and placed anew."""
+    mesh = tpar.make_mesh((4, 2), devices=CPU8)
+    x = TUPLE_INPUTS['sharded_batched_fft']
+    placed = tpar.shard_batch(x, mesh, axis=('data', 'model'))
+    assert sharded_fft._place(placed, mesh, ('data', 'model'), 0, x.shape, x.shape) is placed
+    assert sharded_fft._place(placed, mesh, ('model', 'data'), 0, x.shape, x.shape) is not placed
+    gathers = []
+    full = tmesh.Sharded.full
+    monkeypatch.setattr(tmesh.Sharded, 'full', lambda self: gathers.append(self) or full(self))
+    got = tpar.sharded_batched_fft(placed, mesh, axis=('data', 'model'))
+    back = tpar.sharded_batched_fft(got, mesh, inverse=True, axis=('data', 'model'))
+    assert gathers == []
+    monkeypatch.setattr(tmesh.Sharded, 'full', full)
+    assert _rel(np.asarray(back), x) < NUMPY_BOUND
+
+
+@pytest.mark.parametrize('name', ['distributed_fft', 'distributed_fft_stream',
+                                  'distributed_rfft_stream', 'distributed_irfft_stream'])
+def test_transform_sharding_over_an_axis_tuple_raises(name):
+    """The transform-sharded calls split over one mesh axis: a tuple raises
+    in both packages (KeyError from mesh.shape in the JAX package)."""
+    if len(jax.devices()) < 8:
+        pytest.skip('needs 8 (virtual) devices')
+    x = {'distributed_fft': np.zeros((2, 4096), np.complex64),
+         'distributed_fft_stream': np.zeros(2**20, np.complex64),
+         'distributed_rfft_stream': np.zeros(2**20, np.float32),
+         'distributed_irfft_stream': np.zeros(2**19 + 1, np.complex64)}[name]
+    for axis in AXIS_TUPLES:
+        with pytest.raises(KeyError):
+            getattr(jpar, name)(jnp.asarray(x), jpar.make_mesh((4, 2)), axis=axis)
+        with pytest.raises(RuntimeError, match='split over one mesh axis'):
+            getattr(tpar, name)(x, tpar.make_mesh((4, 2), devices=CPU8), axis=axis)
+
+
+def test_mesh_groups_and_axis_size_of_a_tuple():
+    mesh = tpar.make_mesh((4, 2), devices=CPU8)
+    assert mesh.axis_size(('data', 'model')) == mesh.axis_size(('model', 'data')) == 8
+    assert mesh.axis_size('model') == 2 and mesh.axis_size(('data',)) == 4
+    assert mesh.groups(('data', 'model')) == [list(range(8))]
+    # flat index p = c_model * 4 + c_data holds the device at (c_data, c_model)
+    assert mesh.groups(('model', 'data')) == [[0, 2, 4, 6, 1, 3, 5, 7]]
+    assert mesh.groups(('data',)) == mesh.groups('data') == [[0, 2, 4, 6], [1, 3, 5, 7]]
+    three = tmesh.Mesh(np.array(CPU8, dtype=object).reshape(2, 2, 2), ('a', 'b', 'c'))
+    assert three.groups(('c', 'a')) == [[0, 4, 1, 5], [2, 6, 3, 7]]
+    s = tmesh.Sharded(mesh, ['model', 'data'], 0, [torch.zeros(1)] * 8, (8,))
+    assert s.axis == ('model', 'data') and "axis=('model', 'data')" in repr(s)
+    assert tmesh.Sharded(mesh, ('data',), 0, [torch.zeros(2)] * 8, (8,)).axis == 'data'
+
+
+@pytest.mark.parametrize('axis', [('data', 'data'), ('data', 'batch'), 'batch'])
+def test_mesh_axis_tuple_errors(axis):
+    mesh = tpar.make_mesh((4, 2), devices=CPU8)
+    for call in (lambda: mesh.groups(axis), lambda: mesh.axis_size(axis),
+                 lambda: tmesh.Sharded(mesh, axis, 0, [torch.zeros(1)] * 8, (8,)),
+                 lambda: tpar.shard_batch(np.zeros((16, 2), np.float32), mesh, axis=axis)):
+        with pytest.raises(RuntimeError, match='twice|not in'):
+            call()
