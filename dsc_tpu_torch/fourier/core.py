@@ -32,6 +32,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from . import config, reconstruct, stream, stream_t
 
 
@@ -108,9 +109,10 @@ def untangle(z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Real spectrum X (..., nh+1) from Z (..., nh), the FFT of the packed
     z[t] = x[2t] + i*x[2t+1]: X[k] = (Z[k] + conj Z[nh-k])/2
     - i*w[k]*(Z[k] - conj Z[nh-k])/2 with Z[nh] = Z[0], w[k] = W_n^k."""
-    ze = torch.cat([z, z[..., :1]], dim=-1)
-    zr = ze.flip(-1).conj()
-    return 0.5 * (ze + zr) - 0.5j * (w * (ze - zr))
+    with tracing.trace_op('untangle', 'plain;fft'):
+        ze = torch.cat([z, z[..., :1]], dim=-1)
+        zr = ze.flip(-1).conj()
+        return 0.5 * (ze + zr) - 0.5j * (w * (ze - zr))
 
 
 def entangle(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -118,8 +120,9 @@ def entangle(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     (X[k] + conj X[nh-k])/2 + i*conj(w[k])*(X[k] - conj X[nh-k])/2, with
     w[k] = W_n^k for k < nh."""
     nh = x.shape[-1] - 1
-    f, g = x[..., :nh], x.flip(-1)[..., :nh].conj()
-    return 0.5 * (f + g) + 0.5j * (w.conj() * (f - g))
+    with tracing.trace_op('entangle', 'plain;fft'):
+        f, g = x[..., :nh], x.flip(-1)[..., :nh].conj()
+        return 0.5 * (f + g) + 0.5j * (w.conj() * (f - g))
 
 
 def rfft_batched(x: torch.Tensor, spec: Tuple, tables: Any, n: int,
@@ -179,9 +182,10 @@ def _pad_crop(x: torch.Tensor, target: int) -> torch.Tensor:
         return x
     if cur > target:
         return x[..., :target]
-    out = x.new_zeros(*x.shape[:-1], target)
-    out[..., :cur] = x
-    return out
+    with tracing.trace_op('pad', 'plain;fft'):
+        out = x.new_zeros(*x.shape[:-1], target)
+        out[..., :cur] = x
+        return out
 
 
 def _rows(x: torch.Tensor, axis: int, n: int):
@@ -191,7 +195,11 @@ def _rows(x: torch.Tensor, axis: int, n: int):
 
 
 def _unrows(y: torch.Tensor, lead, axis: int) -> torch.Tensor:
-    return torch.movedim(y.reshape(*lead, y.shape[-1]), -1, axis).contiguous()
+    y = torch.movedim(y.reshape(*lead, y.shape[-1]), -1, axis)
+    if y.is_contiguous():
+        return y
+    with tracing.trace_op('unrows', 'plain;fft'):
+        return y.contiguous()
 
 
 def fft_nd(x, tables, spec, n: int, axis: int, inverse: bool, cdtype,

@@ -16,6 +16,10 @@ column and row DFT tables and the two twiddles that are as large as the
 data, each factored into two short tables (``Factored``). A 'stream' plan
 holds those of the natural streaming four-step (stream.py): the DFT
 tables of both factors and the four-step twiddle W_n^(k1*j2), factored.
+
+``lookups`` counts the cache's hits and misses since the last
+``reset_lookups()``; a miss builds its plan inside a ``plan`` span
+(tracing.py).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from typing import Any, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..capture import capturing
 from . import stream
 
@@ -43,6 +48,12 @@ RFFT_PACK_MAX = 2**16
 
 _plans: 'OrderedDict[Tuple, Any]' = OrderedDict()
 _lock = threading.Lock()
+lookups = {'hit': 0, 'miss': 0}
+
+
+def reset_lookups() -> None:
+    with _lock:
+        lookups['hit'] = lookups['miss'] = 0
 
 
 def clear_plans() -> None:
@@ -209,8 +220,10 @@ def get_plan(n: int, fft_type: str, dtype: torch.dtype, device=None) -> Tuple[Tu
     key = (n, fft_type, dtype, str(device))
     with _lock:
         if key in _plans:
+            lookups['hit'] += 1
             _plans.move_to_end(key)
             return _plans[key]
+        lookups['miss'] += 1
     if capturing():
         # the upload of new tables cannot be captured into a CUDA graph
         raise RuntimeError(
@@ -218,7 +231,8 @@ def get_plan(n: int, fft_type: str, dtype: torch.dtype, device=None) -> Tuple[Tu
             f'cache between the compiled function\'s trace run and its CUDA graph capture: '
             f'the function needs more than DSC_MAX_FFT_PLANS={MAX_FFT_PLANS} plans; '
             'raise DSC_MAX_FFT_PLANS')
-    spec, tables = _build_plan(n, fft_type, dtype, device)
+    with tracing.trace_op(fft_type, 'plan;fft', {'n': n}):
+        spec, tables = _build_plan(n, fft_type, dtype, device)
     with _lock:
         _plans[key] = (spec, tables)
         while len(_plans) > MAX_FFT_PLANS:

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..kernels import build
 
 CHUNK = 2**16  # the TPU kernel's tail chunk (pallas_reconstruct.py:41)
@@ -31,7 +32,8 @@ CHUNK = 2**16  # the TPU kernel's tail chunk (pallas_reconstruct.py:41)
 
 def reconstruct_plain(x: torch.Tensor, n: int) -> torch.Tensor:
     """(B, n/2+1) -> (B, n) with the conjugate mirror as the upper half."""
-    return torch.cat([x, x[:, 1:n // 2].flip(1).conj()], dim=1)
+    with tracing.trace_op('reconstruct', 'plain;fft'):
+        return torch.cat([x, x[:, 1:n // 2].flip(1).conj()], dim=1)
 
 
 def kernel_takes(x: torch.Tensor, n: int) -> bool:

@@ -12,7 +12,10 @@ CUDA stream, launches without synchronising, and returns
 ``launches`` counts, per kernel, the launches made since the last
 ``reset_launches()``: a run can show which kernels its path went through.
 A launch captured into a CUDA graph (dsc.compile) counts once, at the
-capture; the graph's replays run no Python and count nothing.
+capture; the graph's replays run no Python and count nothing. Each launch
+is a ``wrapper`` span named after its kernel (tracing.py), and so are the
+library's build or load (``load``) and a generated source's
+(``build_generated``), which fall in a process's set-up.
 
 ``build_generated`` compiles a generated source (dsc.map's bodies, K5g:
 ops/map_gen.py) on its own into ``build/kernels/gen/<hash>.so``, keyed by
@@ -35,6 +38,8 @@ from pathlib import Path
 from typing import Dict, Optional, Sequence
 
 import torch
+
+from .. import tracing
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / 'csrc'
@@ -165,7 +170,9 @@ def build(extra_flags: Sequence[str] = ()) -> str:
 def load() -> ctypes.CDLL:
     """The kernel library, built first if missing or stale."""
     global _lib
-    with _lib_lock:
+    if _lib is not None:
+        return _lib
+    with _lib_lock, tracing.trace_op('load', 'wrapper;setup'):
         if _lib is None:
             if _stale():
                 build()
@@ -198,7 +205,10 @@ def build_generated(source: str) -> ctypes.CDLL:
     GEN_DIR/<hash>.so (one nvcc process for this source and the headers it
     includes, not the main library's sources) and loaded once a process."""
     key = source_hash(source)
-    with _lib_lock:
+    lib = _generated.get(key)
+    if lib is not None:
+        return lib
+    with _lib_lock, tracing.trace_op('build_generated', 'wrapper;setup'):
         lib = _generated.get(key)
         if lib is not None:
             return lib
@@ -228,14 +238,15 @@ def launch_generated(lib: ctypes.CDLL, inputs: Sequence[torch.Tensor], rows: Seq
     ``inputs`` and ``outputs`` are CUDA tensors, ``rows`` the broadcast-row
     length of each input (0 for the other kinds); raise if the launch was
     refused."""
-    ins = (_P * len(inputs))(*[t.data_ptr() for t in inputs])
-    row_arr = (_I * len(rows))(*rows)
-    outs = (_P * len(outputs))(*[t.data_ptr() for t in outputs])
-    err = lib.dsc_map_gen(ins, row_arr, outs, n, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        msg = load().dsc_error_string(err).decode()
-        raise RuntimeError(f'dsc_map_gen failed: CUDA error {err} ({msg})')
-    launches['stream_map_gen'] += 1
+    with tracing.trace_op('stream_map_gen', 'wrapper;launch'):
+        ins = (_P * len(inputs))(*[t.data_ptr() for t in inputs])
+        row_arr = (_I * len(rows))(*rows)
+        outs = (_P * len(outputs))(*[t.data_ptr() for t in outputs])
+        err = lib.dsc_map_gen(ins, row_arr, outs, n, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            msg = load().dsc_error_string(err).decode()
+            raise RuntimeError(f'dsc_map_gen failed: CUDA error {err} ({msg})')
+        launches['stream_map_gen'] += 1
 
 
 def check(t: torch.Tensor, dtype: torch.dtype, shape, name: str) -> None:
@@ -262,14 +273,15 @@ def launch(kernel: str, *args, device: Optional[torch.device] = None) -> None:
     """Launch ``kernel`` with ``args`` on the current stream of ``device``
     (the device of the tensors the pointers come from; None: the current
     device); raise if the launch was refused."""
-    lib = load()
-    entry = KERNELS[kernel][0]
-    if device is None:
-        err = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(device):
-            err = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        msg = lib.dsc_error_string(err).decode()
-        raise RuntimeError(f'{entry} failed: CUDA error {err} ({msg})')
-    launches[kernel] += 1
+    with tracing.trace_op(kernel, 'wrapper;launch'):
+        lib = load()
+        entry = KERNELS[kernel][0]
+        if device is None:
+            err = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(device):
+                err = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            msg = lib.dsc_error_string(err).decode()
+            raise RuntimeError(f'{entry} failed: CUDA error {err} ({msg})')
+        launches[kernel] += 1

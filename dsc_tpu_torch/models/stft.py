@@ -98,7 +98,8 @@ def _frame_dense(x: torch.Tensor, frame: int, hop: int, n_frames: int) -> torch.
     end of x read as zeros."""
     need = (n_frames - 1) * hop + frame
     if x.shape[-1] < need:
-        x = torch.nn.functional.pad(x, (0, need - x.shape[-1]))
+        with tracing.trace_op('frame_pad', 'plain;pipeline'):
+            x = torch.nn.functional.pad(x, (0, need - x.shape[-1]))
     return x.unfold(-1, frame, hop)[:, :n_frames]
 
 
@@ -164,22 +165,26 @@ class STFT:
             raise RuntimeError(f'signal ({n}) shorter than frame ({self.frame})')
         frame, fft_n = self.frame, self.fft_n
         n_frames = 1 + (n - frame) // self.hop
-        spec, tables = fft_plan.get_plan(fft_n, 'real', torch.complex64)
         data = x.torch if batched else x.torch[None, :]
         with tracing.trace_op('stft', 'op;pipeline', tracing.tensor_args(x=x)):
+            spec, tables = fft_plan.get_plan(fft_n, 'real', torch.complex64)
             b = data.shape[0]
             frames = _frame_dense(data, frame, self.hop, n_frames)
-            fx = (frames * _placed(self._windows, self._window, data.device)).reshape(
-                b * n_frames, frame)
+            window = _placed(self._windows, self._window, data.device)
+            with tracing.trace_op('window', 'plain;pipeline'):
+                fx = (frames * window).reshape(b * n_frames, frame)
             if frame != fft_n:  # a frame that is not a power of two: zero-padded
-                fx = torch.nn.functional.pad(fx, (0, fft_n - frame))
+                with tracing.trace_op('pad', 'plain;pipeline'):
+                    fx = torch.nn.functional.pad(fx, (0, fft_n - frame))
             z = fft_core.rfft_batched(fx, spec, tables, fft_n).reshape(b, n_frames, -1)
             if self.mode == 'complex':
                 out = z
             else:
-                out = z.real * z.real + z.imag * z.imag
+                with tracing.trace_op('power', 'plain;pipeline'):
+                    out = z.real * z.real + z.imag * z.imag
                 if self.log_eps is not None:
-                    out = torch.log(out + self.log_eps)
+                    with tracing.trace_op('log', 'plain;pipeline'):
+                        out = torch.log(out + self.log_eps)
             res = Tensor._from_torch(out if batched else out[0])
         return res
 

@@ -27,6 +27,7 @@ import operator
 import numpy as np
 import torch
 
+from .. import tracing
 from . import stream_map as sm
 
 # ---------------------------------------------------------------------------
@@ -73,7 +74,8 @@ def binary(name: str, a, b) -> torch.Tensor:
     layout = _route(name, a, b)
     if layout is not None:
         return sm.stream_map(name, a, b, layout=layout)
-    return _PLAIN_BINARY[name](a, b)
+    with tracing.trace_op(name, 'plain;binary'):
+        return _PLAIN_BINARY[name](a, b)
 
 
 def cpow_planes(ar, ai, br, bi):

@@ -6,12 +6,17 @@ Chrome trace-event JSON, and ``profile()`` is the context-manager wrapper
 over localhost and print a ui.perfetto.dev deep link like the reference
 (profiler.py:35-44).
 
-``profile(xprof_dir=...)`` also runs the region under ``torch.profiler``
-(CPU activity, and CUDA activity on a CUDA context), writes its Chrome
-trace under ``xprof_dir`` and merges its events (the device's kernels and
-copies among them) into the dsc trace file on the dsc tracing clock, each
-profiler process under a pid of its own above ``1 << 22``, as the JAX
-package merges its xprof trace (dsc_tpu/profiler.py:88-146).
+The dsc events are host enqueue spans (tracing.py): on a device, an op's
+time comes from the device timeline. ``profile(xprof_dir=...)`` also runs
+the region under ``torch.profiler`` (CPU activity, and CUDA activity on a
+CUDA context), writes its Chrome trace under ``xprof_dir`` and merges its
+events (the device's kernels and copies among them) into the dsc trace
+file on the dsc tracing clock, each profiler process under a pid of its
+own above ``1 << 22``, as the JAX package merges its xprof trace
+(dsc_tpu/profiler.py:88-146). Under the profiler each dsc span is also a
+``dsc.<layer>.<name>`` range on its clock, to which the device work it
+launched is correlated; the merged file holds each span once, as its dsc
+event.
 """
 
 from __future__ import annotations
@@ -82,6 +87,8 @@ def stop_recording(file: Optional[str] = None, serve: Optional[bool] = None,
 _DEVICE_PID_BASE = 1 << 22
 # the annotation whose start fixes the profiler's clock against dsc's
 _MARK = 'dsc_profile_start'
+# the profiler's copies of the dsc spans (tracing.py), left out of the merge
+_SPAN_COPY = 'dsc.'
 
 
 def _load_profiler_events(path: str, mark_us: float):
@@ -134,7 +141,9 @@ def profile(file: str = 'traces.json', serve: Optional[bool] = None,
     With ``xprof_dir`` the region also runs under ``torch.profiler``: its
     Chrome trace is written under ``xprof_dir`` and its events (CPU ops,
     and the kernels and copies on the card) are merged into ``file`` next
-    to the dsc-level events, time-aligned, as extra Perfetto processes."""
+    to the dsc-level events, time-aligned, as extra Perfetto processes.
+    The dsc events are host enqueue spans; an op's device time is in the
+    merged device timeline."""
     prof = None
     if xprof_dir:
         prof, mark_us = _start_profiler()
@@ -150,7 +159,8 @@ def profile(file: str = 'traces.json', serve: Optional[bool] = None,
                                            f'{time.time_ns()}.trace.json')
             try:
                 prof.export_chrome_trace(path)
-                extra = _load_profiler_events(path, float(mark_us))
+                extra = [ev for ev in _load_profiler_events(path, float(mark_us))
+                         if not str(ev.get('name', '')).startswith(_SPAN_COPY)]
             except Exception as e:  # the merge is best-effort, as in dsc_tpu
                 print(f'dsc_tpu_torch: xprof merge failed: {e}', file=sys.stderr)
         stop_recording(file, serve=serve, _extra_events=extra)

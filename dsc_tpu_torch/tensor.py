@@ -376,9 +376,11 @@ def _index(t: torch.Tensor, key) -> torch.Tensor:
         k = key[ax]
         if isinstance(k, slice) and k.step is not None and k.step < 0:
             idx = torch.arange(*k.indices(t.shape[ax]), device=t.device)
-            t = t.index_select(ax, idx)
+            with tracing.trace_op('index_select', 'plain;indexing'):
+                t = t.index_select(ax, idx)
             key = key[:ax] + (slice(None),) + key[ax + 1:]
-    return t[key].clone()
+    with tracing.trace_op('index', 'plain;indexing'):
+        return t[key].clone()
 
 
 def _value_for_set(value, target: 'Tensor') -> torch.Tensor:

@@ -330,19 +330,19 @@ def test_compile_tracing_events():
 
 
 def test_trace_op_does_not_synchronize_while_capturing(monkeypatch):
+    """A span is an enqueue span: it never waits for the device, capturing or not."""
     calls = []
     monkeypatch.setattr(torch.cuda, 'is_initialized', lambda: True)
     monkeypatch.setattr(torch.cuda, 'synchronize', lambda *a: calls.append('sync'))
+    tracing.clear_traces()
     tracing.set_recording(True)
     try:
-        monkeypatch.setattr(torch.cuda, 'is_current_stream_capturing', lambda: False)
-        with tracing.trace_op('op', 'op;test'):
-            pass
-        assert calls == ['sync']
-        monkeypatch.setattr(torch.cuda, 'is_current_stream_capturing', lambda: True)
-        with tracing.trace_op('op', 'op;test'):
-            pass
-        assert calls == ['sync']
+        for capturing in (False, True):
+            monkeypatch.setattr(torch.cuda, 'is_current_stream_capturing', lambda: capturing)
+            with tracing.trace_op('op', 'op;test'):
+                pass
+        assert calls == []
+        assert [e['ph'] for e in tracing._events] == ['B', 'E', 'B', 'E']
     finally:
         tracing.set_recording(False)
         tracing.clear_traces()

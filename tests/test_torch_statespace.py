@@ -256,7 +256,9 @@ def test_dlsim_trace_event():
     finally:
         tracing.set_recording(False)
         tracing.clear_traces()
-    assert [(e['cat'], e['args']) for e in events] == [('op;pipeline', {'steps': 300, 'n': 4})]
+    # every Begin also carries args.root, the id its public call's spans share
+    assert [(e['cat'], e['args']) for e in events] == [
+        ('op;pipeline', {'steps': 300, 'n': 4, 'root': events[0]['args']['root']})]
 
 
 # ------------------------------------------- continuous-time simulators
