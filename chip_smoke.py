@@ -39,16 +39,18 @@ Phases, each raising on failure (exit code 0 means all passed):
    shapes and a single 2^24 vector; the Hermitian reconstruction K11 at
    2^18, 2^19 and 2^24, exactly; K6 once more and K8, K9 and K10 (within
    1e-6) at every single-vector shape of phase 4d: 2^18, 2^19, 2^21, 2^24
-   and 2^26, T and half-T layouts), K12 at the model tier's launch shapes
-   (welch's 8191 x 512 and 8176 x 512, ShortTimeFFT's 4099 x 512) and K6/K7
-   at cwt's 64 x 2^17 rows, and the rfft against np.fft in float64;
+   and 2^26, T and half-T layouts), K12r (the batched rfft with the
+   untangle in K12's store) at its launch shapes (RFFT_SHAPES: the
+   spectrogram cell's 54,912 x 1024, the model tier's rows), against
+   np.fft in float64 at the first, and K6/K7 at cwt's 64 x 2^17 rows, and
+   the rfft against np.fft in float64;
 4. the public API at full size, as four paths, each with every launch count
    set to 0 just before it and read just after:
    a. the README quick start (2^20 samples, 255 taps, n = 2^21) and the
       4097-tap shape against np.convolve in float64, a 2^24 rfft -> irfft
       round trip and an n = 4096 rfft/irfft pair (K1-K4, K12); the quick
       start runs once more under dsc.profile; each kernel's launches held
-      to the routing (K1, K2 5, K3, K4 3, K12 2);
+      to the routing (K1, K2 5, K3, K4 3, K12 1, K12r 1);
    b. bench.py's fma and sin rows (dsc.add and dsc.sin of 2^26 float32)
       against NumPy in float64, a sweep of add/mul/exp/sum/max over sizes
       and dtypes in which K5 must launch exactly where the routing rule
@@ -80,7 +82,8 @@ Phases, each raising on failure (exit code 0 means all passed):
    2^26 for every float32 body, mul by a scalar, add of a 1-element tensor,
    clip with tensor bounds, the broadcast-row add and the complex bodies
    at 2^23 + 1; K12 at
-   2048 x 1, 4096 x 1000 and 65536 x 256; and K8, K9, K10 at 2^24 (T and
+   2048 x 1, 4096 x 1000 and 65536 x 256; K12r at RFFT_SHAPES beside
+   torch.fft.rfft; and K8, K9, K10 at 2^24 (T and
    half-T), 2^19 (half-T), 2^26 and 2^18 (T);
 6. the fusion tier and the models that ride it, every call with the counts
    set to 0 before it and read after it:
@@ -101,7 +104,7 @@ Phases, each raising on failure (exit code 0 means all passed):
       timed beside its bound and the eager chain, with nvcc's seconds;
    c. STFT(1024, 256, 'hann') log power of 1 x 2^20 and 16 x 2^18 inside
       dsc.profile(xprof_dir=...), whose trace must hold the stft op events
-      and K12's device events; STFT complex -> ISTFT of 4 x 2^18;
+      and K12r's device events; STFT complex -> ISTFT of 4 x 2^18;
       OverlapSave(129 taps, fft_n = 8192) of 1 x 2^22 and 8 x 2^20; each
       against NumPy in float64 with the tolerances of the JAX package's
       tests, and timed with its device busy share.
@@ -110,12 +113,11 @@ Phases, each raising on failure (exit code 0 means all passed):
    to the routing after it, each against scipy.signal or NumPy in float64
    with the tolerances of the JAX package's tests: the rows of
    benchmarks/results_models.json at full size, welch (nperseg 1024) of
-   1 x 2^22 and 16 x 2^18 (K12), cwt (ricker, 64 widths) of 2^16 (K12 on
+   1 x 2^22 and 16 x 2^18 (K12r), cwt (ricker, 64 widths) of 2^16 (K12 on
    the signal row, K6 + K7 on the 64 kernel rows and their inverse) and
-   ShortTimeFFT(hann 1024, hop 256).stft of 2^20 (K12), each timed on the
+   ShortTimeFFT(hann 1024, hop 256).stft of 2^20 (K12r), each timed on the
    host clock (median of 25) with its device time by kernel (torch.profiler
-   over 10 calls), busy share and, for the K12 rows, the plain untangle's
-   device time alone; then one call each of csd and coherence of 2 x 2^20,
+   over 10 calls) and busy share; then one call each of csd and coherence of 2 x 2^20,
    periodogram of 2^22, stft -> istft of 2^20, multitaper of 2^18,
    lombscargle of 4096 points at 4096 frequencies, hilbert of 2^22,
    resample 2^22 -> 2^21, resample_poly(3, 2) of 2^20 (K6, K7, K11),
@@ -131,9 +133,9 @@ Phases, each raising on failure (exit code 0 means all passed):
    complex64 (Bluestein, m = 2^21, K6 + K7), rfft of a minute of 48 kHz
    float32 audio (2 880 000 samples, m = 2^23) and the irfft of that
    spectrum, dct II ortho of (4096, 1000) (Bluestein m = 4096 over 4096
-   rows, K12), dctn II ortho of (2048, 2048) and its idctn (K12), dst IV of
+   rows, K12), dctn II ortho of (2048, 2048) and its idctn (K12r, K12), dst IV of
    (64, 2^16) (complex 2^17-point rows, K6 + K7), fht and ifht of
-   (16, 4096) (K12) and the irfft at n = 2^22 of one half spectrum (K11 +
+   (16, 4096) (K12r, K12) and the irfft at n = 2^22 of one half spectrum (K11 +
    K6 + K7); every kernel launch held to its plain version (REL_BOUND);
    then each call's host time (median of 25), its device time by kernel
    against the plain passes and its busy share (torch.profiler over 10
@@ -195,7 +197,7 @@ Phases, each raising on failure (exit code 0 means all passed):
    largest value)) (no kernel); the chain chirp of 2^22 + seeded noise ->
    iirdesign ellip (host) -> sosfilt -> medfilt(5) -> welch(nperseg 1024),
    each stage against scipy applied to the port's previous stage (1e-4,
-   exactly, 2e-4), the add's K5 and welch's K12 launches held to the
+   exactly, 2e-4), the add's K5 and welch's K12r launches held to the
    routing and each to its plain version, then the chain under dsc.compile
    within 1e-6 of eager; then each row's host time (median of 25), device
    time by op (torch.profiler over 10 calls), busy share, the checked
@@ -212,7 +214,7 @@ Phases, each raising on failure (exit code 0 means all passed):
    (fft_n = 2^24: K1 + K2 for both operands, K5 on the spectra's product,
    K3 + K4), of 8 x 2^20 rows and 255 taps (K6 + K7 for the rows, K1 + K2
    for the taps) and of a 2048^2 image and a 5 x 5 kernel in 'full' and
-   'same' mode (K12 on the 4096-point rows and columns, K5), within 1e-4 of
+   'same' mode (K12r on the 4096-point rows, K12 on the columns, K5), within 1e-4 of
    the largest value, their launches held to the routing (conv_launches)
    and each to its plain version (REL_BOUND); lfilter(butter(4, 0.25)) of
    2^22 samples in two halves, the second from lfiltic's state, within
@@ -267,7 +269,7 @@ Phases, each raising on failure (exit code 0 means all passed):
    of every card, three programs cut over 'data': the filterFFT of 16 x
    2^20 (rfft of the rows, K6 + K7; the replicated 4097 Blackman taps'
    rfft at n = 2^20, K1 + K2; the product; the irfft, K6 + K7), STFT ->
-   mask -> ISTFT of 16 x 2^18 (frame 1024, hop 256, K12) and sosfilt
+   mask -> ISTFT of 16 x 2^18 (frame 1024, hop 256, K12r, K12) and sosfilt
    butter(4, 0.25) of 8 x 2^20; each with every kernel launch of one
    shard's eager call held to its plain version, the first call's
    launches held to its two global check runs' (seeded probe arguments,
@@ -295,7 +297,7 @@ them.
 
     python3 chip_smoke.py --profile
 
-runs phases 1-2 and then, in place of the checks, times K12 and the column
+runs phases 1-2 and then, in place of the checks, times K12, K12r and the column
 pass of K6, K7, K8, K10, K1 and K4 (2^21, 2^24, 2^26, and K1 on 4097 taps
 at 2^24) with blocks of 4096, 8192 and 16384 points and the C its wrapper
 takes, K2 and K3 with 2-16 row pairs a block, and K9 (T layout) with
@@ -409,6 +411,10 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                       'dsc_tpu/fourier/packed_fused.py:721'),
     'base_fft': ('dsc_tpu_torch/csrc/base_fft.cu',
                  'dsc_tpu/fourier/pallas_kernels.py:55'),
+    # K12r: K12 with the batched rfft's untangle in its store; no TPU kernel
+    # (XLA fuses the JAX package's untangle)
+    'base_rfft': ('dsc_tpu_torch/csrc/base_fft.cu',
+                  'none: dsc_tpu/fourier/core.py rfft_batched_p, XLA-fused'),
     'stream_map': ('dsc_tpu_torch/csrc/stream_map.cu',
                    'dsc_tpu/ops/pallas_map.py:83'),
     'stream_phase_a': ('dsc_tpu_torch/csrc/fourstep_stream.cu',
@@ -434,9 +440,10 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
 }
 # the launches the filterFFT path must make (fourier/config.py): K1 + K2 for
 # each packed rfft (two per filterFFT, one for the 2^24 round trip), K3 + K4
-# for each packed irfft, K12 for the n = 4096 pair's half-size rfft and irfft
+# for each packed irfft, K12r for the n = 4096 pair's rfft and K12 for its
+# irfft's half-size transform
 FFT_PATH_LAUNCHES = {'rfft_phase_a': 5, 'rfft_phase_b': 5, 'irfft_phase_a': 3,
-                     'irfft_phase_b': 3, 'base_fft': 2}
+                     'irfft_phase_b': 3, 'base_fft': 1, 'base_rfft': 1}
 MAP_PATH = ('stream_map', 'rfft_phase_a', 'rfft_phase_b', 'irfft_phase_a', 'irfft_phase_b')
 # BASELINE config 3's batched rows: (batch, n), 2^24 complex64 values each
 SUITE = ((256, 2**16), (64, 2**18), (16, 2**20), (4, 2**22))
@@ -793,18 +800,27 @@ def column_candidates(card: str) -> None:
 
 
 ROW_CANDIDATES = (4096, 8192, 16384)      # R*n points a block of K12
+# K12r's launch shapes (batch, nh): the spectrogram cell's 54,912 frames
+# (portbench); phase 6's OverlapSave of 1 x 2^22 and 8 x 2^20 at fft_n =
+# 8192 (521, 1048 rows of nh = 4096) and STFT(1024, 256) of 4 x 2^18, 1 x
+# 2^20 and 16 x 2^18 (4084, 4093, 16336 of 512); phase 7's welch of 1 x 2^22
+# and 16 x 2^18, ShortTimeFFT of 2^20 and the scipy-style stft of 2^20
+# (8191, 8176, 4099, 2049 of 512)
+RFFT_SHAPES = ((54912, 512), (521, 4096), (1048, 4096), (4084, 512), (4093, 512), (16336, 512),
+               (8191, 512), (8176, 512), (4099, 512), (2049, 512))
 PAIR_CANDIDATES = (2, 4, 8, 16)           # row pairs a block of K2 and K3
 
 
 def row_candidates(card: str) -> None:
     """--profile: K12 with blocks of each size of ROW_CANDIDATES (R = points
-    / n rows) at n = 256 ... 4096, over 2^24 values and over 1000 rows, and
-    K2 and K3 with each P of PAIR_CANDIDATES that 1024 threads allow at
+    / n rows) at n = 256 ... 4096, over 2^24 values and over 1000 rows, K12r
+    with the same blocks at the first three of RFFT_SHAPES (R = points /
+    nh rows), K2 and K3 with each P of PAIR_CANDIDATES that 1024 threads allow at
     n = 2^20 ... 2^26, K9 in the T layout with blocks of each size of
     ROW_CANDIDATES and the R its wrapper takes at 2^18 ... 2^26, back to
     back in turns (a, b, c, c, b, a); the tables the wrappers take R and P
-    from are base_fft.ROWS, packed_fused.PAIRS and INV_PAIRS and
-    stream_t.ROWS."""
+    from are base_fft.ROWS (K12 and K12r), packed_fused.PAIRS and INV_PAIRS
+    and stream_t.ROWS."""
     from dsc_tpu_torch.fourier import base_fft, packed_fused as pf, plan, stream_t
     from dsc_tpu_torch.fourier.stream import factors
 
@@ -822,6 +838,14 @@ def row_candidates(card: str) -> None:
             cases.append((f'K12 {batch} x {n}', {
                 f'{p} points (R={p // n})': lambda r=p // n, x=x, w=w: base_fft._launch(x, w, r)
                 for p in ROW_CANDIDATES}))
+    for batch, nh in RFFT_SHAPES[:3]:
+        w, wu = plan.get_plan(2 * nh, 'real', torch.complex64)[1]
+        x = torch.randn((batch, 2 * nh), device='cuda')
+        cases.append((f'K12r {batch} x {2 * nh} (the wrapper takes '
+                       f'R={base_fft.block_rows(nh, batch)})', {
+            f'{p} points (R={p // nh})':
+                lambda r=p // nh, x=x, w=w, wu=wu: base_fft._launch_rfft(x, w, wu, r)
+            for p in ROW_CANDIDATES}))
     for e in range(20, 27):
         t = plan.get_plan(2**e, 'packed', torch.complex64)[1]
         n1, n2 = factors(2**e)
@@ -855,6 +879,19 @@ def row_candidates(card: str) -> None:
             times[shape].append(back_to_back_ms(launches[shape], 50))
         print(f'  {what}: ' + '; '.join(f'{shape}: {float(np.mean(ms)):.4f} ms'
                                         for shape, ms in times.items()))
+
+
+def rfft_times(timed, normal) -> None:
+    """K12r at RFFT_SHAPES beside its plain version and torch.fft.rfft; its
+    bound: the float32 rows read once, the spectrum written once."""
+    from dsc_tpu_torch.fourier import base_fft, plan
+
+    for b, nh in RFFT_SHAPES:
+        w, wu = plan.get_plan(2 * nh, 'real', torch.complex64)[1]
+        x = normal((b, 2 * nh))
+        timed('base_rfft', f'{b} x {2 * nh}', lambda: base_fft.rfft_base(x, w, wu),
+              lambda: base_fft.rfft_base_plain(x, w, wu), lambda: torch.fft.rfft(x),
+              nbytes(x, w, wu) + 8 * b * (nh + 1), fft_ops(b * nh, nh) + 10 * b * nh)
 
 
 def wrapper_times(dsc, card: str) -> None:
@@ -1257,23 +1294,28 @@ def fusion_phase(dsc, card: str, compare, timed) -> dict:
         frames = np.lib.stride_tricks.sliding_window_view(sig.astype(np.float64), 1024, axis=-1)
         return np.fft.rfft(frames[..., ::256, :] * win, axis=-1)
 
-    # every K12 launch of the models' runs below, by (batch, n), to hold
-    # the kernel to its plain version at those launch shapes after them
+    # every K12 and K12r launch of the models' runs below, by (batch, n), to
+    # hold the kernels to their plain versions at those launch shapes after them
     from dsc_tpu_torch.fourier import base_fft, plan
     fft_base, k12_shapes = base_fft.fft_base, set()
+    rfft_base, k12r_shapes = base_fft.rfft_base, set()
 
     def spy(x, w):
         k12_shapes.add(tuple(x.shape))
         return fft_base(x, w)
 
-    base_fft.fft_base = spy
+    def rspy(x, w, wu):
+        k12r_shapes.add(tuple(x.shape))
+        return rfft_base(x, w, wu)
+
+    base_fft.fft_base, base_fft.rfft_base = spy, rspy
     trace = os.path.join(REPO, 'build', 'chip_smoke_stft_traces.json')
     xprof = os.path.join(REPO, 'build', 'chip_smoke_xprof')
     sigs = {'1 x 2^20': gen.standard_normal(2**20).astype(np.float32),
             '16 x 2^18': gen.standard_normal((16, 2**18)).astype(np.float32)}
     tens = {what: dsc.from_numpy(v) for what, v in sigs.items()}
     # torch.profiler now and then drops a device event (device_profile);
-    # a trace that lacks K12's is taken again from the same two calls,
+    # a trace that lacks K12r's is taken again from the same two calls,
     # uncounted, at most twice
     for attempt in range(3):
         with dsc.profile(trace, serve=False, xprof_dir=xprof):
@@ -1287,14 +1329,14 @@ def fusion_phase(dsc, card: str, compare, timed) -> dict:
         with open(trace) as f:
             events = json.load(f)['traceEvents']
         n_stft = sum(ev.get('name') == 'stft' and ev.get('ph') == 'B' for ev in events)
-        k12 = [ev for ev in events if ev.get('pid', 0) >= 1 << 22 and 'base_fft_kernel' in
-               ev.get('name', '')]
+        k12r = [ev for ev in events if ev.get('pid', 0) >= 1 << 22 and 'base_rfft_kernel' in
+                ev.get('name', '')]
         print(f'  STFT trace ({trace}): {len(events)} events, {n_stft} stft op events, '
-              f'{len(k12)} K12 device events')
-        if len(k12) >= 2:
+              f'{len(k12r)} K12r device events')
+        if len(k12r) >= 2:
             break
-        print('  torch.profiler lost K12 device events of the STFT trace, tracing again')
-    require(n_stft == 2 and len(k12) >= 2, 'the STFT trace lacks op or K12 device events')
+        print('  torch.profiler lost K12r device events of the STFT trace, tracing again')
+    require(n_stft == 2 and len(k12r) >= 2, 'the STFT trace lacks op or K12r device events')
     for what, sig in sigs.items():
         # the power, exp(log(p + eps)) - eps, held as tests/test_models.py
         # holds the JAX package's (atol = rtol = 1e-3): the log of a bin
@@ -1325,15 +1367,22 @@ def fusion_phase(dsc, card: str, compare, timed) -> dict:
         held(f'OverlapSave 129 taps, fft_n=8192, {what} vs float64 FFT convolution', out,
              conv64(sig, taps_np, 2 * sig.shape[-1]))
         model_rows.append((f'OverlapSave 129 taps fft_n=8192 {what}', lambda ts=ts: ola(ts)))
-    base_fft.fft_base = fft_base
+    base_fft.fft_base, base_fft.rfft_base = fft_base, rfft_base
     require(launches['base_fft'] > 0, 'K12 was not launched by the models')
-    print(f'  K12 at the models\' launch shapes (batch, n): {sorted(k12_shapes)}')
+    require(launches['base_rfft'] > 0, 'K12r was not launched by the models')
+    print(f'  K12 at the models\' launch shapes (batch, n): {sorted(k12_shapes)}; K12r: '
+          f'{sorted(k12r_shapes)}')
     kg = torch.Generator(device='cuda').manual_seed(12)
     for b, n in sorted(k12_shapes):
         w = plan.get_plan(n, 'complex', torch.complex64)[1]
         z = torch.complex(draw(kg, (b, n)), draw(kg, (b, n)))
         compare('base_fft', base_fft.fft_base(z, w), base_fft.fft_base_plain(z, w),
                 f'n={n} batch={b} (R={base_fft.block_rows(n, b)}), a models\' shape')
+    for b, n in sorted(k12r_shapes):
+        w, wu = plan.get_plan(n, 'real', torch.complex64)[1]
+        z = draw(kg, (b, n))
+        compare('base_rfft', base_fft.rfft_base(z, w, wu), base_fft.rfft_base_plain(z, w, wu),
+                f'{b} x {n} (R={base_fft.block_rows(n // 2, b)}), a models\' shape')
     del z
     for what, model_fn in model_rows:
         wall = host_ms(model_fn)
@@ -1345,12 +1394,13 @@ def fusion_phase(dsc, card: str, compare, timed) -> dict:
 
 
 # the device kernels of the port, by a part of their names in torch.profiler
-PORT_KERNEL_NAMES = ('base_fft_kernel', 'stream_column_kernel', 'rfft_phase_b_kernel',
-                     'irfft_phase_a_kernel', 'inv_phase_a_t_kernel', 'reconstruct_kernel',
-                     'map_kernel')
+PORT_KERNEL_NAMES = ('base_fft_kernel', 'base_rfft_kernel', 'stream_column_kernel',
+                     'rfft_phase_b_kernel', 'irfft_phase_a_kernel', 'inv_phase_a_t_kernel',
+                     'reconstruct_kernel', 'map_kernel')
 # phase 7: the launches each model call must make (fourier/config.py). A
-# 1024-sample segment (welch, csd, coherence, stft, istft, ShortTimeFFT) is
-# one K12 launch on the 512-point half-size rows of all segments; cwt at
+# 1024-sample segment (welch, csd, coherence, stft, ShortTimeFFT) is one
+# K12r launch on the rows of all segments, istft's one K12 launch on their
+# 512-point half-size inverse rows; cwt at
 # 2^16 x 64 widths (fft_n = 2^17): the signal row is under the streaming
 # batch rule and rides the plain four-step (512 x 256 base cases, K12
 # twice), the kernel stack's rfft and the irfft of its 64 rows take K6 + K7
@@ -1359,6 +1409,7 @@ PORT_KERNEL_NAMES = ('base_fft_kernel', 'stream_column_kernel', 'rfft_phase_b_ke
 # reconstructs its spectrum with K11 first; savgol_filter's fft_convolve at
 # n = 2^21 is the packed K1 + K2 twice and K3 + K4 once
 K12_ONCE = {'base_fft': 1}
+RFFT_ONCE = {'base_rfft': 1}
 STREAM_ONCE = {'stream_phase_a': 1, 'stream_phase_b': 1}
 STREAM_ROUND_TRIP = {'stream_phase_a': 2, 'stream_phase_b': 2, 'reconstruct': 1}
 
@@ -1370,6 +1421,7 @@ def model_wrappers():
     from dsc_tpu_torch.ops import stream_map as sm
 
     return ((base_fft, 'fft_base', base_fft.fft_base_plain, 'base_fft'),
+            (base_fft, 'rfft_base', base_fft.rfft_base_plain, 'base_rfft'),
             (stream, 'phase_a', stream.phase_a_plain, 'stream_phase_a'),
             (stream, 'phase_b', stream.phase_b_plain, 'stream_phase_b'),
             (reconstruct, 'reconstruct_spectrum', reconstruct.reconstruct_plain, 'reconstruct'),
@@ -1442,31 +1494,30 @@ def cwt64(x: np.ndarray, widths) -> np.ndarray:
 
 
 def model_shapes() -> dict:
-    """The launch shapes the model tier gives K12 and K6/K7 at phase 7's
-    sizes: (batch, n) of K12 for welch 1 x 2^22 and 16 x 2^18 (nperseg
-    1024, hop 512) and ShortTimeFFT(hann 1024, hop 256) of 2^20; of K6/K7
-    for cwt's 64 kernel rows at fft_n = 2^17."""
-    import scipy.signal as sps
-
-    from dsc_tpu_torch.models import ShortTimeFFT
-
-    sft = ShortTimeFFT(sps.get_window('hann', 1024), 256, 1.0)
-    return {'base_fft': [(1 + (2**22 - 1024) // 512, 512), (16 * (1 + (2**18 - 1024) // 512), 512),
-                         (sft.p_num(2**20), 512)],
-            'stream': [(64, 2**17)]}
+    """The launch shapes the model tier gives K12r and K6/K7 at phases 6 and
+    7's sizes: (batch, nh) of K12r (RFFT_SHAPES); (batch, n) of K6/K7 for
+    cwt's 64 kernel rows at fft_n = 2^17."""
+    return {'base_rfft': list(RFFT_SHAPES), 'stream': [(64, 2**17)]}
 
 
 def model_shape_checks(compare, normal, cnormal) -> None:
-    """K12 and K6/K7 against their plain versions at the model tier's launch
-    shapes (model_shapes)."""
+    """K12r and K6/K7 against their plain versions at the model tier's
+    launch shapes (model_shapes); K12r also against np.fft.rfft in float64
+    at the spectrogram cell's shape."""
     from dsc_tpu_torch.fourier import base_fft, plan, stream
 
     shapes = model_shapes()
-    w = plan.get_plan(512, 'complex', torch.complex64)[1]
-    for b, n in shapes['base_fft']:
-        x = cnormal((b, n))
-        compare('base_fft', base_fft.fft_base(x, w), base_fft.fft_base_plain(x, w),
-                f'n={n} batch={b} (R={base_fft.block_rows(n, b)}), a model shape')
+    for b, nh in shapes['base_rfft']:
+        w, wu = plan.get_plan(2 * nh, 'real', torch.complex64)[1]
+        x = normal((b, 2 * nh))
+        got = base_fft.rfft_base(x, w, wu)
+        what = f'{b} x {2 * nh} (R={base_fft.block_rows(nh, b)}), a model shape'
+        compare('base_rfft', got, base_fft.rfft_base_plain(x, w, wu), what)
+        if (b, nh) == RFFT_SHAPES[0]:
+            ref = np.fft.rfft(x.cpu().numpy().astype(np.float64), axis=-1)
+            e = float(np.abs(got.cpu().numpy() - ref).max() / np.abs(ref).max())
+            print(f'  K12r {what} vs np.fft float64: {e:.3e}')
+            require(e <= NUMPY_BOUND, f'K12r {what} vs np.fft: {e}')
     for b, n in shapes['stream']:
         t = plan.get_plan(n, 'stream', torch.complex64)[1]
         shape = f'{b} x 2^{n.bit_length() - 1}, a model shape'
@@ -1496,7 +1547,6 @@ def models_phase(dsc, card: str, compare) -> dict:
     import scipy.signal as sps
 
     from dsc_tpu_torch import models as M
-    from dsc_tpu_torch.fourier import core, plan
     from dsc_tpu_torch.kernels import build
 
     print('phase 7: the model tier: welch, cwt, ShortTimeFFT at full size; csd, coherence, '
@@ -1540,13 +1590,13 @@ def models_phase(dsc, card: str, compare) -> dict:
         x22 = gen.standard_normal(2**22).astype(np.float32)
         t22 = dsc.from_numpy(x22)
         run('welch 1 x 2^22 (nperseg 1024) vs scipy.signal.welch float64',
-            lambda: M.welch(t22, nperseg=1024)[1], K12_ONCE,
+            lambda: M.welch(t22, nperseg=1024)[1], RFFT_ONCE,
             sps.welch(x22.astype(np.float64), nperseg=1024)[1], 2e-4)
         timed_rows.append(('welch 1 x 2^22', lambda: M.welch(t22, nperseg=1024)[1]))
         x16 = gen.standard_normal((16, 2**18)).astype(np.float32)
         t16 = dsc.from_numpy(x16)
         run('welch 16 x 2^18 (nperseg 1024) vs scipy.signal.welch float64',
-            lambda: M.welch(t16, nperseg=1024)[1], K12_ONCE,
+            lambda: M.welch(t16, nperseg=1024)[1], RFFT_ONCE,
             sps.welch(x16.astype(np.float64), nperseg=1024, axis=-1)[1], 2e-4)
         timed_rows.append(('welch 16 x 2^18', lambda: M.welch(t16, nperseg=1024)[1]))
         xc = gen.standard_normal(2**16).astype(np.float32)
@@ -1562,7 +1612,7 @@ def models_phase(dsc, card: str, compare) -> dict:
         w_hann = sps.get_window('hann', 1024)
         sft = M.ShortTimeFFT(w_hann, 256, 1.0)
         run('ShortTimeFFT(hann 1024, hop 256).stft 2^20 vs scipy.signal.ShortTimeFFT float64',
-            lambda: sft.stft(ts), K12_ONCE,
+            lambda: sft.stft(ts), RFFT_ONCE,
             sps.ShortTimeFFT(w_hann, hop=256, fs=1.0).stft(xs.astype(np.float64)), 2e-4,
             'max1')
         timed_rows.append(('ShortTimeFFT 2^20', lambda: sft.stft(ts)))
@@ -1572,16 +1622,16 @@ def models_phase(dsc, card: str, compare) -> dict:
         ta, tb = dsc.from_numpy(xa), dsc.from_numpy(xb)
         a64, b64 = xa.astype(np.float64), xb.astype(np.float64)
         run('csd 2 x 2^20 (nperseg 1024) vs scipy.signal.csd float64',
-            lambda: M.csd(ta, tb, nperseg=1024)[1], K12_ONCE,
+            lambda: M.csd(ta, tb, nperseg=1024)[1], RFFT_ONCE,
             sps.csd(a64, b64, nperseg=1024, axis=-1)[1], 2e-4)
         run('coherence 2 x 2^20 (nperseg 1024) vs scipy.signal.coherence float64',
-            lambda: M.coherence(ta, tb, nperseg=1024)[1], K12_ONCE,
+            lambda: M.coherence(ta, tb, nperseg=1024)[1], RFFT_ONCE,
             sps.coherence(a64, b64, nperseg=1024, axis=-1)[1], 5e-4, 'abs')
         run('periodogram 2^22 vs scipy.signal.periodogram float64',
             lambda: M.periodogram(t22)[1], STREAM_ONCE,
             sps.periodogram(x22.astype(np.float64))[1], 2e-4)
         zxx = run('stft 2^20 (nperseg 1024) vs scipy.signal.stft float64',
-                  lambda: M.stft(ts, nperseg=1024)[2], K12_ONCE,
+                  lambda: M.stft(ts, nperseg=1024)[2], RFFT_ONCE,
                   sps.stft(xs.astype(np.float64), nperseg=1024)[2], 1e-5)
         run('istft(stft(x)) 2^20 (nperseg 1024) vs x',
             lambda: M.istft(zxx, nperseg=1024)[1][:2**20], K12_ONCE,
@@ -1615,14 +1665,9 @@ def models_phase(dsc, card: str, compare) -> dict:
             lambda: M.savgol_filter(ts, 31, 3),
             {'rfft_phase_a': 2, 'rfft_phase_b': 2, 'irfft_phase_a': 1, 'irfft_phase_b': 1},
             sps.savgol_filter(xs.astype(np.float64), 31, 3), 1e-4)
-    for name in ('base_fft', 'stream_phase_a', 'stream_phase_b', 'reconstruct'):
+    for name in ('base_fft', 'base_rfft', 'stream_phase_a', 'stream_phase_b', 'reconstruct'):
         require(launches[name] > 0, f'kernel {name} was not launched by the model tier')
-    # the full-size rows: host clock, and device time by kernel over 10 calls;
-    # the share of the plain untangle of each K12 row (R9), timed alone at
-    # the K12 output's shape
-    k12_of = dict(zip(('welch 1 x 2^22', 'welch 16 x 2^18', 'ShortTimeFFT 2^20'),
-                      model_shapes()['base_fft']))
-    wu = plan.get_plan(1024, 'real', torch.complex64)[1][1]
+    # the full-size rows: host clock, and device time by kernel over 10 calls
     for what, fn in timed_rows:
         wall = host_ms(fn)
         rows, _ = device_profile(fn, what, steps=10)
@@ -1631,16 +1676,6 @@ def models_phase(dsc, card: str, compare) -> dict:
         line = (f'  {what}: {wall:.4f} ms a call, device {busy:.4f} ms, busy share '
                 f'{busy / wall:.3f}; the port\'s kernels {ours:.4f} ms, plain torch '
                 f'{busy - ours:.4f} ms')
-        if what in k12_of:
-            b = k12_of[what]
-            z = torch.complex(torch.randn(b, device='cuda'), torch.randn(b, device='cuda'))
-            # its device time (torch.profiler): back to back, its short
-            # kernels would time the host's launches
-            u_ms = sum(r[0] for r in device_profile(lambda: core.untangle(z, wu),
-                                                    'untangle', steps=10)[0])
-            line += (f'; the plain untangle alone at {b[0]} x {b[1]}: ' + (
-                f'device {u_ms:.4f} ms, {u_ms / busy:.2f} of the device time (R9)' if u_ms
-                else 'not measured (torch.profiler recorded no device time)'))
         print(line + f' [{card}]')
     print(f'  launches on the models path: {launches}')
     return launches
@@ -1653,8 +1688,10 @@ def core_launches(steps) -> dict:
     float32/complex64 rows. Streamed rows take K6 + K7 (a single c2r row
     K11 first, where the kernel takes its size); the plain core launches
     K12 once for each complex64 base case of its plan (the half-size plan
-    of a real transform up to plan.RFFT_PACK_MAX)."""
-    from dsc_tpu_torch.fourier import config, plan, reconstruct
+    of a real transform up to plan.RFFT_PACK_MAX), where an rfft's rows
+    do not ride K12r, which folds that base case and the untangle into one
+    launch."""
+    from dsc_tpu_torch.fourier import config, core, plan, reconstruct
 
     def k12(spec):
         if spec[0] == 'base':
@@ -1672,7 +1709,12 @@ def core_launches(steps) -> dict:
             want['stream_phase_b'] += 1
         else:
             half = real and n <= plan.RFFT_PACK_MAX
-            want['base_fft'] += k12(plan.build_spec(max(n // 2, 1) if half else n))
+            spec = plan.build_spec(max(n // 2, 1) if half else n)
+            if kind == 'r2c' and n > 1 and core.rides_base_rfft(
+                    torch.float32, torch.device('cuda'), spec, half or None):
+                want['base_rfft'] += 1
+            else:
+                want['base_fft'] += k12(spec)
     return {name: count for name, count in want.items() if count}
 
 
@@ -2507,7 +2549,7 @@ def signals_phase(dsc, card: str, compare) -> dict:
                     'compiled chain: kernels launched from the host between the graph\'s')
         print(line + f' [{card}]')
     timed_s = time.perf_counter() - t_timed
-    require(launches['base_fft'] > 0, 'the chain launched no K12')
+    require(launches['base_rfft'] > 0, 'the chain launched no K12r')
     print(f'  phase 11: {time.perf_counter() - t_phase:.1f} s: scipy references {refs_s:.1f} s '
           f'(8 threads), the port\'s checked calls and checks {checked_s:.1f} s (the calls '
           f'{sum(ms for ms, _ in first.values()) / 1e3:.1f} s), timing and profiles '
@@ -2863,7 +2905,8 @@ def plain_versions():
 
     return ((stream, 'phase_a_local_plain'), (stream, 'phase_b_local_plain'),
             (stream, 'phase_a_plain'), (stream, 'phase_b_plain'),
-            (base_fft, 'fft_base_plain'), (reconstruct, 'reconstruct_plain'),
+            (base_fft, 'fft_base_plain'), (base_fft, 'rfft_base_plain'),
+            (reconstruct, 'reconstruct_plain'),
             (pf, 'rfft_phase_a_plain'), (pf, 'rfft_phase_b_plain'),
             (pf, 'irfft_phase_a_plain'), (pf, 'irfft_phase_b_plain'),
             (sm, 'stream_map_plain'))
@@ -3855,7 +3898,7 @@ def main() -> int:
     del x, z, s, y, back
     torch.cuda.synchronize()
 
-    # K12 at welch's and ShortTimeFFT's launch shapes, K6/K7 at cwt's rows
+    # K12r at its launch shapes, K6/K7 at cwt's rows
     model_shape_checks(compare, normal, cnormal)
 
     # -- 4a. the public filterFFT path at full size ------------------------
@@ -3891,7 +3934,7 @@ def main() -> int:
     ref = np.fft.rfft(small_np.astype(np.float64))
     e = float(np.abs(s_spec.numpy() - ref).max() / np.abs(ref).max())
     e2 = float(np.abs(dsc.irfft(s_spec).numpy() - small_np).max())
-    print(f'  rfft/irfft n=4096 (K12 base cases): {e:.3e}, round trip {e2:.3e}')
+    print(f'  rfft/irfft n=4096 (K12r, K12): {e:.3e}, round trip {e2:.3e}')
     require(e <= NUMPY_BOUND and e2 <= 1e-5, 'n=4096 pair')
     torch.cuda.synchronize()
     fft_launches = dict(build.launches)
@@ -4187,6 +4230,7 @@ def main() -> int:
         timed('base_fft', f'n={n} batch={batch}', lambda: base_fft.fft_base(x, w),
               lambda: base_fft.fft_base_plain(x, w), lambda: torch.fft.fft(x),
               2 * nbytes(x) + nbytes(w), fft_ops(n * batch, n))
+    rfft_times(timed, normal)
     for body in sm.REAL_BODIES:
         xs = map_operands(body, MAP_N)
         timed('stream_map', f'{body} 2^26 f32', lambda: sm.stream_map(body, *xs),
@@ -4362,7 +4406,8 @@ def main() -> int:
         by_path[name]['mesh'] = mesh_launches[name]
 
     # the main path's shape of each kernel: the filterFFT at n = 2^21 for the
-    # packed passes, the n = 4096 pair's 2048 x 1 for K12, bench's fma for K5,
+    # packed passes, the n = 4096 pair's 2048 x 1 for K12, the spectrogram
+    # cell's 54,912 x 1024 for K12r, bench's fma for K5,
     # the suite's 16 x 2^20 for K6/K7 (where they lose most to torch.fft),
     # the 2^19 irfft for K11, the 2^24 single fft -> ifft for K8, K9, K10,
     # the clip chain of phase 6 for K5g, one shard's block of the 4-way

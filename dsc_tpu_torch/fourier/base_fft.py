@@ -6,6 +6,11 @@ rows, the leaf of the four-step plan (core.fft_apply). The TPU kernel runs
 each row as two DFT-matrix products on the MXU; the Hopper kernel
 (csrc/base_fft.cu) runs each row through the register-resident radix-16
 row pass of csrc/fft_rows_reg.cuh, R rows a block.
+
+K12r (``rfft_base``, csrc/base_fft.cu base_rfft_kernel) is the batched real
+FFT of float32 rows whose half-size transform is a K12 base case: K12's row
+pass on the packed rows with the untangle (core.untangle) folded into its
+store, so the half-size spectrum never reaches device memory.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ import torch
 
 from ..kernels import build
 from .config import BASE_KERNEL_MAX_N, BASE_KERNEL_MIN_N
-from .core import stockham_fft
+from .core import stockham_fft, untangle
 
 # K12 takes R rows of n points a block; the launcher derives the rest
 # (R*n/16 threads, at most 1024, and R padded rows of shared memory) from R.
@@ -65,4 +70,41 @@ def _launch(x: torch.Tensor, w: torch.Tensor, rows: int) -> torch.Tensor:
     y = torch.empty_like(x)
     if b:  # a grid of no blocks is refused at launch
         build.launch('base_fft', x.data_ptr(), y.data_ptr(), b, n, w.data_ptr(), rows)
+    return y
+
+
+def rfft_base_plain(x: torch.Tensor, w: torch.Tensor, wu: torch.Tensor) -> torch.Tensor:
+    """Plain version of K12r: the real spectrum (B, n/2 + 1) of each row of
+    ``x`` (B, n), from the half-size transform of the packed rows z[t] =
+    x[2t] + i*x[2t+1] (K12's plain version, with the n/2-point stage table
+    ``w``) and the untangle with ``wu`` (n/2 + 1 entries W_n^k)."""
+    b, n = x.shape
+    z = torch.view_as_complex(x.contiguous().reshape(b, n // 2, 2))
+    return untangle(fft_base_plain(z, w), wu)
+
+
+def rfft_base(x: torch.Tensor, w: torch.Tensor, wu: torch.Tensor) -> torch.Tensor:
+    """K12r on a CUDA tensor, its plain version on a CPU tensor."""
+    b, n = x.shape
+    if x.device.type == 'cpu':
+        return rfft_base_plain(x, w, wu)
+    nh = n // 2
+    if n != 2 * nh or nh & (nh - 1) or not BASE_KERNEL_MIN_N <= nh <= BASE_KERNEL_MAX_N:
+        raise RuntimeError(f'base_rfft: n={n} is not twice a power of two in '
+                           f'[{BASE_KERNEL_MIN_N}, {BASE_KERNEL_MAX_N}]')
+    return _launch_rfft(x, w, wu, block_rows(nh, b))
+
+
+def _launch_rfft(x: torch.Tensor, w: torch.Tensor, wu: torch.Tensor,
+                 rows: int) -> torch.Tensor:
+    """K12r with ``rows`` rows a block."""
+    b, n = x.shape
+    nh = n // 2
+    build.check(x, torch.float32, (b, n), 'x', align=8)  # read as float2
+    build.check(w, torch.complex64, (nh // 2,), 'w')
+    build.check(wu, torch.complex64, (nh + 1,), 'wu')
+    y = torch.empty((b, nh + 1), dtype=torch.complex64, device=x.device)
+    if b:  # a grid of no blocks is refused at launch
+        build.launch('base_rfft', x.data_ptr(), y.data_ptr(), b, nh, w.data_ptr(),
+                     wu.data_ptr(), rows)
     return y

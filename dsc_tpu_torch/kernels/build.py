@@ -64,6 +64,8 @@ _L = ctypes.c_longlong
 KERNELS = {
     # x, y, batch, n, w, rows a block
     'base_fft': ('dsc_base_fft', (_P, _P, _I, _I, _P, _I)),
+    # x, y, batch, nh, w, untangle table, rows a block
+    'base_rfft': ('dsc_base_rfft', (_P, _P, _I, _I, _P, _P, _I)),
     # x, at, floats of x, n1, m2, w_n1, twiddle lo, hi, bits, columns a block
     'rfft_phase_a': ('dsc_rfft_phase_a', (_P, _P, _L, _I, _I, _P, _P, _P, _I, _I)),
     # at, spec, n1, m2, w_m2, untangle lo, hi, bits, row pairs a block
@@ -249,16 +251,16 @@ def launch_generated(lib: ctypes.CDLL, inputs: Sequence[torch.Tensor], rows: Seq
         launches['stream_map_gen'] += 1
 
 
-def check(t: torch.Tensor, dtype: torch.dtype, shape, name: str) -> None:
+def check(t: torch.Tensor, dtype: torch.dtype, shape, name: str, align: int = 16) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype``/``shape``
-    whose data is 16-byte aligned."""
+    whose data is ``align``-byte aligned."""
     if not t.is_cuda:
         raise RuntimeError(f'{name}: expected a CUDA tensor, got {t.device}')
     if t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise RuntimeError(f'{name}: expected {dtype} {tuple(shape)}, '
                            f'got {t.dtype} {tuple(t.shape)}')
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise RuntimeError(f'{name}: expected contiguous, 16-byte aligned data')
+    if not t.is_contiguous() or t.data_ptr() % align:
+        raise RuntimeError(f'{name}: expected contiguous, {align}-byte aligned data')
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:

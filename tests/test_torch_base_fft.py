@@ -76,3 +76,117 @@ def test_block_rows(n, batch):
 def test_block_rows_refuses_lengths_off_the_kernel(n):
     with pytest.raises(ValueError, match='base_fft'):
         base_fft.block_rows(n, 1000)
+
+
+# -- K12r: the batched real FFT with the untangle in K12's store ----------
+
+def _real_plan(n, cdtype):
+    spec, (w, wu) = plan.get_plan(n, 'real', cdtype, 'cpu')
+    return spec, w, wu
+
+
+def _np_rows(batch, n, seed, dtype):
+    return np.random.default_rng(seed).standard_normal((batch, n)).astype(dtype)
+
+
+@pytest.mark.parametrize('batch', [1, 7, 64])
+@pytest.mark.parametrize('nh', [256, 512, 1024, 2048, 4096])
+def test_rfft_plain_matches_jax_and_numpy_in_float64(nh, batch):
+    """K12r's plain version in float64 against the JAX package's
+    ``rfft_batched`` on the same rows and against np.fft.rfft; the wrapper
+    runs it for a CPU tensor."""
+    from dsc_tpu.fourier import core as jcore
+    from dsc_tpu.fourier import plan as jplan
+
+    n = 2 * nh
+    x = _np_rows(batch, n, nh + batch, np.float64)
+    spec, w, wu = _real_plan(n, torch.complex128)
+    assert spec == ('base', nh)
+    got = base_fft.rfft_base_plain(torch.from_numpy(x), w, wu)
+    assert got.dtype == torch.complex128 and got.shape == (batch, nh + 1)
+    jspec, jtables = jplan.get_plan(n, 'real', np.complex128)
+    ref = np.asarray(jax.jit(lambda a: jcore.rfft_batched(a, jspec, jtables, n))(x))
+    want = np.fft.rfft(x, axis=-1)
+    scale = np.abs(want).max()
+    assert np.abs(got.numpy() - ref).max() / scale < 1e-13
+    assert np.abs(got.numpy() - want).max() / scale < 1e-13
+    np.testing.assert_array_equal(base_fft.rfft_base(torch.from_numpy(x), w, wu).numpy(),
+                                  got.numpy())
+
+
+@pytest.mark.parametrize('batch,nh', [(0, 512), (1, 256), (1001, 4096), (54912, 256)])
+def test_rfft_plain_float32_batches(batch, nh):
+    """K12r's plain version in float32 on an empty batch, one row, a ragged
+    count and the spectrogram cell's 54,912 frames, against np.fft.rfft in
+    float64."""
+    n = 2 * nh
+    x = _np_rows(batch, n, batch + nh, np.float32)
+    _, w, wu = _real_plan(n, torch.complex64)
+    got = base_fft.rfft_base(torch.from_numpy(x), w, wu).numpy()
+    assert got.dtype == np.complex64 and got.shape == (batch, nh + 1)
+    if batch:
+        want = np.fft.rfft(x.astype(np.float64), axis=-1)
+        assert np.abs(got - want).max() / np.abs(want).max() < 2e-6
+
+
+@pytest.mark.parametrize('dtype,device,n,takes', [
+    (torch.float32, 'cuda', 512, True),
+    (torch.float32, 'cuda', 1024, True),
+    (torch.float32, 'cuda', 2048, True),
+    (torch.float32, 'cuda', 4096, True),
+    (torch.float32, 'cuda', 8192, True),
+    (torch.float32, 'cuda', 256, False),       # a half of 128 points: Stockham
+    (torch.float32, 'cuda', 16384, False),     # a half of 8192: the four-step
+    (torch.float32, 'cuda', 2**17, False),     # no packed half-size plan
+    (torch.float64, 'cuda', 1024, False),
+    (torch.float32, 'cpu', 1024, False),
+    (torch.float64, 'cpu', 1024, False),
+    (torch.float32, 'meta', 1024, False),
+])
+def test_which_rows_ride_k12r(dtype, device, n, takes):
+    """The route of a batched rfft's rows that do not stream: CUDA float32
+    rows of 512..8192 points take K12r; every other row keeps K12 (or
+    Stockham) and the plain untangle."""
+    from dsc_tpu_torch.fourier import core
+
+    cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+    spec, (_, wu) = plan.get_plan(n, 'real', cdt, 'cpu')
+    assert core.rides_base_rfft(dtype, torch.device(device), spec, wu) is takes
+
+
+def test_rfft_batched_sends_riding_rows_to_k12r(monkeypatch):
+    """rfft_batched hands rows that ride K12r to ``rfft_base`` with the
+    plan's tables, and keeps its own half-size transform and untangle for
+    the rest: on a CPU tensor both give the same numbers."""
+    from dsc_tpu_torch import tracing
+    from dsc_tpu_torch.fourier import core
+
+    n = 1024
+    spec, tables = plan.get_plan(n, 'real', torch.complex64, 'cpu')
+    x = torch.from_numpy(_np_rows(5, n, 3, np.float32))
+    calls = []
+    rfft_base = base_fft.rfft_base
+    monkeypatch.setattr(base_fft, 'rfft_base',
+                        lambda a, w, wu: calls.append((a.shape, w, wu)) or rfft_base(a, w, wu))
+    tracing.clear_traces()
+    tracing.set_recording(True)
+    try:
+        plain = core.rfft_batched(x, spec, tables, n)
+        assert calls == [] and tracing.totals()[('plain', 'untangle')]['count'] == 1
+        monkeypatch.setattr(core, 'rides_base_rfft', lambda *a: True)
+        got = core.rfft_batched(x, spec, tables, n)
+    finally:
+        tracing.set_recording(False)
+        tracing.clear_traces()
+    assert len(calls) == 1 and calls[0][0] == (5, n)
+    assert calls[0][1] is tables[0] and calls[0][2] is tables[1]
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())
+
+
+@pytest.mark.parametrize('n,match', [(1024, 'CUDA'), (16384, 'twice a power of two'),
+                                     (1000, 'twice a power of two')])
+def test_rfft_wrapper_refuses_what_the_kernel_does_not_take(n, match):
+    _, w, wu = _real_plan(1024, torch.complex64)
+    x = torch.empty((2, n), dtype=torch.float32, device='meta')
+    with pytest.raises(RuntimeError, match=match):
+        base_fft.rfft_base(x, w, wu)

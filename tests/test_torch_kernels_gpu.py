@@ -71,6 +71,102 @@ def test_base_fft_kernel_fft2_axis():
     assert _rel(base_fft.fft_base(x, w), base_fft.fft_base_plain(x, w)) < REL
 
 
+# K12r's launch shapes (batch, nh): OverlapSave at fft_n = 8192 (521 and 1048
+# rows of nh = 4096), the STFT of 4 x 2^18, 1 x 2^20 and 16 x 2^18 (512 x
+# 4084, 4093, 16336), welch 1 x 2^22 and 16 x 2^18, ShortTimeFFT of 2^20 and
+# the scipy-style stft of 2^20 (512 x 8191, 8176, 4099, 2049), and the
+# spectrogram benchmark cell's 54,912 frames
+RFFT_SHAPES = [(521, 4096), (1048, 4096), (4084, 512), (4093, 512), (16336, 512), (8191, 512),
+               (8176, 512), (4099, 512), (2049, 512), (54912, 512)]
+
+
+def _real_rows(shape, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
+
+
+@pytest.mark.parametrize('batch,nh', RFFT_SHAPES + [(1, 256), (3, 1024), (130, 2048)])
+def test_base_rfft_kernel(batch, nh):
+    """K12r against its plain version and np.fft.rfft in float64: one launch
+    of K12r and none of K12."""
+    x = _real_rows((batch, 2 * nh), batch + nh)
+    w, wu = plan.get_plan(2 * nh, 'real', torch.complex64)[1]
+    before = dict(build.launches)
+    got = base_fft.rfft_base(x, w, wu)
+    assert build.launches['base_rfft'] == before['base_rfft'] + 1
+    assert build.launches['base_fft'] == before['base_fft']
+    assert got.shape == (batch, nh + 1) and got.dtype == torch.complex64
+    assert _rel(got, base_fft.rfft_base_plain(x, w, wu)) < REL
+    ref = np.fft.rfft(x.cpu().numpy().astype(np.float64), axis=-1)
+    assert np.abs(got.cpu().numpy() - ref).max() / np.abs(ref).max() < 1e-5
+
+
+@pytest.mark.parametrize('points', [4096, 8192, 16384])
+@pytest.mark.parametrize('nh', [256, 512, 1024, 2048, 4096])
+def test_base_rfft_kernel_block_sizes(nh, points):
+    """K12r with each block size of chip_smoke.py --rfft, on a batch that
+    leaves a ragged last block."""
+    rows = points // nh
+    x = _real_rows((3 * rows + 1, 2 * nh), nh + points)
+    w, wu = plan.get_plan(2 * nh, 'real', torch.complex64)[1]
+    assert _rel(base_fft._launch_rfft(x, w, wu, rows), base_fft.rfft_base_plain(x, w, wu)) < REL
+
+
+def test_base_rfft_empty_batch_and_misaligned_rows():
+    w, wu = plan.get_plan(1024, 'real', torch.complex64)[1]
+    before = build.launches['base_rfft']
+    got = base_fft.rfft_base(torch.empty((0, 1024), device='cuda'), w, wu)
+    assert got.shape == (0, 513) and got.is_cuda
+    assert build.launches['base_rfft'] == before
+    x = torch.empty(2 * 1024 + 1, device='cuda')[1:].view(2, 1024)  # 4 bytes off
+    with pytest.raises(RuntimeError, match='8-byte aligned'):
+        base_fft.rfft_base(x, w, wu)
+
+
+@pytest.mark.parametrize('shape,kernels', [((64, 1024), {'base_rfft': 1}),
+                                           ((3, 8192), {'base_rfft': 1}),
+                                           ((5, 256), {}),
+                                           ((4, 16384), {})])
+def test_public_rfft_rows_ride_k12r(shape, kernels):
+    """The public rfft over rows: 512..8192 points take K12r alone; 256
+    points keep Stockham and the plain untangle, and so do 16384, whose
+    half-size four-step splits into 128 x 64 Stockham base cases; each
+    within 1e-5 of np.fft in float64."""
+    x = np.random.default_rng(shape[-1]).standard_normal(shape).astype(np.float32)
+    build.reset_launches()
+    got = dt.rfft(dt.from_numpy(x))
+    torch.cuda.synchronize()
+    assert {k: c for k, c in build.launches.items() if c} == kernels
+    ref = np.fft.rfft(x.astype(np.float64), axis=-1)
+    assert np.abs(got.numpy() - ref).max() / np.abs(ref).max() < 1e-5
+
+
+def test_stft_spans_on_the_card():
+    """On the card the STFT's span tree is api/stft over plain/window,
+    wrapper/base_rfft, plain/power and plain/log: no untangle."""
+    from dsc_tpu_torch import tracing
+
+    stft = dt.models.STFT(frame=1024, hop=256, window='hann', mode='log')
+    x = dt.from_numpy(np.random.default_rng(4).standard_normal((2, 8192)).astype(np.float32))
+    stft(x)  # its plan built and the kernels loaded
+    tracing.clear_traces()
+    tracing.set_recording(True)
+    try:
+        stft(x)
+    finally:
+        tracing.set_recording(False)
+    tree, depth = [], 0
+    for e in tracing._events:
+        if e['ph'] == 'B':
+            tree.append((tracing.layer_of(e['cat']), e['name'], depth))
+            depth += 1
+        elif e['ph'] == 'E':
+            depth -= 1
+    tracing.clear_traces()
+    assert tree == [('api', 'stft', 0), ('plain', 'window', 1), ('wrapper', 'base_rfft', 1),
+                    ('plain', 'power', 1), ('plain', 'log', 1)]
+
+
 def test_base_fft_empty_batch_launches_nothing():
     w = plan.get_plan(512, 'complex', torch.complex64)[1]
     before = build.launches['base_fft']
@@ -232,7 +328,7 @@ def test_public_path_launches_every_kernel():
     spec = dt.rfft(dt.from_numpy(sig), n=2**21) * dt.rfft(dt.from_numpy(taps), n=2**21)
     y = dt.irfft(spec)[: 2**20 + 254].numpy()
     small = dt.irfft(dt.rfft(dt.from_numpy(sig[:4096]))).numpy()
-    fft_kernels = ('base_fft', 'rfft_phase_a', 'rfft_phase_b', 'irfft_phase_a',
+    fft_kernels = ('base_fft', 'base_rfft', 'rfft_phase_a', 'rfft_phase_b', 'irfft_phase_a',
                    'irfft_phase_b')
     assert all(build.launches[k] > 0 for k in fft_kernels), build.launches
     assert build.launches['stream_map'] == 0  # the 2^20+1 spectra multiply in plain torch
@@ -719,19 +815,20 @@ def _model_cases():
 
     # (what, fn of nothing returning a Tensor, kernels it must launch)
     return {
-        'welch': (lambda: M.welch(T(x20), nperseg=1024)[1], {'base_fft'}),
+        'welch': (lambda: M.welch(T(x20), nperseg=1024)[1], {'base_rfft'}),
         'welch median': (lambda: M.welch(T(x18), nperseg=1024, average='median')[1],
-                         {'base_fft'}),
-        'csd': (lambda: M.csd(T(x18), T(y18), nperseg=1024)[1], {'base_fft'}),
-        'coherence': (lambda: M.coherence(T(x18), T(y18), nperseg=1024)[1], {'base_fft'}),
-        'psd_spectrogram': (lambda: M.psd_spectrogram(T(x18), nperseg=1024)[2], {'base_fft'}),
+                         {'base_rfft'}),
+        'csd': (lambda: M.csd(T(x18), T(y18), nperseg=1024)[1], {'base_rfft'}),
+        'coherence': (lambda: M.coherence(T(x18), T(y18), nperseg=1024)[1], {'base_rfft'}),
+        'psd_spectrogram': (lambda: M.psd_spectrogram(T(x18), nperseg=1024)[2],
+                            {'base_rfft'}),
         'periodogram': (lambda: M.periodogram(T(x20))[1], {'stream_phase_a'}),
-        'stft': (lambda: M.stft(T(x20), nperseg=1024)[2], {'base_fft'}),
+        'stft': (lambda: M.stft(T(x20), nperseg=1024)[2], {'base_rfft'}),
         'istft': (lambda: M.istft(M.stft(T(x20), nperseg=1024)[2], nperseg=1024)[1],
-                  {'base_fft'}),
-        'ShortTimeFFT': (lambda: M.ShortTimeFFT(hann, 256, 1.0).stft(T(x20)), {'base_fft'}),
+                  {'base_rfft', 'base_fft'}),
+        'ShortTimeFFT': (lambda: M.ShortTimeFFT(hann, 256, 1.0).stft(T(x20)), {'base_rfft'}),
         'ShortTimeFFT istft': (lambda: M.ShortTimeFFT(hann, 256, 1.0).istft(
-            M.ShortTimeFFT(hann, 256, 1.0).stft(T(x20))), {'base_fft'}),
+            M.ShortTimeFFT(hann, 256, 1.0).stft(T(x20))), {'base_rfft', 'base_fft'}),
         'cwt': (lambda: M.cwt(T(x20[:2**16]), M.ricker, np.arange(1, 9)),
                 {'base_fft', 'stream_phase_a', 'stream_phase_b'}),
         'multitaper': (lambda: M.multitaper(T(x18[0]))[1], {'stream_phase_a'}),

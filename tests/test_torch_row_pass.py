@@ -1,7 +1,8 @@
 """The index maps of the register-resident row pass (dsc_tpu_torch/csrc/
-fft_rows_reg.cuh) and of the four kernels built on it, K12 (csrc/base_fft.cu),
-K2 and K3 (csrc/packed_rfft.cu rfft_phase_b_kernel, irfft_phase_a_kernel)
-and K9 (csrc/fourstep_stream_t.cu inv_phase_a_t_kernel), emulated thread by
+fft_rows_reg.cuh) and of the five kernels built on it, K12 (csrc/base_fft.cu),
+K2 and K3 (csrc/packed_rfft.cu rfft_phase_b_kernel, irfft_phase_a_kernel),
+K9 (csrc/fourstep_stream_t.cu inv_phase_a_t_kernel) and K12r (csrc/base_fft.cu
+base_rfft_kernel, K12 with the real FFT's untangle in its store), emulated thread by
 thread in numpy: each block's loads, the Stockham passes (fft_radix.cuh
 pass_store and pad16, the twiddle products of row_radix_pass), the
 shared-memory exchanges and the stores (K3 and K9 with the twiddle products
@@ -185,6 +186,70 @@ def test_k12_index_maps(n, points):
     got = emulate_k12(x, w, rows)
     ref = np.fft.fft(x, axis=1)
     assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-6
+
+
+def emulate_k12r(x, w, wu, rows):
+    """base_rfft_kernel over every block, ``rows`` rows a block: the (B, nh
+    + 1) real spectrum of the float rows ``x`` (B, 2nh), every bin written
+    once, and the runs of neighbouring bins each warp's stores make."""
+    batch, n = x.shape
+    nh = n // 2
+    log2n = nh.bit_length() - 1
+    log2T = log2n - LOG2_RADIX
+    tid = np.arange(rows << log2T)
+    r, t = tid >> log2T, tid & ((1 << log2T) - 1)
+    u = np.arange(RADIX)
+    z = x[:, 0::2] + 1j * x[:, 1::2]   # a float2 load of x
+    y = np.full((batch, nh + 1), np.nan + 0j)
+    written = np.zeros((batch, nh + 1), int)
+    runs = []
+    for b in range(-(-batch // rows)):
+        row = b * rows + r
+        live = row < batch
+        v = np.zeros((len(tid), RADIX), complex)
+        cols = t[:, None] + (u[None, :] << log2T)
+        v[live] = z[row[live][:, None], cols[live]]
+        sh = Shared(rows * padded_row(nh))
+        base = r * padded_row(nh)
+        row_fft(sh, base, v, t, log2n, w)
+        for q in range(RADIX):   # Z[k] at slot k, unpadded
+            sh.store(base + t + (q << log2T), v[:, q])
+        for q in range(RADIX):
+            k = t + (q << log2T)
+            mir = sh.load(base + ((nh - k) & (nh - 1)), live)
+            a, bc = v[:, q], np.conj(mir)
+            val = 0.5 * (a + bc) - 1j * (wu[k] * (0.5 * (a - bc)))
+            y[row[live], k[live]] = val[live]
+            np.add.at(written, (row[live], k[live]), 1)
+            runs += warp_runs(row * (nh + 1) + k, live)
+        last = live & (t == 0)   # thread 0 of a row: X[nh] from Z[nh] = Z[0]
+        a = v[last, 0]
+        y[row[last], nh] = 0.5 * (a + np.conj(a)) - 1j * (wu[nh] * (0.5 * (a - np.conj(a))))
+        written[row[last], nh] += 1
+        sh.check_wavefronts()
+    assert (written == 1).all()
+    return y, runs
+
+
+@pytest.mark.parametrize('points', [4096, 8192, 16384])
+@pytest.mark.parametrize('nh', [256, 512, 1024, 2048, 4096])
+def test_k12r_index_maps(nh, points):
+    """K12r with each block size K12 takes, on a batch that leaves a ragged
+    last block: every bin of every row once, the untangle of each Z[k]
+    against its mirror read from the unpadded row in the least wavefronts,
+    and each warp's stores as neighbouring bins of a row."""
+    rows = points // nh
+    rng = np.random.default_rng(nh + points + 1)
+    batch = 2 * rows + 1
+    x = rng.standard_normal((batch, 2 * nh))
+    spec, (w, wu) = plan.get_plan(2 * nh, 'real', torch.complex64, 'cpu')
+    assert spec == ('base', nh)
+    w, wu = (tab.numpy().astype(complex) for tab in (w, wu))
+    got, runs = emulate_k12r(x, w, wu, rows)
+    ref = np.fft.rfft(x, axis=1)
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-6
+    # a warp stores one run of 32 bins, two of 16 where a row has 16 threads
+    assert all((lengths == min(32, nh // 16)).all() for lengths in runs)
 
 
 def slot_row(b, npairs, P, n1, slot):
