@@ -8,6 +8,7 @@ from .filter_extras import (abcd_normalize, besselap, bilinear_zpk, buttap, cheb
                             lp2hp, lp2hp_zpk, lp2lp, lp2lp_zpk, unique_roots)
 from .filter_fft import (FilterFFT, convolve, convolve2d, correlate, correlate2d, fft_convolve,
                          fft_convolve2, oaconvolve)
+from .griffin_lim import GriffinLim
 from .fir import (firls, firwin, firwin2, firwin_2d, gammatone, kaiser_atten, kaiser_beta,
                   kaiserord, minimum_phase, savgol_coeffs, savgol_filter)
 from .iir import (butter, cheby1, cheby2, decimate, filtfilt, freqz, group_delay, lfilter,
@@ -45,7 +46,7 @@ from .waveforms import (chirp, gausspulse, max_len_seq, sawtooth, square, sweep_
 
 __all__ = ['CZT', 'ZoomFFT', 'czt', 'czt_points', 'zoom_fft', 'FilterFFT', 'convolve',
            'convolve2d', 'correlate', 'correlate2d', 'fft_convolve', 'fft_convolve2',
-           'oaconvolve', 'OverlapSave', 'overlap_save_convolve', 'ISTFT', 'STFT',
+           'oaconvolve', 'GriffinLim', 'OverlapSave', 'overlap_save_convolve', 'ISTFT', 'STFT',
            'spectrogram', 'ShortTimeFFT', 'stft', 'istft', 'check_COLA', 'check_NOLA',
            'stft_dual_window', 'closest_STFT_dual_window', 'welch', 'periodogram', 'csd',
            'coherence', 'psd_spectrogram', 'detrend', 'cwt', 'find_peaks_cwt', 'ricker',

@@ -25,6 +25,9 @@ from ..fourier import plan as fft_plan
 from ..tensor import Tensor
 
 
+_NP_WINDOWS = {'hann': np.hanning, 'hamming': np.hamming, 'blackman': np.blackman}
+
+
 def _make_window(window, frame: int) -> np.ndarray:
     """Window spec -> float32 host array. Accepts a name ('hann',
     'hamming', 'blackman', 'rect'/None: the symmetric np.* convention; any
@@ -33,12 +36,8 @@ def _make_window(window, frame: int) -> np.ndarray:
     dsc.kaiser(frame, beta)), or any array-like of length ``frame``."""
     if isinstance(window, Tensor):
         win = window.numpy()
-    elif window == 'hann':
-        win = np.hanning(frame)
-    elif window == 'hamming':
-        win = np.hamming(frame)
-    elif window == 'blackman':
-        win = np.blackman(frame)
+    elif isinstance(window, str) and window in _NP_WINDOWS:
+        win = _NP_WINDOWS[window](frame)
     elif window is None or (isinstance(window, str) and window == 'rect'):
         win = np.ones(frame)
     elif isinstance(window, str) or (
@@ -121,6 +120,21 @@ def _overlap_add(frames: torch.Tensor, hop: int, off: int, out_n: int) -> torch.
     return y[:, :out_n]
 
 
+def _stft_program(x: torch.Tensor, window: torch.Tensor, tables, frame: int, hop: int,
+                  n_frames: int, spec, fft_n: int) -> torch.Tensor:
+    """(b, n) float -> (b, n_frames, fft_n//2+1) complex: framing, analysis
+    window, the frame zero-padded to fft_n where it is not a power of two,
+    batched rfft."""
+    b = x.shape[0]
+    frames = _frame_dense(x, frame, hop, n_frames)
+    with tracing.trace_op('window', 'plain;pipeline'):
+        fx = (frames * window).reshape(b * n_frames, frame)
+    if frame != fft_n:  # a frame that is not a power of two: zero-padded
+        with tracing.trace_op('pad', 'plain;pipeline'):
+            fx = torch.nn.functional.pad(fx, (0, fft_n - frame))
+    return fft_core.rfft_batched(fx, spec, tables, fft_n).reshape(b, n_frames, -1)
+
+
 def _istft_program(z: torch.Tensor, window: torch.Tensor, inv_wsq: torch.Tensor, tables,
                    frame: int, hop: int, n_frames: int, spec, fft_n: int,
                    out_n: int) -> torch.Tensor:
@@ -168,15 +182,8 @@ class STFT:
         data = x.torch if batched else x.torch[None, :]
         with tracing.trace_op('stft', 'op;pipeline', tracing.tensor_args(x=x)):
             spec, tables = fft_plan.get_plan(fft_n, 'real', torch.complex64)
-            b = data.shape[0]
-            frames = _frame_dense(data, frame, self.hop, n_frames)
             window = _placed(self._windows, self._window, data.device)
-            with tracing.trace_op('window', 'plain;pipeline'):
-                fx = (frames * window).reshape(b * n_frames, frame)
-            if frame != fft_n:  # a frame that is not a power of two: zero-padded
-                with tracing.trace_op('pad', 'plain;pipeline'):
-                    fx = torch.nn.functional.pad(fx, (0, fft_n - frame))
-            z = fft_core.rfft_batched(fx, spec, tables, fft_n).reshape(b, n_frames, -1)
+            z = _stft_program(data, window, tables, frame, self.hop, n_frames, spec, fft_n)
             if self.mode == 'complex':
                 out = z
             else:
