@@ -42,15 +42,18 @@ Phases, each raising on failure (exit code 0 means all passed):
    and 2^26, T and half-T layouts), K12r (the batched rfft with the
    untangle in K12's store) at its launch shapes (RFFT_SHAPES: the
    spectrogram cell's 54,912 x 1024, the model tier's rows), against
-   np.fft in float64 at the first, and K6/K7 at cwt's 64 x 2^17 rows, and
-   the rfft against np.fft in float64;
+   np.fft in float64 at the first, K12ir (the batched irfft with the
+   entangle in K12's load) at its launch shapes (IRFFT_SHAPES: the
+   griffinlim cell's 55,168 x 1024, the model tier's rows), against
+   np.fft.irfft in float64 at the first, and K6/K7 at cwt's 64 x 2^17 rows,
+   and the rfft against np.fft in float64;
 4. the public API at full size, as four paths, each with every launch count
    set to 0 just before it and read just after:
    a. the README quick start (2^20 samples, 255 taps, n = 2^21) and the
       4097-tap shape against np.convolve in float64, a 2^24 rfft -> irfft
       round trip and an n = 4096 rfft/irfft pair (K1-K4, K12); the quick
       start runs once more under dsc.profile; each kernel's launches held
-      to the routing (K1, K2 5, K3, K4 3, K12 1, K12r 1);
+      to the routing (K1, K2 5, K3, K4 3, K12r 1, K12ir 1);
    b. bench.py's fma and sin rows (dsc.add and dsc.sin of 2^26 float32)
       against NumPy in float64, a sweep of add/mul/exp/sum/max over sizes
       and dtypes in which K5 must launch exactly where the routing rule
@@ -83,7 +86,8 @@ Phases, each raising on failure (exit code 0 means all passed):
    clip with tensor bounds, the broadcast-row add and the complex bodies
    at 2^23 + 1; K12 at
    2048 x 1, 4096 x 1000 and 65536 x 256; K12r at RFFT_SHAPES beside
-   torch.fft.rfft; and K8, K9, K10 at 2^24 (T and
+   torch.fft.rfft; K12ir at IRFFT_SHAPES beside torch.fft.irfft; and K8,
+   K9, K10 at 2^24 (T and
    half-T), 2^19 (half-T), 2^26 and 2^18 (T);
 6. the fusion tier and the models that ride it, every call with the counts
    set to 0 before it and read after it:
@@ -135,7 +139,7 @@ Phases, each raising on failure (exit code 0 means all passed):
    spectrum, dct II ortho of (4096, 1000) (Bluestein m = 4096 over 4096
    rows, K12), dctn II ortho of (2048, 2048) and its idctn (K12r, K12), dst IV of
    (64, 2^16) (complex 2^17-point rows, K6 + K7), fht and ifht of
-   (16, 4096) (K12r, K12) and the irfft at n = 2^22 of one half spectrum (K11 +
+   (16, 4096) (K12r, K12ir) and the irfft at n = 2^22 of one half spectrum (K11 +
    K6 + K7); every kernel launch held to its plain version (REL_BOUND);
    then each call's host time (median of 25), its device time by kernel
    against the plain passes and its busy share (torch.profiler over 10
@@ -269,7 +273,7 @@ Phases, each raising on failure (exit code 0 means all passed):
    of every card, three programs cut over 'data': the filterFFT of 16 x
    2^20 (rfft of the rows, K6 + K7; the replicated 4097 Blackman taps'
    rfft at n = 2^20, K1 + K2; the product; the irfft, K6 + K7), STFT ->
-   mask -> ISTFT of 16 x 2^18 (frame 1024, hop 256, K12r, K12) and sosfilt
+   mask -> ISTFT of 16 x 2^18 (frame 1024, hop 256, K12r, K12ir) and sosfilt
    butter(4, 0.25) of 8 x 2^20; each with every kernel launch of one
    shard's eager call held to its plain version, the first call's
    launches held to its two global check runs' (seeded probe arguments,
@@ -297,7 +301,7 @@ them.
 
     python3 chip_smoke.py --profile
 
-runs phases 1-2 and then, in place of the checks, times K12, K12r and the column
+runs phases 1-2 and then, in place of the checks, times K12, K12r, K12ir and the column
 pass of K6, K7, K8, K10, K1 and K4 (2^21, 2^24, 2^26, and K1 on 4097 taps
 at 2^24) with blocks of 4096, 8192 and 16384 points and the C its wrapper
 takes, K2 and K3 with 2-16 row pairs a block, and K9 (T layout) with
@@ -415,6 +419,10 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     # (XLA fuses the JAX package's untangle)
     'base_rfft': ('dsc_tpu_torch/csrc/base_fft.cu',
                   'none: dsc_tpu/fourier/core.py rfft_batched_p, XLA-fused'),
+    # K12ir: K12's inverse with the batched irfft's entangle in its load; no
+    # TPU kernel (XLA fuses the JAX package's entangle)
+    'base_irfft': ('dsc_tpu_torch/csrc/base_fft.cu',
+                   'none: dsc_tpu/fourier/core.py irfft_batched_p, XLA-fused'),
     'stream_map': ('dsc_tpu_torch/csrc/stream_map.cu',
                    'dsc_tpu/ops/pallas_map.py:83'),
     'stream_phase_a': ('dsc_tpu_torch/csrc/fourstep_stream.cu',
@@ -440,10 +448,10 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
 }
 # the launches the filterFFT path must make (fourier/config.py): K1 + K2 for
 # each packed rfft (two per filterFFT, one for the 2^24 round trip), K3 + K4
-# for each packed irfft, K12r for the n = 4096 pair's rfft and K12 for its
-# irfft's half-size transform
+# for each packed irfft, K12r for the n = 4096 pair's rfft and K12ir for its
+# irfft
 FFT_PATH_LAUNCHES = {'rfft_phase_a': 5, 'rfft_phase_b': 5, 'irfft_phase_a': 3,
-                     'irfft_phase_b': 3, 'base_fft': 1, 'base_rfft': 1}
+                     'irfft_phase_b': 3, 'base_rfft': 1, 'base_irfft': 1}
 MAP_PATH = ('stream_map', 'rfft_phase_a', 'rfft_phase_b', 'irfft_phase_a', 'irfft_phase_b')
 # BASELINE config 3's batched rows: (batch, n), 2^24 complex64 values each
 SUITE = ((256, 2**16), (64, 2**18), (16, 2**20), (4, 2**22))
@@ -808,18 +816,25 @@ ROW_CANDIDATES = (4096, 8192, 16384)      # R*n points a block of K12
 # (8191, 8176, 4099, 2049 of 512)
 RFFT_SHAPES = ((54912, 512), (521, 4096), (1048, 4096), (4084, 512), (4093, 512), (16336, 512),
                (8191, 512), (8176, 512), (4099, 512), (2049, 512))
+# K12ir's launch shapes (batch, nh): the griffinlim cell's 55,168 frames
+# (portbench); phase 6's OverlapSave of 1 x 2^22 and 8 x 2^20 (521, 1048 of
+# 4096) and ISTFT of 4 x 2^18 (4084 of 512); phase 7's istft of the
+# scipy-style stft of 2^20 (2049 of 512); phase 4a's n = 4096 irfft (1 of
+# 2048)
+IRFFT_SHAPES = ((55168, 512), (521, 4096), (1048, 4096), (4084, 512), (2049, 512), (1, 2048))
+IRFFT_REL_BOUND = 3e-7  # K12ir at IRFFT_SHAPES[0] against its plain version and np.fft.irfft
 PAIR_CANDIDATES = (2, 4, 8, 16)           # row pairs a block of K2 and K3
 
 
 def row_candidates(card: str) -> None:
     """--profile: K12 with blocks of each size of ROW_CANDIDATES (R = points
     / n rows) at n = 256 ... 4096, over 2^24 values and over 1000 rows, K12r
-    with the same blocks at the first three of RFFT_SHAPES (R = points /
-    nh rows), K2 and K3 with each P of PAIR_CANDIDATES that 1024 threads allow at
+    and K12ir with the same blocks at the first three of RFFT_SHAPES and of
+    IRFFT_SHAPES (R = points / nh rows), K2 and K3 with each P of PAIR_CANDIDATES that 1024 threads allow at
     n = 2^20 ... 2^26, K9 in the T layout with blocks of each size of
     ROW_CANDIDATES and the R its wrapper takes at 2^18 ... 2^26, back to
     back in turns (a, b, c, c, b, a); the tables the wrappers take R and P
-    from are base_fft.ROWS (K12 and K12r), packed_fused.PAIRS and INV_PAIRS
+    from are base_fft.ROWS (K12, K12r and K12ir), packed_fused.PAIRS and INV_PAIRS
     and stream_t.ROWS."""
     from dsc_tpu_torch.fourier import base_fft, packed_fused as pf, plan, stream_t
     from dsc_tpu_torch.fourier.stream import factors
@@ -845,6 +860,14 @@ def row_candidates(card: str) -> None:
                        f'R={base_fft.block_rows(nh, batch)})', {
             f'{p} points (R={p // nh})':
                 lambda r=p // nh, x=x, w=w, wu=wu: base_fft._launch_rfft(x, w, wu, r)
+            for p in ROW_CANDIDATES}))
+    for batch, nh in IRFFT_SHAPES[:3]:
+        w, wu = plan.get_plan(2 * nh, 'real', torch.complex64)[1]
+        x = cnormal((batch, nh + 1))
+        cases.append((f'K12ir {batch} x {2 * nh} (the wrapper takes '
+                       f'R={base_fft.block_rows(nh, batch)})', {
+            f'{p} points (R={p // nh})':
+                lambda r=p // nh, x=x, w=w, wu=wu: base_fft._launch_irfft(x, w, wu, r)
             for p in ROW_CANDIDATES}))
     for e in range(20, 27):
         t = plan.get_plan(2**e, 'packed', torch.complex64)[1]
@@ -892,6 +915,21 @@ def rfft_times(timed, normal) -> None:
         timed('base_rfft', f'{b} x {2 * nh}', lambda: base_fft.rfft_base(x, w, wu),
               lambda: base_fft.rfft_base_plain(x, w, wu), lambda: torch.fft.rfft(x),
               nbytes(x, w, wu) + 8 * b * (nh + 1), fft_ops(b * nh, nh) + 10 * b * nh)
+
+
+def irfft_times(timed, cnormal) -> None:
+    """K12ir at IRFFT_SHAPES beside its plain version and torch.fft.irfft;
+    its bound: the half spectra read once, the float32 rows written once."""
+    from dsc_tpu_torch.fourier import base_fft, plan
+
+    for b, nh in IRFFT_SHAPES:
+        w, wu = plan.get_plan(2 * nh, 'real', torch.complex64)[1]
+        x = cnormal((b, nh + 1))
+        row = timed('base_irfft', f'{b} x {2 * nh}', lambda: base_fft.irfft_base(x, w, wu),
+                    lambda: base_fft.irfft_base_plain(x, w, wu),
+                    lambda: torch.fft.irfft(x, 2 * nh),
+                    nbytes(x, w, wu) + 8 * b * nh, fft_ops(b * nh, nh) + 10 * b * nh)
+        print(f'    K12ir {b} x {2 * nh}: {100 * row["bound_ms"] / row["ms"]:.1f}% of its bound')
 
 
 def wrapper_times(dsc, card: str) -> None:
@@ -1294,11 +1332,13 @@ def fusion_phase(dsc, card: str, compare, timed) -> dict:
         frames = np.lib.stride_tricks.sliding_window_view(sig.astype(np.float64), 1024, axis=-1)
         return np.fft.rfft(frames[..., ::256, :] * win, axis=-1)
 
-    # every K12 and K12r launch of the models' runs below, by (batch, n), to
-    # hold the kernels to their plain versions at those launch shapes after them
+    # every K12, K12r and K12ir launch of the models' runs below, by (batch,
+    # n), to hold the kernels to their plain versions at those launch shapes
+    # after them
     from dsc_tpu_torch.fourier import base_fft, plan
     fft_base, k12_shapes = base_fft.fft_base, set()
     rfft_base, k12r_shapes = base_fft.rfft_base, set()
+    irfft_base, k12ir_shapes = base_fft.irfft_base, set()
 
     def spy(x, w):
         k12_shapes.add(tuple(x.shape))
@@ -1308,7 +1348,11 @@ def fusion_phase(dsc, card: str, compare, timed) -> dict:
         k12r_shapes.add(tuple(x.shape))
         return rfft_base(x, w, wu)
 
-    base_fft.fft_base, base_fft.rfft_base = spy, rspy
+    def irspy(x, w, wu):
+        k12ir_shapes.add(tuple(x.shape))
+        return irfft_base(x, w, wu)
+
+    base_fft.fft_base, base_fft.rfft_base, base_fft.irfft_base = spy, rspy, irspy
     trace = os.path.join(REPO, 'build', 'chip_smoke_stft_traces.json')
     xprof = os.path.join(REPO, 'build', 'chip_smoke_xprof')
     sigs = {'1 x 2^20': gen.standard_normal(2**20).astype(np.float32),
@@ -1367,11 +1411,11 @@ def fusion_phase(dsc, card: str, compare, timed) -> dict:
         held(f'OverlapSave 129 taps, fft_n=8192, {what} vs float64 FFT convolution', out,
              conv64(sig, taps_np, 2 * sig.shape[-1]))
         model_rows.append((f'OverlapSave 129 taps fft_n=8192 {what}', lambda ts=ts: ola(ts)))
-    base_fft.fft_base, base_fft.rfft_base = fft_base, rfft_base
-    require(launches['base_fft'] > 0, 'K12 was not launched by the models')
+    base_fft.fft_base, base_fft.rfft_base, base_fft.irfft_base = fft_base, rfft_base, irfft_base
     require(launches['base_rfft'] > 0, 'K12r was not launched by the models')
+    require(launches['base_irfft'] > 0, 'K12ir was not launched by the models')
     print(f'  K12 at the models\' launch shapes (batch, n): {sorted(k12_shapes)}; K12r: '
-          f'{sorted(k12r_shapes)}')
+          f'{sorted(k12r_shapes)}; K12ir (batch, nh + 1): {sorted(k12ir_shapes)}')
     kg = torch.Generator(device='cuda').manual_seed(12)
     for b, n in sorted(k12_shapes):
         w = plan.get_plan(n, 'complex', torch.complex64)[1]
@@ -1383,6 +1427,12 @@ def fusion_phase(dsc, card: str, compare, timed) -> dict:
         z = draw(kg, (b, n))
         compare('base_rfft', base_fft.rfft_base(z, w, wu), base_fft.rfft_base_plain(z, w, wu),
                 f'{b} x {n} (R={base_fft.block_rows(n // 2, b)}), a models\' shape')
+    for b, m in sorted(k12ir_shapes):
+        w, wu = plan.get_plan(2 * (m - 1), 'real', torch.complex64)[1]
+        z = torch.complex(draw(kg, (b, m)), draw(kg, (b, m)))
+        compare('base_irfft', base_fft.irfft_base(z, w, wu),
+                base_fft.irfft_base_plain(z, w, wu),
+                f'{b} x {m} bins (R={base_fft.block_rows(m - 1, b)}), a models\' shape')
     del z
     for what, model_fn in model_rows:
         wall = host_ms(model_fn)
@@ -1394,13 +1444,14 @@ def fusion_phase(dsc, card: str, compare, timed) -> dict:
 
 
 # the device kernels of the port, by a part of their names in torch.profiler
-PORT_KERNEL_NAMES = ('base_fft_kernel', 'base_rfft_kernel', 'stream_column_kernel',
+PORT_KERNEL_NAMES = ('base_fft_kernel', 'base_rfft_kernel', 'base_irfft_kernel',
+                     'stream_column_kernel',
                      'rfft_phase_b_kernel', 'irfft_phase_a_kernel', 'inv_phase_a_t_kernel',
                      'reconstruct_kernel', 'map_kernel')
 # phase 7: the launches each model call must make (fourier/config.py). A
 # 1024-sample segment (welch, csd, coherence, stft, ShortTimeFFT) is one
-# K12r launch on the rows of all segments, istft's one K12 launch on their
-# 512-point half-size inverse rows; cwt at
+# K12r launch on the rows of all segments, istft's one K12ir launch on their
+# half spectra; cwt at
 # 2^16 x 64 widths (fft_n = 2^17): the signal row is under the streaming
 # batch rule and rides the plain four-step (512 x 256 base cases, K12
 # twice), the kernel stack's rfft and the irfft of its 64 rows take K6 + K7
@@ -1410,6 +1461,7 @@ PORT_KERNEL_NAMES = ('base_fft_kernel', 'base_rfft_kernel', 'stream_column_kerne
 # n = 2^21 is the packed K1 + K2 twice and K3 + K4 once
 K12_ONCE = {'base_fft': 1}
 RFFT_ONCE = {'base_rfft': 1}
+IRFFT_ONCE = {'base_irfft': 1}
 STREAM_ONCE = {'stream_phase_a': 1, 'stream_phase_b': 1}
 STREAM_ROUND_TRIP = {'stream_phase_a': 2, 'stream_phase_b': 2, 'reconstruct': 1}
 
@@ -1422,6 +1474,7 @@ def model_wrappers():
 
     return ((base_fft, 'fft_base', base_fft.fft_base_plain, 'base_fft'),
             (base_fft, 'rfft_base', base_fft.rfft_base_plain, 'base_rfft'),
+            (base_fft, 'irfft_base', base_fft.irfft_base_plain, 'base_irfft'),
             (stream, 'phase_a', stream.phase_a_plain, 'stream_phase_a'),
             (stream, 'phase_b', stream.phase_b_plain, 'stream_phase_b'),
             (reconstruct, 'reconstruct_spectrum', reconstruct.reconstruct_plain, 'reconstruct'),
@@ -1494,16 +1547,20 @@ def cwt64(x: np.ndarray, widths) -> np.ndarray:
 
 
 def model_shapes() -> dict:
-    """The launch shapes the model tier gives K12r and K6/K7 at phases 6 and
-    7's sizes: (batch, nh) of K12r (RFFT_SHAPES); (batch, n) of K6/K7 for
-    cwt's 64 kernel rows at fft_n = 2^17."""
-    return {'base_rfft': list(RFFT_SHAPES), 'stream': [(64, 2**17)]}
+    """The launch shapes the model tier gives K12r, K12ir and K6/K7 at phases
+    6 and 7's sizes: (batch, nh) of K12r (RFFT_SHAPES) and K12ir
+    (IRFFT_SHAPES); (batch, n) of K6/K7 for cwt's 64 kernel rows at fft_n =
+    2^17."""
+    return {'base_rfft': list(RFFT_SHAPES), 'base_irfft': list(IRFFT_SHAPES),
+            'stream': [(64, 2**17)]}
 
 
 def model_shape_checks(compare, normal, cnormal) -> None:
-    """K12r and K6/K7 against their plain versions at the model tier's
-    launch shapes (model_shapes); K12r also against np.fft.rfft in float64
-    at the spectrogram cell's shape."""
+    """K12r, K12ir and K6/K7 against their plain versions at the model
+    tier's launch shapes (model_shapes); K12r also against np.fft.rfft in
+    float64 at the spectrogram cell's shape, K12ir against np.fft.irfft in
+    float64 at the griffinlim cell's, both K12ir readings there within
+    IRFFT_REL_BOUND."""
     from dsc_tpu_torch.fourier import base_fft, plan, stream
 
     shapes = model_shapes()
@@ -1518,6 +1575,20 @@ def model_shape_checks(compare, normal, cnormal) -> None:
             e = float(np.abs(got.cpu().numpy() - ref).max() / np.abs(ref).max())
             print(f'  K12r {what} vs np.fft float64: {e:.3e}')
             require(e <= NUMPY_BOUND, f'K12r {what} vs np.fft: {e}')
+    for b, nh in shapes['base_irfft']:
+        w, wu = plan.get_plan(2 * nh, 'real', torch.complex64)[1]
+        x = cnormal((b, nh + 1))
+        # a Hermitian half spectrum: X[0] and X[nh] real, as np.fft.irfft reads them
+        x[:, [0, nh]] = x[:, [0, nh]].real.to(x.dtype)
+        got = base_fft.irfft_base(x, w, wu)
+        what = f'{b} x {2 * nh} (R={base_fft.block_rows(nh, b)}), a model shape'
+        bound = IRFFT_REL_BOUND if (b, nh) == IRFFT_SHAPES[0] else REL_BOUND
+        compare('base_irfft', got, base_fft.irfft_base_plain(x, w, wu), what, bound)
+        if (b, nh) == IRFFT_SHAPES[0]:
+            ref = np.fft.irfft(x.cpu().numpy().astype(np.complex128), 2 * nh, axis=-1)
+            e = float(np.abs(got.cpu().numpy() - ref).max() / np.abs(ref).max())
+            print(f'  K12ir {what} vs np.fft.irfft float64: {e:.3e}')
+            require(e <= IRFFT_REL_BOUND, f'K12ir {what} vs np.fft.irfft: {e}')
     for b, n in shapes['stream']:
         t = plan.get_plan(n, 'stream', torch.complex64)[1]
         shape = f'{b} x 2^{n.bit_length() - 1}, a model shape'
@@ -1634,7 +1705,7 @@ def models_phase(dsc, card: str, compare) -> dict:
                   lambda: M.stft(ts, nperseg=1024)[2], RFFT_ONCE,
                   sps.stft(xs.astype(np.float64), nperseg=1024)[2], 1e-5)
         run('istft(stft(x)) 2^20 (nperseg 1024) vs x',
-            lambda: M.istft(zxx, nperseg=1024)[1][:2**20], K12_ONCE,
+            lambda: M.istft(zxx, nperseg=1024)[1][:2**20], IRFFT_ONCE,
             xs.astype(np.float64), 1e-5, 'abs')
         xm = gen.standard_normal(2**18).astype(np.float32)
         tapers, lam = sps.windows.dpss(2**18, 4.0, 7, return_ratios=True)
@@ -1665,7 +1736,8 @@ def models_phase(dsc, card: str, compare) -> dict:
             lambda: M.savgol_filter(ts, 31, 3),
             {'rfft_phase_a': 2, 'rfft_phase_b': 2, 'irfft_phase_a': 1, 'irfft_phase_b': 1},
             sps.savgol_filter(xs.astype(np.float64), 31, 3), 1e-4)
-    for name in ('base_fft', 'base_rfft', 'stream_phase_a', 'stream_phase_b', 'reconstruct'):
+    for name in ('base_fft', 'base_rfft', 'base_irfft', 'stream_phase_a', 'stream_phase_b',
+                 'reconstruct'):
         require(launches[name] > 0, f'kernel {name} was not launched by the model tier')
     # the full-size rows: host clock, and device time by kernel over 10 calls
     for what, fn in timed_rows:
@@ -1690,7 +1762,8 @@ def core_launches(steps) -> dict:
     K12 once for each complex64 base case of its plan (the half-size plan
     of a real transform up to plan.RFFT_PACK_MAX), where an rfft's rows
     do not ride K12r, which folds that base case and the untangle into one
-    launch."""
+    launch, and an irfft's do not ride K12ir, which folds the entangle and
+    the base case."""
     from dsc_tpu_torch.fourier import config, core, plan, reconstruct
 
     def k12(spec):
@@ -1713,6 +1786,9 @@ def core_launches(steps) -> dict:
             if kind == 'r2c' and n > 1 and core.rides_base_rfft(
                     torch.float32, torch.device('cuda'), spec, half or None):
                 want['base_rfft'] += 1
+            elif kind == 'c2r' and n > 1 and core.rides_base_irfft(
+                    torch.complex64, torch.device('cuda'), spec, half or None):
+                want['base_irfft'] += 1
             else:
                 want['base_fft'] += k12(spec)
     return {name: count for name, count in want.items() if count}
@@ -2906,6 +2982,7 @@ def plain_versions():
     return ((stream, 'phase_a_local_plain'), (stream, 'phase_b_local_plain'),
             (stream, 'phase_a_plain'), (stream, 'phase_b_plain'),
             (base_fft, 'fft_base_plain'), (base_fft, 'rfft_base_plain'),
+            (base_fft, 'irfft_base_plain'),
             (reconstruct, 'reconstruct_plain'),
             (pf, 'rfft_phase_a_plain'), (pf, 'rfft_phase_b_plain'),
             (pf, 'irfft_phase_a_plain'), (pf, 'irfft_phase_b_plain'),
@@ -3898,7 +3975,7 @@ def main() -> int:
     del x, z, s, y, back
     torch.cuda.synchronize()
 
-    # K12r at its launch shapes, K6/K7 at cwt's rows
+    # K12r and K12ir at their launch shapes, K6/K7 at cwt's rows
     model_shape_checks(compare, normal, cnormal)
 
     # -- 4a. the public filterFFT path at full size ------------------------
@@ -3934,7 +4011,7 @@ def main() -> int:
     ref = np.fft.rfft(small_np.astype(np.float64))
     e = float(np.abs(s_spec.numpy() - ref).max() / np.abs(ref).max())
     e2 = float(np.abs(dsc.irfft(s_spec).numpy() - small_np).max())
-    print(f'  rfft/irfft n=4096 (K12r, K12): {e:.3e}, round trip {e2:.3e}')
+    print(f'  rfft/irfft n=4096 (K12r, K12ir): {e:.3e}, round trip {e2:.3e}')
     require(e <= NUMPY_BOUND and e2 <= 1e-5, 'n=4096 pair')
     torch.cuda.synchronize()
     fft_launches = dict(build.launches)
@@ -4222,8 +4299,8 @@ def main() -> int:
                   lambda: torch.fft.rfft(xs, n), nbytes(xs, at) + tables,
                   fft_ops(nh, n1) + 6 * nh)
     del x, at, spec, y, xs
-    # K12 at the n = 4096 pair's 2048 x 1, at 4096 x 1000 and at fft2
-    # (256, 2^16)'s axis-0 shape, 65536 x 256 (2^24 values, cold in L2)
+    # K12 at one 2048-point row, at 4096 x 1000 and at fft2 (256, 2^16)'s
+    # axis-0 shape, 65536 x 256 (2^24 values, cold in L2)
     for n, batch in ((2048, 1), (4096, 1000), (256, 65536)):
         w = plan.get_plan(n, 'complex', torch.complex64)[1]
         x = cnormal((batch, n))
@@ -4231,6 +4308,7 @@ def main() -> int:
               lambda: base_fft.fft_base_plain(x, w), lambda: torch.fft.fft(x),
               2 * nbytes(x) + nbytes(w), fft_ops(n * batch, n))
     rfft_times(timed, normal)
+    irfft_times(timed, cnormal)
     for body in sm.REAL_BODIES:
         xs = map_operands(body, MAP_N)
         timed('stream_map', f'{body} 2^26 f32', lambda: sm.stream_map(body, *xs),
@@ -4406,8 +4484,9 @@ def main() -> int:
         by_path[name]['mesh'] = mesh_launches[name]
 
     # the main path's shape of each kernel: the filterFFT at n = 2^21 for the
-    # packed passes, the n = 4096 pair's 2048 x 1 for K12, the spectrogram
-    # cell's 54,912 x 1024 for K12r, bench's fma for K5,
+    # packed passes, one 2048-point row for K12, the spectrogram
+    # cell's 54,912 x 1024 for K12r, the griffinlim cell's 55,168 x 1024 for
+    # K12ir, bench's fma for K5,
     # the suite's 16 x 2^20 for K6/K7 (where they lose most to torch.fft),
     # the 2^19 irfft for K11, the 2^24 single fft -> ifft for K8, K9, K10,
     # the clip chain of phase 6 for K5g, one shard's block of the 4-way

@@ -38,6 +38,19 @@
 // thread 0 also for k = nh, and stores the (B, nh+1) complex64 spectrum
 // once. It moves 8*B*nh bytes in and 8*B*(nh+1) out: each value crosses
 // device memory once each way, as in K12.
+//
+// K12ir: the mirror of K12r, the batched inverse real FFT of (B, nh + 1)
+// complex64 half spectra to float32 rows of n = 2*nh points. The plain
+// version (fourier/core.py irfft_batched) entangles the spectrum, conjugates
+// it, runs the forward half-size transform, conjugates and divides by nh: six
+// or seven ATen passes over the half-size rows around K12. K12ir stages each
+// row's nh + 1 bins in its shared-memory row (coalesced loads, each value
+// read from device memory once), and after a barrier thread t forms, for its
+// k = t + u*T, Z[k] = (X[k] + conj X[nh-k])/2 + i*conj(wu[k])*(X[k] -
+// conj X[nh-k])/2 (core.entangle, k = 0 pairing X[0] with X[nh]); then
+// K12's unscaled inverse row pass (row_fft<true>: no conjugation passes) and
+// the store of z[t]/nh as the float2 x[2t], x[2t+1] of the output row. It
+// moves 8*B*(nh+1) bytes in and 8*B*nh out, as K12r does.
 
 #include "fft_rows_reg.cuh"
 
@@ -123,6 +136,57 @@ base_rfft_kernel(const float2* __restrict__ x, float2* __restrict__ y, long batc
   }
 }
 
+// K12ir: x (batch, nh + 1) complex64; y (batch, 2*nh) float32 written as
+// (batch, nh) float2 rows; w the nh-point stage table (conjugated by the
+// inverse row pass), wu the untangle table W_n^k, read at k < nh. nh =
+// 2^LOG2NH.
+template <int LOG2NH>
+__global__ void __launch_bounds__(kThreads, 1)
+base_irfft_kernel(const float2* __restrict__ x, float2* __restrict__ y, long batch,
+                  int rows_per_block, const float2* __restrict__ w,
+                  const float2* __restrict__ wu) {
+  extern __shared__ float2 smem[];
+  constexpr int log2n = LOG2NH;
+  constexpr int nh = 1 << log2n;
+  constexpr int log2T = log2n - kLog2Radix;  // threads a row
+  const int r = threadIdx.x >> log2T;
+  const int t = threadIdx.x & ((1 << log2T) - 1);
+  const long row = (long)blockIdx.x * rows_per_block + r;
+  const bool live = row < batch;  // the rest of a ragged last block runs on zeros
+  float2* xrow = smem + r * padded_row(nh);
+  float2 v[kRadix];
+  {
+    // X[k] at slot k, unpadded, X[nh] at slot nh: a half warp writes 16
+    // neighbouring slots and reads the 16 neighbouring mirrors nh-k, which
+    // pad16 would put two to a bank, as in K12r's store
+    const float2* src = x + row * (nh + 1);
+#pragma unroll
+    for (int u = 0; u < kRadix; ++u) {
+      const int k = t + (u << log2T);
+      v[u] = live ? src[k] : make_float2(0.f, 0.f);
+      xrow[k] = v[u];
+    }
+    if (t == 0) xrow[nh] = live ? src[nh] : make_float2(0.f, 0.f);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kRadix; ++u) {
+    const int k = t + (u << log2T);
+    const float2 a = v[u];
+    const float2 bc = conj2(xrow[nh - k]);  // conj X[nh - k]
+    const float2 e = cscale(cadd(a, bc), 0.5f);
+    const float2 d = cmul(conj2(__ldg(wu + k)), cscale(csub(a, bc), 0.5f));
+    v[u] = cadd(e, times_i(d));  // Z[k] = E + i*conj(W^k)*D
+  }
+  __syncthreads();  // every thread has read its mirrors before the pass writes the row
+  row_fft<true>(v, xrow, t, log2n, w);
+  if (!live) return;
+  float2* dst = y + (row << log2n);
+  constexpr float scale = 1.0f / nh;
+#pragma unroll
+  for (int u = 0; u < kRadix; ++u) dst[t + (u << log2T)] = cscale(v[u], scale);
+}
+
 template <int LOG2N>
 int launch_base_fft(const void* x, void* y, int batch, int rows, const void* w, void* stream) {
   const long blocks = ((long)batch + rows - 1) / rows;
@@ -145,6 +209,19 @@ int launch_base_rfft(const void* x, void* y, int batch, int rows, const void* w,
   base_rfft_kernel<LOG2NH><<<(unsigned)blocks, rows << (LOG2NH - kLog2Radix), smem,
                              (cudaStream_t)stream>>>((const float2*)x, (float2*)y, batch, rows,
                                                      (const float2*)w, (const float2*)wu);
+  return (int)cudaGetLastError();
+}
+
+template <int LOG2NH>
+int launch_base_irfft(const void* x, void* y, int batch, int rows, const void* w, const void* wu,
+                      void* stream) {
+  const long blocks = ((long)batch + rows - 1) / rows;
+  const size_t smem = (size_t)rows * padded_row(1 << LOG2NH) * sizeof(float2);
+  int err = set_smem((const void*)base_irfft_kernel<LOG2NH>, smem);
+  if (err) return err;
+  base_irfft_kernel<LOG2NH><<<(unsigned)blocks, rows << (LOG2NH - kLog2Radix), smem,
+                              (cudaStream_t)stream>>>((const float2*)x, (float2*)y, batch, rows,
+                                                      (const float2*)w, (const float2*)wu);
   return (int)cudaGetLastError();
 }
 
@@ -186,6 +263,24 @@ int dsc_base_rfft(const void* x, void* y, int batch, int nh, const void* w, cons
     case 10: return launch_base_rfft<10>(x, y, batch, rows, w, wu, stream);
     case 11: return launch_base_rfft<11>(x, y, batch, rows, w, wu, stream);
     default: return launch_base_rfft<12>(x, y, batch, rows, w, wu, stream);
+  }
+}
+
+// x: (batch, nh + 1) complex64, 8-byte aligned; y: (batch, 2*nh) float32;
+// w: nh/2 stage twiddles W_nh^p; wu: nh + 1 untangle twiddles W_(2nh)^k;
+// `rows` rows a block (R*nh/16 threads).
+int dsc_base_irfft(const void* x, void* y, int batch, int nh, const void* w, const void* wu,
+                   int rows, void* stream) {
+  const int log2nh = ilog2(nh);
+  if (nh < 256 || nh > 4096 || (1 << log2nh) != nh || rows < 1 || batch < 1 ||
+      rows * (nh / kRadix) > kThreads)
+    return (int)cudaErrorInvalidValue;
+  switch (log2nh) {
+    case 8: return launch_base_irfft<8>(x, y, batch, rows, w, wu, stream);
+    case 9: return launch_base_irfft<9>(x, y, batch, rows, w, wu, stream);
+    case 10: return launch_base_irfft<10>(x, y, batch, rows, w, wu, stream);
+    case 11: return launch_base_irfft<11>(x, y, batch, rows, w, wu, stream);
+    default: return launch_base_irfft<12>(x, y, batch, rows, w, wu, stream);
   }
 }
 

@@ -11,6 +11,11 @@ K12r (``rfft_base``, csrc/base_fft.cu base_rfft_kernel) is the batched real
 FFT of float32 rows whose half-size transform is a K12 base case: K12's row
 pass on the packed rows with the untangle (core.untangle) folded into its
 store, so the half-size spectrum never reaches device memory.
+
+K12ir (``irfft_base``, base_irfft_kernel) is its mirror, the batched inverse
+real FFT of complex64 half spectra whose half-size transform is a K12 base
+case: the entangle (core.entangle) folded into the row's load, K12's
+unscaled inverse row pass and the 1/nh scale in its store.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 
 from ..kernels import build
 from .config import BASE_KERNEL_MAX_N, BASE_KERNEL_MIN_N
-from .core import stockham_fft, untangle
+from .core import entangle, stockham_fft, untangle
 
 # K12 takes R rows of n points a block; the launcher derives the rest
 # (R*n/16 threads, at most 1024, and R padded rows of shared memory) from R.
@@ -106,5 +111,49 @@ def _launch_rfft(x: torch.Tensor, w: torch.Tensor, wu: torch.Tensor,
     y = torch.empty((b, nh + 1), dtype=torch.complex64, device=x.device)
     if b:  # a grid of no blocks is refused at launch
         build.launch('base_rfft', x.data_ptr(), y.data_ptr(), b, nh, w.data_ptr(),
+                     wu.data_ptr(), rows)
+    return y
+
+
+def irfft_base_plain(x: torch.Tensor, w: torch.Tensor, wu: torch.Tensor) -> torch.Tensor:
+    """Plain version of K12ir: the real rows (B, 2*nh) of the half spectra
+    ``x`` (B, nh + 1), from the entangle with ``wu`` (nh + 1 entries W_n^k,
+    read at k < nh), the inverse of K12's plain version with the nh/2-point
+    stage table ``w`` as conj(fft(conj z)) / nh, and the complex rows read
+    as float pairs y[2t] + i*y[2t+1] = z[t]."""
+    b, nh = x.shape[0], x.shape[1] - 1
+    z = entangle(x, wu[:nh])
+    y = torch.conj_physical(fft_base_plain(torch.conj_physical(z), w)) / nh
+    return torch.view_as_real(y.contiguous()).reshape(b, 2 * nh)
+
+
+def irfft_base(x: torch.Tensor, w: torch.Tensor, wu: torch.Tensor) -> torch.Tensor:
+    """K12ir on a CUDA tensor, its plain version on a CPU tensor. A lazy
+    conjugate or negative bit of ``x`` is resolved, and the rows made
+    contiguous, before the kernel reads them."""
+    b, m = x.shape
+    if x.device.type == 'cpu':
+        return irfft_base_plain(x, w, wu)
+    nh = m - 1
+    if nh & (nh - 1) or not BASE_KERNEL_MIN_N <= nh <= BASE_KERNEL_MAX_N:
+        raise RuntimeError(f'base_irfft: {m} bins are not one more than a power of two in '
+                           f'[{BASE_KERNEL_MIN_N}, {BASE_KERNEL_MAX_N}]')
+    x = x.resolve_conj().resolve_neg().contiguous()
+    return _launch_irfft(x, w, wu, block_rows(nh, b))
+
+
+def _launch_irfft(x: torch.Tensor, w: torch.Tensor, wu: torch.Tensor,
+                  rows: int) -> torch.Tensor:
+    """K12ir with ``rows`` rows a block."""
+    b, m = x.shape
+    nh = m - 1
+    if x.is_conj() or x.is_neg():
+        raise RuntimeError('x: expected no lazy conjugate or negative bit')
+    build.check(x, torch.complex64, (b, nh + 1), 'x', align=8)  # rows of nh + 1 float2
+    build.check(w, torch.complex64, (nh // 2,), 'w')
+    build.check(wu, torch.complex64, (nh + 1,), 'wu')
+    y = torch.empty((b, 2 * nh), dtype=torch.float32, device=x.device)
+    if b:  # a grid of no blocks is refused at launch
+        build.launch('base_irfft', x.data_ptr(), y.data_ptr(), b, nh, w.data_ptr(),
                      wu.data_ptr(), rows)
     return y

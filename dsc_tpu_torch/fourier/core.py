@@ -9,8 +9,9 @@ float pairs are a TPU workaround and are not carried over.
 - **Stockham autosort** (iterative radix-2, natural order in and out) for
   base cases; complex64 base cases of 256..4096 points go to the base-case
   kernel K12 instead (base_fft.py), whose wrapper runs Stockham itself on
-  CPU tensors, and CUDA float32 rffts of twice those sizes to K12r, which
-  untangles the half-size spectrum as it stores it;
+  CPU tensors, CUDA float32 rffts of twice those sizes to K12r, which
+  untangles the half-size spectrum as it stores it, and CUDA complex64
+  irffts of them to K12ir, which entangles the half spectrum as it loads it;
 - **Bailey four-step** (n = n1*n2: column FFTs -> twiddle -> row FFTs ->
   transpose) above 4096 points (plan.build_spec);
 - inverse transforms use ifft(x) = conj(fft(conj(x)))/n.
@@ -134,6 +135,15 @@ def rides_base_rfft(dtype: torch.dtype, device: torch.device, spec: Tuple, wu) -
             and spec[0] == 'base' and config.use_base_kernel(np.complex64, spec[1]))
 
 
+def rides_base_irfft(dtype: torch.dtype, device: torch.device, spec: Tuple, wu) -> bool:
+    """Whether K12ir (base_fft.irfft_base) takes a batched irfft's rows that
+    do not stream: CUDA complex64 half spectra with a packed half-size plan
+    (``wu``, the untangle table) whose half-size transform is a K12 base
+    case."""
+    return (device.type == 'cuda' and dtype == torch.complex64 and wu is not None
+            and spec[0] == 'base' and config.use_base_kernel(np.complex64, spec[1]))
+
+
 def rfft_batched(x: torch.Tensor, spec: Tuple, tables: Any, n: int,
                  streams: Optional[bool] = None) -> torch.Tensor:
     """(B, n) real -> (B, n/2+1) complex.
@@ -169,7 +179,8 @@ def irfft_batched(x: torch.Tensor, spec: Tuple, tables: Any, n: int,
     """(B, n/2+1) complex -> (B, n) real: full-spectrum reconstruction
     (K11 on a single complex64 row) + full-size inverse (large n; K6 + the
     real-output K7 when streaming, ``streams`` None: the core's rule), or
-    the inverse untangle + half-size inverse (small n)."""
+    the inverse untangle + half-size inverse (small n), both in K12ir where
+    ``rides_base_irfft``."""
     nh = n // 2
     if streams is None:
         streams = _stream_ok(x, n, real=True)
@@ -182,6 +193,10 @@ def irfft_batched(x: torch.Tensor, spec: Tuple, tables: Any, n: int,
         return fft_apply(torch.conj_physical(full), spec, w_tables).real / n
     if nh == 0:
         return x.real.contiguous()
+    if rides_base_irfft(x.dtype, x.device, spec, wu):
+        from . import base_fft
+
+        return base_fft.irfft_base(x, w_tables, wu)
     b = x.shape[0]
     z = entangle(x, wu[:nh])
     y = torch.conj_physical(fft_apply(torch.conj_physical(z), spec, w_tables)) / nh

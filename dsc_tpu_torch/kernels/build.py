@@ -66,6 +66,8 @@ KERNELS = {
     'base_fft': ('dsc_base_fft', (_P, _P, _I, _I, _P, _I)),
     # x, y, batch, nh, w, untangle table, rows a block
     'base_rfft': ('dsc_base_rfft', (_P, _P, _I, _I, _P, _P, _I)),
+    # x, y, batch, nh, w, untangle table, rows a block
+    'base_irfft': ('dsc_base_irfft', (_P, _P, _I, _I, _P, _P, _I)),
     # x, at, floats of x, n1, m2, w_n1, twiddle lo, hi, bits, columns a block
     'rfft_phase_a': ('dsc_rfft_phase_a', (_P, _P, _L, _I, _I, _P, _P, _P, _I, _I)),
     # at, spec, n1, m2, w_m2, untangle lo, hi, bits, row pairs a block

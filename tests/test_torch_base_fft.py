@@ -190,3 +190,139 @@ def test_rfft_wrapper_refuses_what_the_kernel_does_not_take(n, match):
     x = torch.empty((2, n), dtype=torch.float32, device='meta')
     with pytest.raises(RuntimeError, match=match):
         base_fft.rfft_base(x, w, wu)
+
+
+# -- K12ir: the batched inverse real FFT with the entangle in K12's load ----
+
+def _half_spectra(batch, nh, seed, cdtype):
+    """Half spectra (batch, nh + 1) whose X[0] and X[nh] have nonzero
+    imaginary parts, as a spectrum a model rebuilds can have."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((batch, nh + 1)) + 1j * rng.standard_normal((batch, nh + 1))
+    assert (x[:, [0, nh]].imag != 0).all()
+    return torch.from_numpy(x.astype(cdtype))
+
+
+@pytest.mark.parametrize('batch', [1, 7, 64])
+@pytest.mark.parametrize('nh', [256, 512, 1024, 2048, 4096])
+def test_irfft_plain_matches_the_batched_route(nh, batch):
+    """K12ir's plain version gives what irfft_batched's plain route gives
+    today, bit for bit, on half spectra with nonzero Im X[0] and Im X[nh]:
+    the entangle's k = 0 pairs X[0] with X[nh] and folds both imaginary
+    parts in, as the JAX package does; the wrapper runs it for a CPU
+    tensor."""
+    from dsc_tpu_torch.fourier import core
+
+    n = 2 * nh
+    spec, tables = plan.get_plan(n, 'real', torch.complex64, 'cpu')
+    w, wu = tables
+    x = _half_spectra(batch, nh, nh + batch, np.complex64)
+    got = base_fft.irfft_base_plain(x, w, wu)
+    assert got.dtype == torch.float32 and got.shape == (batch, n)
+    np.testing.assert_array_equal(got.numpy(), core.irfft_batched(x, spec, tables, n).numpy())
+    np.testing.assert_array_equal(base_fft.irfft_base(x, w, wu).numpy(), got.numpy())
+    # the imaginary parts of X[0] and X[nh] move the result: the route
+    # does not drop them as np.fft.irfft does
+    x0 = x.clone()
+    x0[:, 0] = x0[:, 0].real.to(x0.dtype)
+    x0[:, nh] = x0[:, nh].real.to(x0.dtype)
+    assert not torch.equal(base_fft.irfft_base_plain(x0, w, wu), got)
+
+
+@pytest.mark.parametrize('batch', [0, 1, 5, 1001])
+@pytest.mark.parametrize('nh', [256, 512, 1024, 2048, 4096])
+def test_irfft_plain_against_numpy_in_float64(nh, batch):
+    """K12ir's plain version on the rfft spectra of float64 rows gives the
+    rows back, in float64 within rounding and in float32 within 2e-6 of
+    np.fft.irfft in float64; an empty batch gives no rows."""
+    n = 2 * nh
+    rows = _np_rows(batch, n, 3 * nh + batch, np.float64)
+    spec64 = np.fft.rfft(rows, axis=-1)
+    for cdt, bound in ((torch.complex128, 1e-13), (torch.complex64, 2e-6)):
+        _, w, wu = _real_plan(n, cdt)
+        x = torch.from_numpy(spec64.astype(np.complex64 if cdt == torch.complex64 else
+                                           np.complex128))
+        got = base_fft.irfft_base_plain(x, w, wu).numpy()
+        assert got.shape == (batch, n)
+        if batch:
+            want = np.fft.irfft(x.numpy().astype(np.complex128), n, axis=-1)
+            assert np.abs(got - want).max() / np.abs(want).max() < bound
+            assert np.abs(want - rows).max() / np.abs(rows).max() < 1e-6
+
+
+@pytest.mark.parametrize('dtype,device,n,takes', [
+    (torch.complex64, 'cuda', 512, True),
+    (torch.complex64, 'cuda', 1024, True),
+    (torch.complex64, 'cuda', 2048, True),
+    (torch.complex64, 'cuda', 4096, True),
+    (torch.complex64, 'cuda', 8192, True),
+    (torch.complex64, 'cuda', 256, False),      # a half of 128 points: Stockham
+    (torch.complex64, 'cuda', 16384, False),    # a half of 8192: the four-step
+    (torch.complex64, 'cuda', 2**17, False),    # no packed half-size plan
+    (torch.complex128, 'cuda', 1024, False),
+    (torch.float32, 'cuda', 1024, False),
+    (torch.complex64, 'cpu', 1024, False),
+    (torch.complex128, 'cpu', 1024, False),
+    (torch.complex64, 'meta', 1024, False),
+])
+def test_which_rows_ride_k12ir(dtype, device, n, takes):
+    """The route of a batched irfft's rows that do not stream: CUDA
+    complex64 half spectra of 512..8192-point rows take K12ir; every other
+    row keeps the plain entangle and K12 (or Stockham)."""
+    from dsc_tpu_torch.fourier import core
+
+    cdt = torch.complex128 if dtype == torch.complex128 else torch.complex64
+    spec, (_, wu) = plan.get_plan(n, 'real', cdt, 'cpu')
+    assert core.rides_base_irfft(dtype, torch.device(device), spec, wu) is takes
+
+
+def test_irfft_batched_sends_riding_rows_to_k12ir(monkeypatch):
+    """irfft_batched hands rows that ride K12ir to ``irfft_base`` with the
+    plan's tables, and keeps its own entangle and half-size inverse for the
+    rest: on a CPU tensor both give the same numbers."""
+    from dsc_tpu_torch import tracing
+    from dsc_tpu_torch.fourier import core
+
+    n = 1024
+    spec, tables = plan.get_plan(n, 'real', torch.complex64, 'cpu')
+    x = _half_spectra(5, n // 2, 4, np.complex64)
+    calls = []
+    irfft_base = base_fft.irfft_base
+    monkeypatch.setattr(base_fft, 'irfft_base',
+                        lambda a, w, wu: calls.append((a.shape, w, wu)) or irfft_base(a, w, wu))
+    tracing.clear_traces()
+    tracing.set_recording(True)
+    try:
+        plain = core.irfft_batched(x, spec, tables, n)
+        assert calls == [] and tracing.totals()[('plain', 'entangle')]['count'] == 1
+        monkeypatch.setattr(core, 'rides_base_irfft', lambda *a: True)
+        got = core.irfft_batched(x, spec, tables, n)
+    finally:
+        tracing.set_recording(False)
+        tracing.clear_traces()
+    assert len(calls) == 1 and calls[0][0] == (5, n // 2 + 1)
+    assert calls[0][1] is tables[0] and calls[0][2] is tables[1]
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())
+
+
+@pytest.mark.parametrize('bins,match', [(513, 'CUDA'), (8193, 'one more than a power of two'),
+                                        (129, 'one more than a power of two'),
+                                        (512, 'one more than a power of two')])
+def test_irfft_wrapper_refuses_what_the_kernel_does_not_take(bins, match):
+    """Off the CPU the wrapper launches K12ir or raises: a tensor on the
+    meta device, or a half spectrum whose half size the kernel does not
+    take, is refused before any build."""
+    _, w, wu = _real_plan(1024, torch.complex64)
+    x = torch.empty((2, bins), dtype=torch.complex64, device='meta')
+    with pytest.raises(RuntimeError, match=match):
+        base_fft.irfft_base(x, w, wu)
+
+
+def test_irfft_launcher_refuses_a_lazy_conjugate():
+    """The private launcher takes the rows as the kernel reads them: a
+    lazily conjugated tensor, whose data holds the unconjugated values, is
+    refused before the tensor checks."""
+    _, w, wu = _real_plan(1024, torch.complex64)
+    x = torch.empty((2, 513), dtype=torch.complex64, device='meta').conj()
+    with pytest.raises(RuntimeError, match='lazy conjugate'):
+        base_fft._launch_irfft(x, w, wu, 1)

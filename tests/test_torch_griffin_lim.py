@@ -282,7 +282,8 @@ def test_bad_settings_are_refused(kw):
 @pytest.mark.gpu
 def test_spans_on_the_card():
     """On the card one default call at the benchmark's STFT (frame 1024, hop 256) launches
-    K12r once an iteration and K12 once an inverse: 32 base_rfft and 33 base_fft."""
+    K12r once an iteration and K12ir once an inverse: 32 base_rfft and 33 base_irfft, with
+    no plain entangle."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
     from dsc_tpu_torch.kernels import build
@@ -308,11 +309,11 @@ def test_spans_on_the_card():
         assert counts[('api', 'griffin_lim')] == 1
         assert counts[('plain', 'project')] == 32
         assert counts[('wrapper', 'base_rfft')] == 32
-        assert counts[('wrapper', 'base_fft')] == 33
-        assert counts[('plain', 'entangle')] == 33
+        assert counts[('wrapper', 'base_irfft')] == 33
+        assert ('plain', 'entangle') not in counts
         assert ('plain', 'untangle') not in counts
         assert {k: v for k, v in build.launches.items() if v} == {'base_rfft': 32,
-                                                                   'base_fft': 33}
+                                                                   'base_irfft': 33}
     finally:
         dt.shutdown()
         dt.init(2**32, device='cpu')

@@ -123,6 +123,86 @@ def test_base_rfft_empty_batch_and_misaligned_rows():
         base_fft.rfft_base(x, w, wu)
 
 
+# K12ir's launch shapes (batch, nh): the griffinlim cell's 55,168 frames,
+# OverlapSave at fft_n = 8192 (521 and 1048 rows of nh = 4096), the ISTFT of
+# 4 x 2^18 (512 x 4084), istft of the scipy-style stft of 2^20 (512 x 2049)
+# and the n = 4096 irfft of one row
+IRFFT_SHAPES = [(55168, 512), (521, 4096), (1048, 4096), (4084, 512), (2049, 512), (1, 2048)]
+
+
+def _half_spectra(batch, nh, seed):
+    """The rfft spectra (batch, nh + 1) of float32 rows, in float64 and in
+    complex64 on the card."""
+    rng = np.random.default_rng(seed)
+    spec = np.fft.rfft(rng.standard_normal((batch, 2 * nh)).astype(np.float32), axis=-1)
+    return spec, torch.from_numpy(spec.astype(np.complex64)).cuda()
+
+
+@pytest.mark.parametrize('batch,nh', IRFFT_SHAPES + [(3, 256), (130, 1024), (7, 4096)])
+def test_base_irfft_kernel(batch, nh):
+    """K12ir against its plain version and np.fft.irfft in float64: one
+    launch of K12ir and none of K12."""
+    spec, x = _half_spectra(batch, nh, batch + nh)
+    w, wu = plan.get_plan(2 * nh, 'real', torch.complex64)[1]
+    before = dict(build.launches)
+    got = base_fft.irfft_base(x, w, wu)
+    assert build.launches['base_irfft'] == before['base_irfft'] + 1
+    assert build.launches['base_fft'] == before['base_fft']
+    assert got.shape == (batch, 2 * nh) and got.dtype == torch.float32
+    assert _rel(got, base_fft.irfft_base_plain(x, w, wu)) < REL
+    ref = np.fft.irfft(x.cpu().numpy().astype(np.complex128), 2 * nh, axis=-1)
+    assert np.abs(got.cpu().numpy() - ref).max() / np.abs(ref).max() < 1e-5
+
+
+@pytest.mark.parametrize('points', [4096, 8192, 16384])
+@pytest.mark.parametrize('nh', [256, 512, 1024, 2048, 4096])
+def test_base_irfft_kernel_block_sizes(nh, points):
+    """K12ir with each block size K12 takes, on a batch that leaves a ragged
+    last block, on half spectra whose X[0] and X[nh] are not real."""
+    rows = points // nh
+    x = _cnormal((3 * rows + 1, nh + 1), nh + points + 1)
+    w, wu = plan.get_plan(2 * nh, 'real', torch.complex64)[1]
+    assert _rel(base_fft._launch_irfft(x, w, wu, rows), base_fft.irfft_base_plain(x, w, wu)) < REL
+
+
+def test_base_irfft_views_and_empty_batch():
+    """A strided view, a lazily conjugated tensor and rows 8 bytes off a
+    16-byte boundary give what the same values in a fresh contiguous tensor
+    give; an empty batch launches nothing."""
+    w, wu = plan.get_plan(1024, 'real', torch.complex64)[1]
+    x = _cnormal((64, 513), 5)
+    want = base_fft.irfft_base(x, w, wu)
+    wide = torch.zeros((64, 600), dtype=torch.complex64, device='cuda')
+    wide[:, :513] = x
+    assert torch.equal(base_fft.irfft_base(wide[:, :513], w, wu), want)
+    lazy = x.conj_physical().conj()
+    assert lazy.is_conj()
+    assert torch.equal(base_fft.irfft_base(lazy, w, wu), want)
+    off = torch.empty(64 * 513 + 1, dtype=torch.complex64, device='cuda')[1:].view(64, 513)
+    off.copy_(x)
+    assert off.data_ptr() % 16 == 8
+    assert torch.equal(base_fft.irfft_base(off, w, wu), want)
+    before = build.launches['base_irfft']
+    got = base_fft.irfft_base(torch.empty((0, 513), dtype=torch.complex64, device='cuda'), w, wu)
+    assert got.shape == (0, 1024) and got.is_cuda
+    assert build.launches['base_irfft'] == before
+
+
+@pytest.mark.parametrize('n,kernels', [(1024, {'base_irfft': 1}), (8192, {'base_irfft': 1}),
+                                       (256, {}), (16384, {})])
+def test_public_irfft_rows_ride_k12ir(n, kernels):
+    """The public irfft over rows: 512..8192 points take K12ir alone; 256
+    points keep Stockham and the plain entangle, and so do 16384; each
+    within 1e-5 of np.fft in float64."""
+    spec, x = _half_spectra(6, n // 2, n)
+    build.reset_launches()
+    got = dt.irfft(dt.Tensor(x))  # n/2 + 1 bins: n points
+    torch.cuda.synchronize()
+    assert {k: c for k, c in build.launches.items() if c} == kernels
+    ref = np.fft.irfft(x.cpu().numpy().astype(np.complex128), n, axis=-1)
+    assert np.abs(got.numpy() - ref).max() / np.abs(ref).max() < 1e-5
+
+
 @pytest.mark.parametrize('shape,kernels', [((64, 1024), {'base_rfft': 1}),
                                            ((3, 8192), {'base_rfft': 1}),
                                            ((5, 256), {}),
@@ -328,7 +408,7 @@ def test_public_path_launches_every_kernel():
     spec = dt.rfft(dt.from_numpy(sig), n=2**21) * dt.rfft(dt.from_numpy(taps), n=2**21)
     y = dt.irfft(spec)[: 2**20 + 254].numpy()
     small = dt.irfft(dt.rfft(dt.from_numpy(sig[:4096]))).numpy()
-    fft_kernels = ('base_fft', 'base_rfft', 'rfft_phase_a', 'rfft_phase_b', 'irfft_phase_a',
+    fft_kernels = ('base_irfft', 'base_rfft', 'rfft_phase_a', 'rfft_phase_b', 'irfft_phase_a',
                    'irfft_phase_b')
     assert all(build.launches[k] > 0 for k in fft_kernels), build.launches
     assert build.launches['stream_map'] == 0  # the 2^20+1 spectra multiply in plain torch
@@ -825,10 +905,10 @@ def _model_cases():
         'periodogram': (lambda: M.periodogram(T(x20))[1], {'stream_phase_a'}),
         'stft': (lambda: M.stft(T(x20), nperseg=1024)[2], {'base_rfft'}),
         'istft': (lambda: M.istft(M.stft(T(x20), nperseg=1024)[2], nperseg=1024)[1],
-                  {'base_rfft', 'base_fft'}),
+                  {'base_rfft', 'base_irfft'}),
         'ShortTimeFFT': (lambda: M.ShortTimeFFT(hann, 256, 1.0).stft(T(x20)), {'base_rfft'}),
         'ShortTimeFFT istft': (lambda: M.ShortTimeFFT(hann, 256, 1.0).istft(
-            M.ShortTimeFFT(hann, 256, 1.0).stft(T(x20))), {'base_rfft', 'base_fft'}),
+            M.ShortTimeFFT(hann, 256, 1.0).stft(T(x20))), {'base_rfft', 'base_irfft'}),
         'cwt': (lambda: M.cwt(T(x20[:2**16]), M.ricker, np.arange(1, 9)),
                 {'base_fft', 'stream_phase_a', 'stream_phase_b'}),
         'multitaper': (lambda: M.multitaper(T(x18[0]))[1], {'stream_phase_a'}),

@@ -143,8 +143,8 @@ def test_overlap_save():
     assert got.shape == ref.shape == (2, 4096 + 16)
     assert _rel(got, ref) < 1e-5
     assert _rel(got[0], np.convolve(sig[0].astype(np.float64), taps)) < NUMPY_BOUND
-    # the fft_n = 8192 blocks of chip_smoke.py's OverlapSave rows: K12 on the
-    # 4096-point half-size transforms
+    # the fft_n = 8192 blocks of chip_smoke.py's OverlapSave rows: on the card
+    # K12r and K12ir on the 4096-point half-size transforms
     one = _rand(20000, 14)
     got = tm.overlap_save_convolve(dt.from_numpy(one), dt.from_numpy(TAPS), fft_n=8192)
     assert _rel(got, np.convolve(one.astype(np.float64), TAPS)) < NUMPY_BOUND

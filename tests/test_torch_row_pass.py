@@ -1,8 +1,9 @@
 """The index maps of the register-resident row pass (dsc_tpu_torch/csrc/
 fft_rows_reg.cuh) and of the five kernels built on it, K12 (csrc/base_fft.cu),
 K2 and K3 (csrc/packed_rfft.cu rfft_phase_b_kernel, irfft_phase_a_kernel),
-K9 (csrc/fourstep_stream_t.cu inv_phase_a_t_kernel) and K12r (csrc/base_fft.cu
-base_rfft_kernel, K12 with the real FFT's untangle in its store), emulated thread by
+K9 (csrc/fourstep_stream_t.cu inv_phase_a_t_kernel), K12r (csrc/base_fft.cu
+base_rfft_kernel, K12 with the real FFT's untangle in its store) and K12ir
+(base_irfft_kernel, K12's inverse with the entangle in its load), emulated thread by
 thread in numpy: each block's loads, the Stockham passes (fft_radix.cuh
 pass_store and pad16, the twiddle products of row_radix_pass), the
 shared-memory exchanges and the stores (K3 and K9 with the twiddle products
@@ -250,6 +251,86 @@ def test_k12r_index_maps(nh, points):
     assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-6
     # a warp stores one run of 32 bins, two of 16 where a row has 16 threads
     assert all((lengths == min(32, nh // 16)).all() for lengths in runs)
+
+
+def emulate_k12ir(x, w, wu, rows):
+    """base_irfft_kernel over every block, ``rows`` rows a block: the (B,
+    2nh) real rows of the half spectra ``x`` (B, nh + 1), every output
+    value written once, and the runs of neighbouring bins each warp's loads
+    of ``x`` and stores of the rows make."""
+    batch, m = x.shape
+    nh = m - 1
+    log2n = nh.bit_length() - 1
+    log2T = log2n - LOG2_RADIX
+    tid = np.arange(rows << log2T)
+    r, t = tid >> log2T, tid & ((1 << log2T) - 1)
+    u = np.arange(RADIX)
+    z = np.full((batch, nh), np.nan + 0j)   # the float2 rows of the output
+    written = np.zeros((batch, nh), int)
+    load_runs, store_runs = [], []
+    for b in range(-(-batch // rows)):
+        row = b * rows + r
+        live = row < batch
+        sh = Shared(rows * padded_row(nh))
+        base = r * padded_row(nh)
+        v = np.zeros((len(tid), RADIX), complex)
+        for q in range(RADIX):   # X[k] at slot k, unpadded
+            k = t + (q << log2T)
+            v[live, q] = x[row[live], k[live]]
+            load_runs += warp_runs(row * (nh + 1) + k, live)
+            sh.store(base + k, v[:, q])
+        first = t == 0   # thread 0 of a row: X[nh] at slot nh
+        last = np.zeros(len(tid), complex)
+        last[first & live] = x[row[first & live], nh]
+        sh.store(base + nh, last, first)
+        for q in range(RADIX):
+            k = t + (q << log2T)
+            a, bc = v[:, q], np.conj(sh.load(base + nh - k))
+            v[:, q] = 0.5 * (a + bc) + 1j * (np.conj(wu[k]) * (0.5 * (a - bc)))
+        row_fft(sh, base, v, t, log2n, w, inverse=True)
+        sh.check_wavefronts()
+        for q in range(RADIX):
+            k = t + (q << log2T)
+            z[row[live], k[live]] = v[live, q] / nh
+            np.add.at(written, (row[live], k[live]), 1)
+            store_runs += warp_runs(row * nh + k, live)
+    assert (written == 1).all()
+    y = np.empty((batch, 2 * nh))
+    y[:, 0::2], y[:, 1::2] = z.real, z.imag
+    return y, load_runs, store_runs
+
+
+@pytest.mark.parametrize('points', [4096, 8192, 16384])
+@pytest.mark.parametrize('nh', [256, 512, 1024, 2048, 4096])
+def test_k12ir_index_maps(nh, points):
+    """K12ir with each block size K12 takes, on a batch that leaves a ragged
+    last block: every value of every row once, the entangle of each X[k]
+    against its mirror X[nh-k] read from the unpadded staged row in the
+    least wavefronts (k = 0 against X[nh]), each warp's loads and stores
+    as neighbouring bins of a row, and the rows of the half spectra's
+    inverse against np.fft.irfft and the plain version, whose X[0] and
+    X[nh] keep their imaginary parts."""
+    from dsc_tpu_torch.fourier import base_fft
+
+    rows = points // nh
+    rng = np.random.default_rng(nh + points + 2)
+    batch = 2 * rows + 1
+    sig = rng.standard_normal((batch, 2 * nh))
+    spec, (w, wu) = plan.get_plan(2 * nh, 'real', torch.complex128, 'cpu')
+    assert spec == ('base', nh)
+    x = np.fft.rfft(sig, axis=1)
+    x[:, [0, nh]] += 1j * rng.standard_normal((batch, 2))
+    got, load_runs, store_runs = emulate_k12ir(x, w.numpy(), wu.numpy(), rows)
+    want = base_fft.irfft_base_plain(torch.from_numpy(x), w, wu).numpy()
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-12
+    real = x.copy()
+    real[:, [0, nh]] = real[:, [0, nh]].real
+    got_real, _, _ = emulate_k12ir(real, w.numpy(), wu.numpy(), rows)
+    assert np.abs(got_real - sig).max() / np.abs(sig).max() < 1e-12
+    # a warp loads and stores one run of 32 bins, two of 16 where a row has
+    # 16 threads
+    for runs in (load_runs, store_runs):
+        assert all((lengths == min(32, nh // 16)).all() for lengths in runs)
 
 
 def slot_row(b, npairs, P, n1, slot):
