@@ -1755,16 +1755,14 @@ def models_phase(dsc, card: str, compare) -> dict:
 
 def core_launches(steps) -> dict:
     """The launches the FFT core's calls ``steps`` make on the card by its
-    own rule (fourier/core.py, config.py): each step (kind, batch, n) one
+    own rule (config.batched_engine): each step (kind, batch, n) one
     fft_batched ('c2c'), rfft_batched ('r2c') or irfft_batched ('c2r') of
     float32/complex64 rows. Streamed rows take K6 + K7 (a single c2r row
-    K11 first, where the kernel takes its size); the plain core launches
-    K12 once for each complex64 base case of its plan (the half-size plan
-    of a real transform up to plan.RFFT_PACK_MAX), where an rfft's rows
-    do not ride K12r, which folds that base case and the untangle into one
-    launch, and an irfft's do not ride K12ir, which folds the entangle and
-    the base case."""
-    from dsc_tpu_torch.fourier import config, core, plan, reconstruct
+    K11 first, where the kernel takes its size); rows that ride K12r or
+    K12ir take one launch; the plain core launches K12 once for each
+    complex64 base case of its plan (the half-size plan of a real transform
+    up to plan.RFFT_PACK_MAX)."""
+    from dsc_tpu_torch.fourier import config, plan, reconstruct
 
     def k12(spec):
         if spec[0] == 'base':
@@ -1773,24 +1771,19 @@ def core_launches(steps) -> dict:
 
     want = dict.fromkeys(KERNELS, 0)
     for kind, batch, n in steps:
-        real = kind != 'c2c'
         one_row = torch.empty((batch, 0), dtype=torch.complex64, device='meta')
         if kind == 'c2r' and n > plan.RFFT_PACK_MAX:
             want['reconstruct'] += int(reconstruct.kernel_takes(one_row, n))
-        if config.core_streams(batch, n, real):
+        engine = config.batched_engine(
+            kind, torch.float32 if kind == 'r2c' else torch.complex64, batch, n)
+        if engine == 'stream':
             want['stream_phase_a'] += 1
             want['stream_phase_b'] += 1
+        elif engine == 'base':
+            want['base_rfft' if kind == 'r2c' else 'base_irfft'] += 1
         else:
-            half = real and n <= plan.RFFT_PACK_MAX
-            spec = plan.build_spec(max(n // 2, 1) if half else n)
-            if kind == 'r2c' and n > 1 and core.rides_base_rfft(
-                    torch.float32, torch.device('cuda'), spec, half or None):
-                want['base_rfft'] += 1
-            elif kind == 'c2r' and n > 1 and core.rides_base_irfft(
-                    torch.complex64, torch.device('cuda'), spec, half or None):
-                want['base_irfft'] += 1
-            else:
-                want['base_fft'] += k12(spec)
+            half = kind != 'c2c' and n <= plan.RFFT_PACK_MAX
+            want['base_fft'] += k12(plan.build_spec(max(n // 2, 1) if half else n))
     return {name: count for name, count in want.items() if count}
 
 

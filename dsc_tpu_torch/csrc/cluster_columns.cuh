@@ -68,11 +68,11 @@
 // 1024 take 268 KB, more than an SM has, and P = 512 would need clusters of
 // 16 CTAs at L = 8192 (beyond the portable 8); W = 8 for complex64 (one
 // CTA of 512 threads a SM) ran 6-13% slower than W = 4 at (4096, 1024) and
-// (8192, 2048), 4% faster at (4096, 512) (chip_local_variants.py).
+// (8192, 2048), 4% faster at (4096, 512) (PERF.md, Findings: K6/K7 local).
 //
-// Measured on an H100 (clock64 stamps of each CTA's thread 0,
-// chip_local_variants.py, PERF.md): a group's passes take ~6,600-11,500
-// cycles (K7 local's, three CTAs a SM, the longer), the two cluster
+// Measured on an H100 (clock64 stamps of each CTA's thread 0; PERF.md,
+// Findings: K6/K7 local): a group's passes take ~6,600-11,500 cycles
+// (K7 local's, three CTAs a SM, the longer), the two cluster
 // barriers and their skew ~3,000-8,500, the distributed reads, DFT_Q and
 // stores ~4,500-5,900. What it does not do: overlap a cluster's barrier
 // waits with its own next group (only with other CTAs' work); the grid's
@@ -107,7 +107,7 @@ __host__ __device__ constexpr int local_log2w(bool real) { return real ? 3 : 2; 
 // CTAs a SM: at W = 4 (P*W/16 = 256 threads, ~67 KB), three of K7 local
 // (80 registers a thread; 0.4-7% faster than two) and two of K6 local (128:
 // at 80 its twiddled store spills ~350 bytes a thread and ran 4-25%
-// slower; chip_local_variants.py); one of 512 threads at W = 8
+// slower; PERF.md, Findings: K6/K7 local); one of 512 threads at W = 8
 __host__ __device__ constexpr int local_ctas_per_sm(int log2w, bool rows_out) {
   return log2w == 2 ? (rows_out ? 2 : 3) : 1;
 }

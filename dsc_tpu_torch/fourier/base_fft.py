@@ -38,6 +38,13 @@ ROWS = {256: 16, 512: 8, 1024: 4, 2048: 2, 4096: 2}
 MIN_BLOCKS = 264      # R halves until the grid has two blocks a SM (132 SMs)
 
 
+_SIZES = f'a power of two in [{BASE_KERNEL_MIN_N}, {BASE_KERNEL_MAX_N}]'  # K12's rows
+
+
+def _takes(n: int) -> bool:
+    return not n & (n - 1) and BASE_KERNEL_MIN_N <= n <= BASE_KERNEL_MAX_N
+
+
 @functools.lru_cache(maxsize=None)
 def block_rows(n: int, batch: int) -> int:
     """R, the rows a block of K12 over ``batch`` n-point rows: ROWS, halved
@@ -61,9 +68,8 @@ def fft_base(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     b, n = x.shape
     if x.device.type == 'cpu':
         return fft_base_plain(x, w)
-    if n & (n - 1) or not BASE_KERNEL_MIN_N <= n <= BASE_KERNEL_MAX_N:
-        raise RuntimeError(f'base_fft: n={n} is not a power of two in '
-                           f'[{BASE_KERNEL_MIN_N}, {BASE_KERNEL_MAX_N}]')
+    if not _takes(n):
+        raise RuntimeError(f'base_fft: n={n} is not {_SIZES}')
     return _launch(x, w, block_rows(n, b))
 
 
@@ -93,11 +99,9 @@ def rfft_base(x: torch.Tensor, w: torch.Tensor, wu: torch.Tensor) -> torch.Tenso
     b, n = x.shape
     if x.device.type == 'cpu':
         return rfft_base_plain(x, w, wu)
-    nh = n // 2
-    if n != 2 * nh or nh & (nh - 1) or not BASE_KERNEL_MIN_N <= nh <= BASE_KERNEL_MAX_N:
-        raise RuntimeError(f'base_rfft: n={n} is not twice a power of two in '
-                           f'[{BASE_KERNEL_MIN_N}, {BASE_KERNEL_MAX_N}]')
-    return _launch_rfft(x, w, wu, block_rows(nh, b))
+    if n % 2 or not _takes(n // 2):
+        raise RuntimeError(f'base_rfft: n={n} is not twice {_SIZES}')
+    return _launch_rfft(x, w, wu, block_rows(n // 2, b))
 
 
 def _launch_rfft(x: torch.Tensor, w: torch.Tensor, wu: torch.Tensor,
@@ -134,12 +138,10 @@ def irfft_base(x: torch.Tensor, w: torch.Tensor, wu: torch.Tensor) -> torch.Tens
     b, m = x.shape
     if x.device.type == 'cpu':
         return irfft_base_plain(x, w, wu)
-    nh = m - 1
-    if nh & (nh - 1) or not BASE_KERNEL_MIN_N <= nh <= BASE_KERNEL_MAX_N:
-        raise RuntimeError(f'base_irfft: {m} bins are not one more than a power of two in '
-                           f'[{BASE_KERNEL_MIN_N}, {BASE_KERNEL_MAX_N}]')
+    if not _takes(m - 1):
+        raise RuntimeError(f'base_irfft: {m} bins are not one more than {_SIZES}')
     x = x.resolve_conj().resolve_neg().contiguous()
-    return _launch_irfft(x, w, wu, block_rows(nh, b))
+    return _launch_irfft(x, w, wu, block_rows(m - 1, b))
 
 
 def _launch_irfft(x: torch.Tensor, w: torch.Tensor, wu: torch.Tensor,

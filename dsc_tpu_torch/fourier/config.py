@@ -17,15 +17,15 @@ by size alone (``core_streams``), as the JAX core does. Routes:
 - 'stream'  K6+K7 through the core (an irfft reconstructs its spectrum
             plainly first);
 - 'reconstruct+stream'  a single complex64 irfft row: K11, then K6+K7;
-- 'core'    the plain core (core.py) with no streaming, which runs K12 at
-            complex64 base cases.
+- 'core'    the batched core (core.py) with no streaming.
 
 The public functions pass the route to the core, which streams on
 'stream' and 'reconstruct+stream' and nowhere else; a direct call to the
-core decides by ``core_streams``.
+core decides by ``core_streams``. Which engine the core runs on a batch of
+rows is ``batched_engine``'s answer, and no other code's.
 
-The route does not depend on the device: on a CPU tensor every kernel
-wrapper runs its plain version, on a CUDA tensor it launches its kernel.
+Neither rule reads the device: on a CPU tensor every kernel wrapper runs
+its plain version, on a CUDA tensor it launches its kernel.
 The JAX package's DSC_FFT_* knobs are TPU experiment switches and are not
 carried over.
 """
@@ -35,14 +35,16 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..dtype import Dtype
 from . import stream
-from .plan import RFFT_PACK_MAX
+from .plan import BASE_MAX, RFFT_PACK_MAX
 
-# base-case kernel K12 sizes (dsc_tpu config.py:20-21)
+# base-case kernel K12 sizes (dsc_tpu config.py:20-21); the largest is the
+# plan's leaf size, so that K12 serves every complex64 leaf of a plan
 BASE_KERNEL_MIN_N = 256
-BASE_KERNEL_MAX_N = 4096
+BASE_KERNEL_MAX_N = BASE_MAX
 
 # largest batch*n the streaming kernels take (dsc_tpu config.py:92)
 STREAM_MAX_ELEMS = 2**27
@@ -68,11 +70,31 @@ def use_stream(batch: int, n: int) -> bool:
 
 
 def core_streams(batch: int, n: int, real: bool = False) -> bool:
-    """The core's own stream rule for float32/complex64 rows (dsc_tpu
-    core._stream_ok): the streaming size range, where a real transform's
-    'real' plan keeps its half-size path up to RFFT_PACK_MAX. core.py
-    applies it to direct calls; the route functions apply it with ``out=``."""
+    """The core's own stream rule for float32/complex64 rows: the streaming
+    size range, where a real transform's 'real' plan keeps its half-size
+    path up to RFFT_PACK_MAX. ``batched_engine`` applies it to direct calls
+    into the core; the route functions apply it with ``out=``."""
     return use_stream(batch, n) and not (real and n <= RFFT_PACK_MAX)
+
+
+def batched_engine(kind: str, dtype: torch.dtype, batch: int, n: int,
+                   streams: Optional[bool] = None) -> str:
+    """The engine of an n-point 'c2c', 'r2c' or 'c2r' transform (core.py
+    fft_batched, rfft_batched, irfft_batched) of ``batch`` rows of ``dtype``:
+    'stream' (K6+K7) where ``streams`` says so, or when it is None on
+    float32/complex64 rows that ``core_streams`` takes, as in
+    dsc_tpu core._stream_ok; 'base', one K12r ('r2c', float32 rows) or K12ir
+    ('c2r', complex64 half spectra) launch, where the packed half-size
+    transform is a K12 base case; else 'plain', the core's own path."""
+    if streams is None:
+        streams = (dtype in (torch.float32, torch.complex64)
+                   and core_streams(batch, n, kind != 'c2c'))
+    if streams:
+        return 'stream'
+    if ((kind, dtype) in (('r2c', torch.float32), ('c2r', torch.complex64))
+            and 1 < n <= RFFT_PACK_MAX and use_base_kernel(np.complex64, n // 2)):
+        return 'base'
+    return 'plain'
 
 
 def use_packed(n: int) -> bool:

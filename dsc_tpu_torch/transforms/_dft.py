@@ -129,7 +129,7 @@ def dft_rows(x: torch.Tensor, tabs: Any, static: Tuple, inverse: bool) -> torch.
         (tables,) = tabs
         # float32 rows that stream take K6's real-input variant; the
         # core's plain path wants complex rows
-        if not x.is_complex() and not config.core_streams(x.shape[0], n):
+        if config.batched_engine('c2c', x.dtype, x.shape[0], n) != 'stream':
             x = x.to(torch.complex64)
         return core.fft_batched(x, spec, tables, inverse)
     _, n, m, spec = static

@@ -11,7 +11,7 @@ import jax  # noqa: E402
 
 import dsc_tpu_torch as dt  # noqa: E402
 from dsc_tpu.fourier import pallas_kernels  # noqa: E402
-from dsc_tpu_torch.fourier import base_fft, plan  # noqa: E402
+from dsc_tpu_torch.fourier import base_fft, config, core, plan  # noqa: E402
 
 
 @pytest.fixture(scope='module', autouse=True)
@@ -49,6 +49,22 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(n, match):
     x = torch.empty((2, n), dtype=torch.complex64, device='meta')
     with pytest.raises(RuntimeError, match=match):
         base_fft.fft_base(x, w)
+
+
+def test_k12_takes_every_leaf_of_the_plan():
+    """K12's largest size is the plan's leaf size, one constant: no leaf of
+    a plan is longer than K12 takes, and every complex64 leaf of 256
+    points or more runs K12."""
+    assert config.BASE_KERNEL_MAX_N is plan.BASE_MAX
+
+    def leaves(spec):
+        return [spec[1]] if spec[0] == 'base' else leaves(spec[3]) + leaves(spec[4])
+
+    assert plan.build_spec(2 * plan.BASE_MAX)[0] == 'split'
+    for log2n in range(25):
+        for leaf in leaves(plan.build_spec(1 << log2n)):
+            assert leaf <= config.BASE_KERNEL_MAX_N
+            assert config.use_base_kernel(np.complex64, leaf) == (leaf >= 256)
 
 
 @pytest.mark.parametrize('batch', [1, 3, 130, 1000, 65536])
@@ -139,27 +155,31 @@ def test_rfft_plain_float32_batches(batch, nh):
     (torch.float32, 'cuda', 16384, False),     # a half of 8192: the four-step
     (torch.float32, 'cuda', 2**17, False),     # no packed half-size plan
     (torch.float64, 'cuda', 1024, False),
-    (torch.float32, 'cpu', 1024, False),
+    (torch.float32, 'cpu', 1024, True),
     (torch.float64, 'cpu', 1024, False),
-    (torch.float32, 'meta', 1024, False),
+    (torch.float32, 'meta', 1024, True),
 ])
 def test_which_rows_ride_k12r(dtype, device, n, takes):
-    """The route of a batched rfft's rows that do not stream: CUDA float32
-    rows of 512..8192 points take K12r; every other row keeps K12 (or
-    Stockham) and the plain untangle."""
-    from dsc_tpu_torch.fourier import core
-
+    """The engine of a batched rfft's rows that do not stream
+    (config.batched_engine): float32 rows of 512..8192 points take K12r,
+    whose wrapper launches it on a CUDA tensor, runs its plain version on a
+    CPU one and refuses any other; every other row keeps the core's plain
+    path (K12 or Stockham, and the untangle). The rule reads no device: the
+    rows' device does not change the answer."""
     cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
     spec, (_, wu) = plan.get_plan(n, 'real', cdt, 'cpu')
-    assert core.rides_base_rfft(dtype, torch.device(device), spec, wu) is takes
+    engine = config.batched_engine('r2c', dtype, 4, n, streams=False)
+    assert engine == ('base' if takes else 'plain'), device
+    if takes:  # the kernel's tables: the packed half-size base-case plan
+        assert spec == ('base', n // 2) and wu.shape == (n // 2 + 1,)
 
 
 def test_rfft_batched_sends_riding_rows_to_k12r(monkeypatch):
     """rfft_batched hands rows that ride K12r to ``rfft_base`` with the
-    plan's tables, and keeps its own half-size transform and untangle for
-    the rest: on a CPU tensor both give the same numbers."""
+    plan's tables, on a CPU tensor too, and keeps its own half-size
+    transform and untangle for the rows the rule sends to 'plain': on a CPU
+    tensor both give the same numbers, bit for bit."""
     from dsc_tpu_torch import tracing
-    from dsc_tpu_torch.fourier import core
 
     n = 1024
     spec, tables = plan.get_plan(n, 'real', torch.complex64, 'cpu')
@@ -171,10 +191,11 @@ def test_rfft_batched_sends_riding_rows_to_k12r(monkeypatch):
     tracing.clear_traces()
     tracing.set_recording(True)
     try:
-        plain = core.rfft_batched(x, spec, tables, n)
-        assert calls == [] and tracing.totals()[('plain', 'untangle')]['count'] == 1
-        monkeypatch.setattr(core, 'rides_base_rfft', lambda *a: True)
         got = core.rfft_batched(x, spec, tables, n)
+        assert len(calls) == 1
+        monkeypatch.setattr(config, 'batched_engine', lambda *a: 'plain')
+        plain = core.rfft_batched(x, spec, tables, n)
+        assert tracing.totals()[('plain', 'untangle')]['count'] == 2
     finally:
         tracing.set_recording(False)
         tracing.clear_traces()
@@ -205,22 +226,22 @@ def _half_spectra(batch, nh, seed, cdtype):
 
 @pytest.mark.parametrize('batch', [1, 7, 64])
 @pytest.mark.parametrize('nh', [256, 512, 1024, 2048, 4096])
-def test_irfft_plain_matches_the_batched_route(nh, batch):
-    """K12ir's plain version gives what irfft_batched's plain route gives
-    today, bit for bit, on half spectra with nonzero Im X[0] and Im X[nh]:
+def test_irfft_plain_matches_the_batched_route(nh, batch, monkeypatch):
+    """K12ir's plain version gives what irfft_batched's own plain route
+    gives, bit for bit, on half spectra with nonzero Im X[0] and Im X[nh]:
     the entangle's k = 0 pairs X[0] with X[nh] and folds both imaginary
     parts in, as the JAX package does; the wrapper runs it for a CPU
     tensor."""
-    from dsc_tpu_torch.fourier import core
-
     n = 2 * nh
     spec, tables = plan.get_plan(n, 'real', torch.complex64, 'cpu')
     w, wu = tables
     x = _half_spectra(batch, nh, nh + batch, np.complex64)
     got = base_fft.irfft_base_plain(x, w, wu)
     assert got.dtype == torch.float32 and got.shape == (batch, n)
-    np.testing.assert_array_equal(got.numpy(), core.irfft_batched(x, spec, tables, n).numpy())
     np.testing.assert_array_equal(base_fft.irfft_base(x, w, wu).numpy(), got.numpy())
+    np.testing.assert_array_equal(core.irfft_batched(x, spec, tables, n).numpy(), got.numpy())
+    monkeypatch.setattr(config, 'batched_engine', lambda *a: 'plain')
+    np.testing.assert_array_equal(core.irfft_batched(x, spec, tables, n).numpy(), got.numpy())
     # the imaginary parts of X[0] and X[nh] move the result: the route
     # does not drop them as np.fft.irfft does
     x0 = x.clone()
@@ -261,27 +282,31 @@ def test_irfft_plain_against_numpy_in_float64(nh, batch):
     (torch.complex64, 'cuda', 2**17, False),    # no packed half-size plan
     (torch.complex128, 'cuda', 1024, False),
     (torch.float32, 'cuda', 1024, False),
-    (torch.complex64, 'cpu', 1024, False),
+    (torch.complex64, 'cpu', 1024, True),
     (torch.complex128, 'cpu', 1024, False),
-    (torch.complex64, 'meta', 1024, False),
+    (torch.complex64, 'meta', 1024, True),
 ])
 def test_which_rows_ride_k12ir(dtype, device, n, takes):
-    """The route of a batched irfft's rows that do not stream: CUDA
-    complex64 half spectra of 512..8192-point rows take K12ir; every other
-    row keeps the plain entangle and K12 (or Stockham)."""
-    from dsc_tpu_torch.fourier import core
-
+    """The engine of a batched irfft's rows that do not stream
+    (config.batched_engine): complex64 half spectra of 512..8192-point rows
+    take K12ir, whose wrapper launches it on a CUDA tensor, runs its plain
+    version on a CPU one and refuses any other; every other row keeps the
+    core's plain path (the entangle, and K12 or Stockham). The rule reads
+    no device: the rows' device does not change the answer."""
     cdt = torch.complex128 if dtype == torch.complex128 else torch.complex64
     spec, (_, wu) = plan.get_plan(n, 'real', cdt, 'cpu')
-    assert core.rides_base_irfft(dtype, torch.device(device), spec, wu) is takes
+    engine = config.batched_engine('c2r', dtype, 4, n, streams=False)
+    assert engine == ('base' if takes else 'plain'), device
+    if takes:  # the kernel's tables: the packed half-size base-case plan
+        assert spec == ('base', n // 2) and wu.shape == (n // 2 + 1,)
 
 
 def test_irfft_batched_sends_riding_rows_to_k12ir(monkeypatch):
     """irfft_batched hands rows that ride K12ir to ``irfft_base`` with the
-    plan's tables, and keeps its own entangle and half-size inverse for the
-    rest: on a CPU tensor both give the same numbers."""
+    plan's tables, on a CPU tensor too, and keeps its own entangle and
+    half-size inverse for the rows the rule sends to 'plain': on a CPU
+    tensor both give the same numbers, bit for bit."""
     from dsc_tpu_torch import tracing
-    from dsc_tpu_torch.fourier import core
 
     n = 1024
     spec, tables = plan.get_plan(n, 'real', torch.complex64, 'cpu')
@@ -293,10 +318,11 @@ def test_irfft_batched_sends_riding_rows_to_k12ir(monkeypatch):
     tracing.clear_traces()
     tracing.set_recording(True)
     try:
-        plain = core.irfft_batched(x, spec, tables, n)
-        assert calls == [] and tracing.totals()[('plain', 'entangle')]['count'] == 1
-        monkeypatch.setattr(core, 'rides_base_irfft', lambda *a: True)
         got = core.irfft_batched(x, spec, tables, n)
+        assert len(calls) == 1
+        monkeypatch.setattr(config, 'batched_engine', lambda *a: 'plain')
+        plain = core.irfft_batched(x, spec, tables, n)
+        assert tracing.totals()[('plain', 'entangle')]['count'] == 2
     finally:
         tracing.set_recording(False)
         tracing.clear_traces()

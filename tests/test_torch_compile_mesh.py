@@ -440,14 +440,18 @@ def test_compile_mesh_lru_trace_event_and_kwargs(monkeypatch):
 
 
 def _routes():
-    """fourier/config.py's and K5's routes over a spread of shapes."""
+    """fourier/config.py's routes and batched engines, and K5's routes, over
+    a spread of shapes."""
     out = []
     for batch, n in ((1, 2**18), (1, 2**20), (4, 2**20), (16, 512), (1, 4096)):
         out.append((config.fft_route(dt.Dtype.C32, batch, n, False),
                     config.rfft_route(dt.Dtype.F32, batch, n),
                     config.irfft_route(dt.Dtype.C32, batch, n),
                     config.use_base_kernel(np.complex64, n), config.use_stream(batch, n),
-                    config.use_packed(n)))
+                    config.use_packed(n),
+                    config.batched_engine('c2c', torch.complex64, batch, n),
+                    config.batched_engine('r2c', torch.float32, batch, n),
+                    config.batched_engine('c2r', torch.complex64, batch, n)))
     out.append(sm.route([(4096, 4096)], [torch.float32]))
     return out
 

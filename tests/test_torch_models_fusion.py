@@ -181,14 +181,17 @@ def test_stft_modes(mode):
 
 
 def test_stft_frame_1024_rides_k12(monkeypatch):
-    """A 1024-sample frame: the batched core runs the 512-point half-size
-    transform through K12's wrapper, as the JAX core runs its base kernel."""
+    """A 1024-sample frame: the batched core runs the frames' rfft, whose
+    512-point half-size transform is a K12 base case, through K12r's
+    wrapper (its plain version on a CPU tensor), as the JAX core runs its
+    base kernel."""
     calls = []
-    fft_base = base_fft.fft_base
-    monkeypatch.setattr(base_fft, 'fft_base', lambda x, w: calls.append(x.shape) or fft_base(x, w))
+    rfft_base = base_fft.rfft_base
+    monkeypatch.setattr(base_fft, 'rfft_base',
+                        lambda x, w, wu: calls.append(x.shape) or rfft_base(x, w, wu))
     x = _rand(8192, 16)
     got = tm.spectrogram(dt.from_numpy(x), 1024, 256, window='hann')
-    assert calls and all(s[-1] == 512 for s in calls)
+    assert calls and all(s[-1] == 1024 for s in calls)
     want = np.log(np.abs(_np_stft(x, 1024, 256, np.hanning(1024))) ** 2 + 1e-10)
     assert got.shape == want.shape == (29, 513)
     assert np.abs(got.numpy() - want).max() < 1e-3

@@ -178,19 +178,20 @@ def test_psd_spectrogram(mode):
 
 def test_welch_segments_ride_k12(monkeypatch):
     """nperseg = 1024: one batched rfft, whose 512-point half-size rows are
-    one call of the base-case kernel's wrapper (K12) for all segments."""
+    one call of K12r's wrapper (the base-case kernel with the untangle in
+    its store) for all segments."""
     calls = []
-    fft_base = base_fft.fft_base
+    rfft_base = base_fft.rfft_base
 
-    def spy(x, w):
+    def spy(x, w, wu):
         calls.append(tuple(x.shape))
-        return fft_base(x, w)
+        return rfft_base(x, w, wu)
 
-    monkeypatch.setattr(base_fft, 'fft_base', spy)
+    monkeypatch.setattr(base_fft, 'rfft_base', spy)
     tm.welch(dt.from_numpy(_sig(2**14, 6)), nperseg=1024)
     x, y = _pair((2, 2**13), 7)
     tm.csd(dt.from_numpy(x), dt.from_numpy(y), nperseg=1024)
-    assert calls == [(31, 512), (2 * 2 * 15, 512)]
+    assert calls == [(31, 1024), (2 * 2 * 15, 1024)]
 
 
 def test_errors():
