@@ -45,8 +45,11 @@ Phases, each raising on failure (exit code 0 means all passed):
    np.fft in float64 at the first, K12ir (the batched irfft with the
    entangle in K12's load) at its launch shapes (IRFFT_SHAPES: the
    griffinlim cell's 55,168 x 1024, the model tier's rows), against
-   np.fft.irfft in float64 at the first, and K6/K7 at cwt's 64 x 2^17 rows,
-   and the rfft against np.fft in float64;
+   np.fft.irfft in float64 at the first, K12s (the whole forward STFT in
+   one launch) in each mode at its launches (STFT_SHAPES: both cells, the
+   griffinlim cell on its cropped view from sample -512, and phase 6c's),
+   and K6/K7 at cwt's 64 x 2^17 rows, and the rfft against np.fft in
+   float64;
 4. the public API at full size, as four paths, each with every launch count
    set to 0 just before it and read just after:
    a. the README quick start (2^20 samples, 255 taps, n = 2^21) and the
@@ -86,7 +89,10 @@ Phases, each raising on failure (exit code 0 means all passed):
    clip with tensor bounds, the broadcast-row add and the complex bodies
    at 2^23 + 1; K12 at
    2048 x 1, 4096 x 1000 and 65536 x 256; K12r at RFFT_SHAPES beside
-   torch.fft.rfft; K12ir at IRFFT_SHAPES beside torch.fft.irfft; and K8,
+   torch.fft.rfft; K12s at both cells of STFT_SHAPES, log and complex,
+   beside its plain version (ATen passes around K12r), torch.stft and K12r
+   alone on the windowed frames; K12ir at IRFFT_SHAPES beside
+   torch.fft.irfft; and K8,
    K9, K10 at 2^24 (T and
    half-T), 2^19 (half-T), 2^26 and 2^18 (T);
 6. the fusion tier and the models that ride it, every call with the counts
@@ -108,7 +114,7 @@ Phases, each raising on failure (exit code 0 means all passed):
       timed beside its bound and the eager chain, with nvcc's seconds;
    c. STFT(1024, 256, 'hann') log power of 1 x 2^20 and 16 x 2^18 inside
       dsc.profile(xprof_dir=...), whose trace must hold the stft op events
-      and K12r's device events; STFT complex -> ISTFT of 4 x 2^18;
+      and K12s's device events; STFT complex -> ISTFT of 4 x 2^18;
       OverlapSave(129 taps, fft_n = 8192) of 1 x 2^22 and 8 x 2^20; each
       against NumPy in float64 with the tolerances of the JAX package's
       tests, and timed with its device busy share.
@@ -423,6 +429,11 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     # TPU kernel (XLA fuses the JAX package's entangle)
     'base_irfft': ('dsc_tpu_torch/csrc/base_fft.cu',
                    'none: dsc_tpu/fourier/core.py irfft_batched_p, XLA-fused'),
+    # K12s: the forward STFT in one launch, K12r with the framing and the
+    # window in its load and the power or log in its store; no TPU kernel
+    # (XLA fuses the JAX package's framing, window and power)
+    'base_stft': ('dsc_tpu_torch/csrc/base_fft.cu',
+                  'none: dsc_tpu/models/stft.py _stft_program, XLA-fused'),
     'stream_map': ('dsc_tpu_torch/csrc/stream_map.cu',
                    'dsc_tpu/ops/pallas_map.py:83'),
     'stream_phase_a': ('dsc_tpu_torch/csrc/fourstep_stream.cu',
@@ -823,6 +834,17 @@ RFFT_SHAPES = ((54912, 512), (521, 4096), (1048, 4096), (4084, 512), (4093, 512)
 # 2048)
 IRFFT_SHAPES = ((55168, 512), (521, 4096), (1048, 4096), (4084, 512), (2049, 512), (1, 2048))
 IRFFT_REL_BOUND = 3e-7  # K12ir at IRFFT_SHAPES[0] against its plain version and np.fft.irfft
+# K12s's launches (rows, valid samples a row, row stride, start, frames, hop,
+# frame): the spectrogram cell (64 clips of 220,500, 54,912 frames) and the
+# griffinlim cell (the inverse's 221,440-sample rows cropped from sample 512
+# to 220,500, frame 0 at -512, 55,168 frames), both log and complex; phase
+# 6c's STFT of 1 x 2^20, 16 x 2^18 and 4 x 2^18 (4093, 16336 and 4084 frames)
+STFT_SHAPES = ((64, 220500, 220500, 0, 858, 256, 1024), (64, 220500, 221440, -512, 862, 256, 1024),
+               (1, 2**20, 2**20, 0, 4093, 256, 1024), (16, 2**18, 2**18, 0, 1021, 256, 1024),
+               (4, 2**18, 2**18, 0, 1021, 256, 1024))
+STFT_REL_BOUND = 3e-7  # K12s's spectrum and power against its plain version
+STFT_LOG_BOUND = 1e-5  # K12s's log power against its plain version, absolute
+STFT_ROWS = (4, 8, 16)  # K12s's R candidates at nh = 512: ROWS[512] and a neighbour each side
 PAIR_CANDIDATES = (2, 4, 8, 16)           # row pairs a block of K2 and K3
 
 
@@ -830,12 +852,13 @@ def row_candidates(card: str) -> None:
     """--profile: K12 with blocks of each size of ROW_CANDIDATES (R = points
     / n rows) at n = 256 ... 4096, over 2^24 values and over 1000 rows, K12r
     and K12ir with the same blocks at the first three of RFFT_SHAPES and of
-    IRFFT_SHAPES (R = points / nh rows), K2 and K3 with each P of PAIR_CANDIDATES that 1024 threads allow at
-    n = 2^20 ... 2^26, K9 in the T layout with blocks of each size of
-    ROW_CANDIDATES and the R its wrapper takes at 2^18 ... 2^26, back to
-    back in turns (a, b, c, c, b, a); the tables the wrappers take R and P
-    from are base_fft.ROWS (K12, K12r and K12ir), packed_fused.PAIRS and INV_PAIRS
-    and stream_t.ROWS."""
+    IRFFT_SHAPES (R = points / nh rows), K12s with each R of STFT_ROWS at the
+    two cells of STFT_SHAPES, log and complex, K2 and K3 with each P of
+    PAIR_CANDIDATES that 1024 threads allow at n = 2^20 ... 2^26, K9 in the T
+    layout with blocks of each size of ROW_CANDIDATES and the R its wrapper
+    takes at 2^18 ... 2^26, back to back in turns (a, b, c, c, b, a); the
+    tables the wrappers take R and P from are base_fft.ROWS (K12, K12r, K12s
+    and K12ir), packed_fused.PAIRS and INV_PAIRS and stream_t.ROWS."""
     from dsc_tpu_torch.fourier import base_fft, packed_fused as pf, plan, stream_t
     from dsc_tpu_torch.fourier.stream import factors
 
@@ -861,6 +884,16 @@ def row_candidates(card: str) -> None:
             f'{p} points (R={p // nh})':
                 lambda r=p // nh, x=x, w=w, wu=wu: base_fft._launch_rfft(x, w, wu, r)
             for p in ROW_CANDIDATES}))
+    for rows_, valid, stride, start, n_frames, hop, frame in STFT_SHAPES[:2]:
+        x, window, w, wu = stft_operands(rows_, valid, stride, start, frame)
+        nh = wu.shape[0] - 1
+        for mode in ('log', 'complex'):
+            cases.append((f'K12s {mode} {rows_ * n_frames} x {frame}, start {start} (the wrapper '
+                          f'takes R={base_fft.block_rows(nh, rows_ * n_frames)})', {
+                f'R={r}': lambda r=r, x=x, window=window, w=w, wu=wu, start=start, mode=mode,
+                n_frames=n_frames, hop=hop: base_fft._launch_stft(
+                    x, start, n_frames, hop, window, w, wu, mode, 1e-10, r)
+                for r in STFT_ROWS}))
     for batch, nh in IRFFT_SHAPES[:3]:
         w, wu = plan.get_plan(2 * nh, 'real', torch.complex64)[1]
         x = cnormal((batch, nh + 1))
@@ -902,6 +935,51 @@ def row_candidates(card: str) -> None:
             times[shape].append(back_to_back_ms(launches[shape], 50))
         print(f'  {what}: ' + '; '.join(f'{shape}: {float(np.mean(ms)):.4f} ms'
                                         for shape, ms in times.items()))
+
+
+def stft_operands(rows, valid, stride, start, frame, seed=7):
+    """A K12s launch's operands on the card: ``rows`` signal rows of
+    ``valid`` samples, ``stride`` floats apart (from float ``-start`` of each
+    where start is negative, as Griffin-Lim's cropped view), a periodic Hann
+    window of ``frame`` and the K12r tables of its transform."""
+    from dsc_tpu_torch.fourier import plan
+
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    wide = torch.randn((rows, stride), generator=gen, device='cuda')
+    x = wide[:, max(0, -start):max(0, -start) + valid]
+    fft_n = plan.next_pow2(frame)
+    w, wu = plan.get_plan(fft_n, 'real', torch.complex64)[1]
+    return x, torch.hann_window(frame, device='cuda'), w, wu
+
+
+def stft_times(timed) -> None:
+    """K12s at the cells of STFT_SHAPES, log and complex, beside its plain
+    version (the framing, window, power and log as ATen passes around K12r)
+    and torch.stft, and K12r alone on the windowed frames; its bound: the
+    signal read once, the spectrogram written once."""
+    from dsc_tpu_torch.fourier import base_fft
+
+    for rows, valid, stride, start, n_frames, hop, frame in STFT_SHAPES[:2]:
+        x, window, w, wu = stft_operands(rows, valid, stride, start, frame)
+        nh, b = wu.shape[0] - 1, rows * n_frames
+        frames = []
+        base_fft.stft_plain(x, start, n_frames, hop, window, 2 * nh, 'complex', 0.0,
+                            lambda fx: frames.append(fx.contiguous()) or fx)
+        k12r_ms = back_to_back_ms(lambda: base_fft.rfft_base(frames[0], w, wu), 50)
+        for mode in ('log', 'complex'):
+            out = (8 if mode == 'complex' else 4) * b * (nh + 1)
+            row = timed('base_stft', f'{mode} {b} x {frame}, start {start}',
+                        lambda: base_fft.stft_base(x, start, n_frames, hop, window, w, wu, mode,
+                                                   1e-10),
+                        lambda: base_fft.stft_base_plain(x, start, n_frames, hop, window, w, wu,
+                                                         mode, 1e-10),
+                        lambda: torch.stft(x, 2 * nh, hop, frame, window, center=False,
+                                           return_complex=True),
+                        4 * rows * valid + nbytes(window, w, wu) + out,
+                        fft_ops(b * nh, nh) + 10 * b * nh + 2 * b * frame)
+            print(f'    K12s {mode} {b} x {frame}: {100 * row["bound_ms"] / row["ms"]:.1f}% of '
+                  f'its bound; K12r alone on the windowed frames {k12r_ms:.4f} ms')
+        del frames
 
 
 def rfft_times(timed, normal) -> None:
@@ -1332,13 +1410,14 @@ def fusion_phase(dsc, card: str, compare, timed) -> dict:
         frames = np.lib.stride_tricks.sliding_window_view(sig.astype(np.float64), 1024, axis=-1)
         return np.fft.rfft(frames[..., ::256, :] * win, axis=-1)
 
-    # every K12, K12r and K12ir launch of the models' runs below, by (batch,
-    # n), to hold the kernels to their plain versions at those launch shapes
-    # after them
+    # every K12, K12r, K12ir and K12s launch of the models' runs below, by
+    # (batch, n) and K12s's by its geometry, to hold the kernels to their
+    # plain versions at those launch shapes after them
     from dsc_tpu_torch.fourier import base_fft, plan
     fft_base, k12_shapes = base_fft.fft_base, set()
     rfft_base, k12r_shapes = base_fft.rfft_base, set()
     irfft_base, k12ir_shapes = base_fft.irfft_base, set()
+    stft_base, k12s_shapes = base_fft.stft_base, set()
 
     def spy(x, w):
         k12_shapes.add(tuple(x.shape))
@@ -1352,14 +1431,19 @@ def fusion_phase(dsc, card: str, compare, timed) -> dict:
         k12ir_shapes.add(tuple(x.shape))
         return irfft_base(x, w, wu)
 
+    def sspy(x, start, n_frames, hop, window, w, wu, mode, eps):
+        k12s_shapes.add((*x.shape, x.stride(0), start, n_frames, hop, window.shape[0], mode))
+        return stft_base(x, start, n_frames, hop, window, w, wu, mode, eps)
+
     base_fft.fft_base, base_fft.rfft_base, base_fft.irfft_base = spy, rspy, irspy
+    base_fft.stft_base = sspy
     trace = os.path.join(REPO, 'build', 'chip_smoke_stft_traces.json')
     xprof = os.path.join(REPO, 'build', 'chip_smoke_xprof')
     sigs = {'1 x 2^20': gen.standard_normal(2**20).astype(np.float32),
             '16 x 2^18': gen.standard_normal((16, 2**18)).astype(np.float32)}
     tens = {what: dsc.from_numpy(v) for what, v in sigs.items()}
     # torch.profiler now and then drops a device event (device_profile);
-    # a trace that lacks K12r's is taken again from the same two calls,
+    # a trace that lacks K12s's is taken again from the same two calls,
     # uncounted, at most twice
     for attempt in range(3):
         with dsc.profile(trace, serve=False, xprof_dir=xprof):
@@ -1373,14 +1457,14 @@ def fusion_phase(dsc, card: str, compare, timed) -> dict:
         with open(trace) as f:
             events = json.load(f)['traceEvents']
         n_stft = sum(ev.get('name') == 'stft' and ev.get('ph') == 'B' for ev in events)
-        k12r = [ev for ev in events if ev.get('pid', 0) >= 1 << 22 and 'base_rfft_kernel' in
+        k12s = [ev for ev in events if ev.get('pid', 0) >= 1 << 22 and 'base_stft_kernel' in
                 ev.get('name', '')]
         print(f'  STFT trace ({trace}): {len(events)} events, {n_stft} stft op events, '
-              f'{len(k12r)} K12r device events')
-        if len(k12r) >= 2:
+              f'{len(k12s)} K12s device events')
+        if len(k12s) >= 2:
             break
-        print('  torch.profiler lost K12r device events of the STFT trace, tracing again')
-    require(n_stft == 2 and len(k12r) >= 2, 'the STFT trace lacks op or K12r device events')
+        print('  torch.profiler lost K12s device events of the STFT trace, tracing again')
+    require(n_stft == 2 and len(k12s) >= 2, 'the STFT trace lacks op or K12s device events')
     for what, sig in sigs.items():
         # the power, exp(log(p + eps)) - eps, held as tests/test_models.py
         # holds the JAX package's (atol = rtol = 1e-3): the log of a bin
@@ -1412,10 +1496,13 @@ def fusion_phase(dsc, card: str, compare, timed) -> dict:
              conv64(sig, taps_np, 2 * sig.shape[-1]))
         model_rows.append((f'OverlapSave 129 taps fft_n=8192 {what}', lambda ts=ts: ola(ts)))
     base_fft.fft_base, base_fft.rfft_base, base_fft.irfft_base = fft_base, rfft_base, irfft_base
+    base_fft.stft_base = stft_base
     require(launches['base_rfft'] > 0, 'K12r was not launched by the models')
+    require(launches['base_stft'] > 0, 'K12s was not launched by the models')
     require(launches['base_irfft'] > 0, 'K12ir was not launched by the models')
     print(f'  K12 at the models\' launch shapes (batch, n): {sorted(k12_shapes)}; K12r: '
-          f'{sorted(k12r_shapes)}; K12ir (batch, nh + 1): {sorted(k12ir_shapes)}')
+          f'{sorted(k12r_shapes)}; K12ir (batch, nh + 1): {sorted(k12ir_shapes)}; K12s (rows, '
+          f'samples, stride, start, frames, hop, frame, mode): {sorted(k12s_shapes)}')
     kg = torch.Generator(device='cuda').manual_seed(12)
     for b, n in sorted(k12_shapes):
         w = plan.get_plan(n, 'complex', torch.complex64)[1]
@@ -1433,6 +1520,9 @@ def fusion_phase(dsc, card: str, compare, timed) -> dict:
         compare('base_irfft', base_fft.irfft_base(z, w, wu),
                 base_fft.irfft_base_plain(z, w, wu),
                 f'{b} x {m} bins (R={base_fft.block_rows(m - 1, b)}), a models\' shape')
+    for rows, valid, stride, start, n_frames, hop, frame, mode in sorted(k12s_shapes):
+        stft_check(compare, (rows, valid, stride, start, n_frames, hop, frame), mode,
+                   'a models\' shape')
     del z
     for what, model_fn in model_rows:
         wall = host_ms(model_fn)
@@ -1444,7 +1534,7 @@ def fusion_phase(dsc, card: str, compare, timed) -> dict:
 
 
 # the device kernels of the port, by a part of their names in torch.profiler
-PORT_KERNEL_NAMES = ('base_fft_kernel', 'base_rfft_kernel', 'base_irfft_kernel',
+PORT_KERNEL_NAMES = ('base_fft_kernel', 'base_rfft_kernel', 'base_irfft_kernel', 'base_stft_kernel',
                      'stream_column_kernel',
                      'rfft_phase_b_kernel', 'irfft_phase_a_kernel', 'inv_phase_a_t_kernel',
                      'reconstruct_kernel', 'map_kernel')
@@ -1475,6 +1565,7 @@ def model_wrappers():
     return ((base_fft, 'fft_base', base_fft.fft_base_plain, 'base_fft'),
             (base_fft, 'rfft_base', base_fft.rfft_base_plain, 'base_rfft'),
             (base_fft, 'irfft_base', base_fft.irfft_base_plain, 'base_irfft'),
+            (base_fft, 'stft_base', base_fft.stft_base_plain, 'base_stft'),
             (stream, 'phase_a', stream.phase_a_plain, 'stream_phase_a'),
             (stream, 'phase_b', stream.phase_b_plain, 'stream_phase_b'),
             (reconstruct, 'reconstruct_spectrum', reconstruct.reconstruct_plain, 'reconstruct'),
@@ -1500,8 +1591,9 @@ def describe(args) -> str:
 def held_launches(compare, where):
     """Within the block, every launch of a kernel of model_wrappers() is held
     to its plain version on the same inputs just after it, at REL_BOUND, and
-    labelled with ``where()`` and its inputs. The plain versions launch
-    nothing, so the launch counts stay those of the calls."""
+    labelled with ``where()`` and its inputs. The launch counts stay those of
+    the calls: K12s's plain version launches K12r, and the counts are put
+    back after each plain version."""
     from dsc_tpu_torch.kernels import build
 
     saved = []
@@ -1512,7 +1604,9 @@ def held_launches(compare, where):
             before = build.launches[kernel]
             out = fn(*args, **kw)
             if build.launches[kernel] > before:
+                counts = dict(build.launches)
                 compare(kernel, out, plain(*args, **kw), f'{where()}: {describe(args)}')
+                build.launches.update(counts)
             return out
 
         saved.append((module, name, fn))
@@ -1547,17 +1641,38 @@ def cwt64(x: np.ndarray, widths) -> np.ndarray:
 
 
 def model_shapes() -> dict:
-    """The launch shapes the model tier gives K12r, K12ir and K6/K7 at phases
-    6 and 7's sizes: (batch, nh) of K12r (RFFT_SHAPES) and K12ir
-    (IRFFT_SHAPES); (batch, n) of K6/K7 for cwt's 64 kernel rows at fft_n =
+    """The launch shapes the model tier gives K12r, K12ir, K12s and K6/K7 at
+    phases 6 and 7's sizes: (batch, nh) of K12r (RFFT_SHAPES) and K12ir
+    (IRFFT_SHAPES); K12s's geometry (STFT_SHAPES); (batch, n) of K6/K7 for cwt's 64 kernel rows at fft_n =
     2^17."""
     return {'base_rfft': list(RFFT_SHAPES), 'base_irfft': list(IRFFT_SHAPES),
-            'stream': [(64, 2**17)]}
+            'base_stft': list(STFT_SHAPES), 'stream': [(64, 2**17)]}
+
+
+def stft_check(compare, shape, mode, what) -> None:
+    """K12s against its plain version at a launch geometry of STFT_SHAPES'
+    form, in ``mode``: the spectrum and power within STFT_REL_BOUND, the log
+    power within STFT_LOG_BOUND absolute."""
+    from dsc_tpu_torch.fourier import base_fft
+
+    rows, valid, stride, start, n_frames, hop, frame = shape
+    x, window, w, wu = stft_operands(rows, valid, stride, start, frame)
+    got = base_fft.stft_base(x, start, n_frames, hop, window, w, wu, mode, 1e-10)
+    want = base_fft.stft_base_plain(x, start, n_frames, hop, window, w, wu, mode, 1e-10)
+    nh = wu.shape[0] - 1
+    what = (f'{mode} {rows * n_frames} x {frame}, start {start} '
+            f'(R={base_fft.block_rows(nh, rows * n_frames)}), {what}')
+    if mode != 'log':
+        compare('base_stft', got, want, what, STFT_REL_BOUND)
+        return
+    e = float((got - want).abs().max())
+    print(f'  base_stft      {what}: max abs err {e:.3e}')
+    require(e <= STFT_LOG_BOUND, f'base_stft {what}: {e} > {STFT_LOG_BOUND}')
 
 
 def model_shape_checks(compare, normal, cnormal) -> None:
-    """K12r, K12ir and K6/K7 against their plain versions at the model
-    tier's launch shapes (model_shapes); K12r also against np.fft.rfft in
+    """K12r, K12ir, K12s (each mode) and K6/K7 against their plain versions
+    at the model tier's launch shapes (model_shapes); K12r also against np.fft.rfft in
     float64 at the spectrogram cell's shape, K12ir against np.fft.irfft in
     float64 at the griffinlim cell's, both K12ir readings there within
     IRFFT_REL_BOUND."""
@@ -1589,6 +1704,9 @@ def model_shape_checks(compare, normal, cnormal) -> None:
             e = float(np.abs(got.cpu().numpy() - ref).max() / np.abs(ref).max())
             print(f'  K12ir {what} vs np.fft.irfft float64: {e:.3e}')
             require(e <= IRFFT_REL_BOUND, f'K12ir {what} vs np.fft.irfft: {e}')
+    for shape in shapes['base_stft']:
+        for mode in ('complex', 'power', 'log'):
+            stft_check(compare, shape, mode, 'a model shape')
     for b, n in shapes['stream']:
         t = plan.get_plan(n, 'stream', torch.complex64)[1]
         shape = f'{b} x 2^{n.bit_length() - 1}, a model shape'
@@ -2975,7 +3093,7 @@ def plain_versions():
     return ((stream, 'phase_a_local_plain'), (stream, 'phase_b_local_plain'),
             (stream, 'phase_a_plain'), (stream, 'phase_b_plain'),
             (base_fft, 'fft_base_plain'), (base_fft, 'rfft_base_plain'),
-            (base_fft, 'irfft_base_plain'),
+            (base_fft, 'irfft_base_plain'), (base_fft, 'stft_base_plain'),
             (reconstruct, 'reconstruct_plain'),
             (pf, 'rfft_phase_a_plain'), (pf, 'rfft_phase_b_plain'),
             (pf, 'irfft_phase_a_plain'), (pf, 'irfft_phase_b_plain'),
@@ -4301,6 +4419,7 @@ def main() -> int:
               lambda: base_fft.fft_base_plain(x, w), lambda: torch.fft.fft(x),
               2 * nbytes(x) + nbytes(w), fft_ops(n * batch, n))
     rfft_times(timed, normal)
+    stft_times(timed)
     irfft_times(timed, cnormal)
     for body in sm.REAL_BODIES:
         xs = map_operands(body, MAP_N)

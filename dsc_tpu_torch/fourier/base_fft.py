@@ -16,6 +16,13 @@ K12ir (``irfft_base``, base_irfft_kernel) is its mirror, the batched inverse
 real FFT of complex64 half spectra whose half-size transform is a K12 base
 case: the entangle (core.entangle) folded into the row's load, K12's
 unscaled inverse row pass and the 1/nh scale in its store.
+
+K12s (``stft_base``, base_stft_kernel) is the whole forward STFT of float32
+signals whose frames' rfft rides K12r: the framing, the zeros outside the
+signal and the analysis window in K12r's load, and the complex spectrum,
+its power or its log power in K12r's store. Its plain version
+(``stft_base_plain``) is the STFT's plain passes (``stft_plain``) around
+K12r's wrapper.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import functools
 
 import torch
 
+from .. import tracing
 from ..kernels import build
 from .config import BASE_KERNEL_MAX_N, BASE_KERNEL_MIN_N
 from .core import entangle, stockham_fft, untangle
@@ -158,4 +166,111 @@ def _launch_irfft(x: torch.Tensor, w: torch.Tensor, wu: torch.Tensor,
     if b:  # a grid of no blocks is refused at launch
         build.launch('base_irfft', x.data_ptr(), y.data_ptr(), b, nh, w.data_ptr(),
                      wu.data_ptr(), rows)
+    return y
+
+
+# -- K12s: the forward STFT in one launch ---------------------------------
+
+# what an STFT writes of each bin X[k]; the index is K12s's mode
+STFT_MODES = ('complex', 'power', 'log')
+
+
+def frame_dense(x: torch.Tensor, frame: int, hop: int, n_frames: int) -> torch.Tensor:
+    """(b, n) -> (b, n_frames, frame) with frames[:, i, j] = x[:, i*hop + j],
+    a strided view of x (dsc_tpu/models/stft.py:56-80); samples past the
+    end of x read as zeros."""
+    need = (n_frames - 1) * hop + frame
+    if x.shape[-1] < need:
+        with tracing.trace_op('frame_pad', 'plain;pipeline'):
+            x = torch.nn.functional.pad(x, (0, need - x.shape[-1]))
+    return x.unfold(-1, frame, hop)[:, :n_frames]
+
+
+def stft_plain(x: torch.Tensor, start: int, n_frames: int, hop: int, window: torch.Tensor,
+               fft_n: int, mode: str, eps: float, rfft) -> torch.Tensor:
+    """The forward STFT as plain passes: (b, n) signal rows -> (b*n_frames,
+    fft_n/2 + 1), frame i of a row starting at sample start + i*hop, samples
+    outside the row reading as zeros (a negative ``start`` pads zeros before
+    it, the ``center`` span), times ``window`` (its length is the frame's),
+    zero-padded to fft_n, through ``rfft`` (the batched rfft of the
+    (b*n_frames, fft_n) rows); the complex spectrum, or its power, or the
+    log of the power plus ``eps`` (``mode``)."""
+    b, frame = x.shape[0], window.shape[0]
+    if start > 0:
+        x = x[:, start:]
+    elif start < 0:  # zeros before the signal, and after it as far as the frames reach
+        tail = (n_frames - 1) * hop + frame + start - x.shape[-1]
+        with tracing.trace_op('center', 'plain;pipeline'):
+            x = torch.nn.functional.pad(x, (-start, max(0, tail)))
+    frames = frame_dense(x, frame, hop, n_frames)
+    with tracing.trace_op('window', 'plain;pipeline'):
+        fx = (frames * window).reshape(b * n_frames, frame)
+    if frame != fft_n:  # a frame that is not a power of two: zero-padded
+        with tracing.trace_op('pad', 'plain;pipeline'):
+            fx = torch.nn.functional.pad(fx, (0, fft_n - frame))
+    z = rfft(fx)
+    if mode == 'complex':
+        return z
+    with tracing.trace_op('power', 'plain;pipeline'):
+        out = z.real * z.real + z.imag * z.imag
+    if mode == 'power':
+        return out
+    with tracing.trace_op('log', 'plain;pipeline'):
+        return torch.log(out + eps)
+
+
+def stft_base_plain(x: torch.Tensor, start: int, n_frames: int, hop: int, window: torch.Tensor,
+                    w: torch.Tensor, wu: torch.Tensor, mode: str = 'complex',
+                    eps: float = 0.0) -> torch.Tensor:
+    """Plain version of K12s: ``stft_plain`` with K12r's wrapper as the
+    frames' rfft (its plain version on a CPU tensor), at n = 2*(len(wu) - 1)
+    points with the tables ``w`` and ``wu`` of K12r."""
+    return stft_plain(x, start, n_frames, hop, window, 2 * (wu.shape[0] - 1), mode, eps,
+                      lambda fx: rfft_base(fx.contiguous(), w, wu))
+
+
+def stft_base(x: torch.Tensor, start: int, n_frames: int, hop: int, window: torch.Tensor,
+              w: torch.Tensor, wu: torch.Tensor, mode: str = 'complex',
+              eps: float = 0.0) -> torch.Tensor:
+    """K12s on a CUDA tensor, its plain version on a CPU tensor: the
+    (b*n_frames, nh + 1) STFT of the float32 rows of ``x`` (b, valid), frame
+    i of a row starting at sample start + i*hop, complex64 or, in mode
+    'power' or 'log', float32. The rows may lie any distance apart; their
+    samples are made contiguous if they are not."""
+    if x.device.type == 'cpu':
+        return stft_base_plain(x, start, n_frames, hop, window, w, wu, mode, eps)
+    nh = wu.shape[0] - 1
+    if not _takes(nh):
+        raise RuntimeError(f'base_stft: {nh + 1} untangle twiddles are not one more than {_SIZES}')
+    if x.stride(-1) != 1:
+        x = x.contiguous()
+    return _launch_stft(x, start, n_frames, hop, window, w, wu, mode, eps,
+                        block_rows(nh, x.shape[0] * n_frames))
+
+
+def _launch_stft(x: torch.Tensor, start: int, n_frames: int, hop: int, window: torch.Tensor,
+                 w: torch.Tensor, wu: torch.Tensor, mode: str, eps: float,
+                 rows: int) -> torch.Tensor:
+    """K12s with ``rows`` rows a block."""
+    b, valid = x.shape
+    nh, frame = wu.shape[0] - 1, window.shape[0]
+    if mode not in STFT_MODES:
+        raise RuntimeError(f'base_stft: unknown mode {mode!r}')
+    if not (0 < frame <= 2 * nh and hop > 0 and n_frames >= 0):
+        raise RuntimeError(f'base_stft: frame {frame}, hop {hop}, {n_frames} frames '
+                           f'at {2 * nh} points')
+    if not x.is_cuda or x.dtype != torch.float32 or x.stride(-1) != 1:
+        raise RuntimeError(f'x: expected CUDA float32 rows of contiguous samples, got '
+                           f'{x.dtype} on {x.device} with strides {x.stride()}')
+    build.check(window, torch.float32, (frame,), 'window', align=8)  # read as float2
+    build.check(w, torch.complex64, (nh // 2,), 'w')
+    build.check(wu, torch.complex64, (nh + 1,), 'wu')
+    dtype = torch.complex64 if mode == 'complex' else torch.float32
+    y = torch.empty((b * n_frames, nh + 1), dtype=dtype, device=x.device)
+    if b * n_frames:  # a grid of no blocks is refused at launch
+        # one signal row: its stride is never stepped over
+        stride = x.stride(0) if b > 1 else 0
+        build.launch('base_stft', x.data_ptr(), y.data_ptr(), b * n_frames, n_frames, stride,
+                     start, valid, hop, frame, nh, window.data_ptr(), w.data_ptr(),
+                     wu.data_ptr(), STFT_MODES.index(mode), eps, rows)
     return y

@@ -68,6 +68,10 @@ KERNELS = {
     'base_rfft': ('dsc_base_rfft', (_P, _P, _I, _I, _P, _P, _I)),
     # x, y, batch, nh, w, untangle table, rows a block
     'base_irfft': ('dsc_base_irfft', (_P, _P, _I, _I, _P, _P, _I)),
+    # x, y, batch, frames a row, row stride, start, valid samples a row, hop,
+    # frame, nh, window, w, untangle table, mode, eps, rows a block
+    'base_stft': ('dsc_base_stft', (_P, _P, _I, _I, _L, _L, _L, _I, _I, _I, _P, _P, _P, _I, _F,
+                                    _I)),
     # x, at, floats of x, n1, m2, w_n1, twiddle lo, hi, bits, columns a block
     'rfft_phase_a': ('dsc_rfft_phase_a', (_P, _P, _L, _I, _I, _P, _P, _P, _I, _I)),
     # at, spec, n1, m2, w_m2, untangle lo, hi, bits, row pairs a block

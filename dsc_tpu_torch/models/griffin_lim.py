@@ -5,10 +5,11 @@ spectrogram, found by alternating projections on the STFT/ISTFT path of
 stft.py.
 
 Each iteration runs the inverse STFT of S * angles (``_istft_program``: the
-batched irfft, whose half-size transform is K12's, then the synthesis window
-and the overlap-add), the forward STFT of that audio (``_stft_program``:
-framing, analysis window, K12r), then the momentum step and the projection
-back onto the magnitudes, as plain passes on the device. The iterations
+batched irfft, K12ir, then the synthesis window and the overlap-add), the
+forward STFT of that audio (``_stft_program``: K12s, which frames the
+cropped audio with the centre's zeros, windows it and transforms it in one
+launch), then the momentum step and the projection back onto the
+magnitudes, as plain passes on the device. The iterations
 share one plan, one device window and one 1/sum(w^2) table, and the loop
 makes no host synchronisation and no upload.
 """
@@ -98,10 +99,9 @@ class GriffinLim:
                 return y[:, pad:pad + length]
 
         def forward(x):
-            if pad:
-                with tracing.trace_op('center', 'plain;pipeline'):
-                    x = torch.nn.functional.pad(x, (pad, pad))
-            return _stft_program(x, window, tables, frame, hop, n_frames, spec, fft_n)
+            # frame i starts at sample i*hop - pad of the cropped view: K12s reads
+            # zeros outside it, the plain passes pad it under the center span
+            return _stft_program(x, window, tables, hop, n_frames, spec, fft_n, start=-pad)
 
         with tracing.trace_op('griffin_lim', 'op;pipeline',
                               tracing.tensor_args(S=S, angles=angles)):

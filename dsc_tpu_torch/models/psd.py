@@ -2,7 +2,7 @@
 semantics): ``welch``, ``periodogram``, ``csd``, ``coherence``,
 ``psd_spectrogram`` and ``detrend``.
 
-Each estimator is one chain of torch ops: frame (stft.py ``_frame_dense``,
+Each estimator is one chain of torch ops: frame (fourier/base_fft.py ``frame_dense``,
 a strided view) -> detrend -> window -> batched rfft -> |.|^2 -> average ->
 scale. All segments ride the batched FFT core as one call, so a
 1024-sample segment is one launch of the base-case kernel K12 on the
@@ -26,9 +26,10 @@ from .. import tracing
 from ..fourier import core as fft_core
 from ..fourier import plan as fft_plan
 from ..fourier import rfftfreq
+from ..fourier.base_fft import frame_dense
 from ..tensor import Tensor, from_numpy
 from ..windows import design_window
-from .stft import _device_array, _frame_dense, _make_window
+from .stft import _device_array, _make_window
 
 
 def _spectral_window(window, nperseg: int) -> np.ndarray:
@@ -87,7 +88,7 @@ def _spectra(x: torch.Tensor, window: torch.Tensor, nperseg: int, hop: int, n_fr
     """(b, n) float32 -> (b, n_frames, nperseg//2+1) complex64: every
     windowed segment of every row through one batched rfft."""
     spec, tables = fft_plan.get_plan(nperseg, 'real', torch.complex64)
-    segs = _detrend_segs(_frame_dense(x, nperseg, hop, n_frames), nperseg, detrend)
+    segs = _detrend_segs(frame_dense(x, nperseg, hop, n_frames), nperseg, detrend)
     fx = (segs * window).reshape(-1, nperseg)
     z = fft_core.rfft_batched(fx, spec, tables, nperseg)
     return z.reshape(x.shape[0], n_frames, -1)

@@ -30,10 +30,11 @@ import torch
 from .. import tracing
 from ..fourier import core as fft_core
 from ..fourier import plan as fft_plan
+from ..fourier.base_fft import frame_dense
 from ..tensor import Tensor, from_numpy
 from ..windows import design_window
 from .psd import _detrend_segs, _f32
-from .stft import _device_array, _frame_dense, _overlap_add
+from .stft import _device_array, _overlap_add
 from .stft_scipy import _overlap_add_diag, _pad_ext
 
 _FFT_MODES = ('twosided', 'centered', 'onesided', 'onesided2X')
@@ -81,7 +82,7 @@ def _stft_program(x, win, tables, geom, pad, m_num, hop, q_num, detr, mfft, p_s,
     p = x[:, i0:i1]
     if pl or pr:
         p = _pad_ext(p, pl, pr, pad)
-    segs = _detrend_segs(_frame_dense(p, m_num, hop, q_num), m_num, detr)
+    segs = _detrend_segs(frame_dense(p, m_num, hop, q_num), m_num, detr)
     f = (segs * win.conj()).reshape(-1, m_num)  # scipy windows with win.conj()
     if m_num != mfft:
         f = torch.nn.functional.pad(f, (0, mfft - m_num))

@@ -2,14 +2,18 @@
 config 4: sliding-window rfft + |.|^2 + log over streaming audio, traced end
 to end with dsc.profile()).
 
-Framing (``_frame_dense``) is a strided view of the signal (``unfold``),
-copied once into the windowed frames; the frames go through the batched
-FFT engine (fourier/core.py ``rfft_batched`` / ``irfft_batched``), whose
-routing sends a 1024-sample frame to the 512-point half-size transform of
-the base-case kernel K12. The inverse (``_istft_program``) overlap-adds
-the frames as ceil(frame/hop) shifted slice-adds, each over
-non-overlapping hop-wide pieces, for any hop. psd.py, stft_scipy.py and
-short_time_fft.py frame and overlap-add through the same helpers.
+The forward STFT (``_stft_program``) is one launch of K12s
+(fourier/base_fft.py ``stft_base``) where the frames' batched rfft rides
+K12r (config.batched_engine 'base': float32 frames of 512..8192 points):
+the kernel frames the signal, windows it and writes the complex spectrum,
+its power or its log power. Elsewhere it is plain passes
+(``base_fft.stft_plain``): framing as a strided view of the signal
+(``base_fft.frame_dense``, ``unfold``) copied once into the windowed frames,
+the batched FFT engine (fourier/core.py ``rfft_batched``), power and log.
+The inverse (``_istft_program``) runs the batched irfft and overlap-adds
+the frames as ceil(frame/hop) shifted slice-adds, each over non-overlapping
+hop-wide pieces, for any hop. psd.py, stft_scipy.py and short_time_fft.py
+frame and overlap-add through the same helpers.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import capture, tracing
+from ..fourier import base_fft, config
 from ..fourier import core as fft_core
 from ..fourier import plan as fft_plan
 from ..tensor import Tensor
@@ -91,17 +96,6 @@ def _fft_convolve_rows(x: torch.Tensor, h: torch.Tensor, fft_n: int) -> torch.Te
     return fft_core.irfft_batched(xs * hs, spec, tables, fft_n)
 
 
-def _frame_dense(x: torch.Tensor, frame: int, hop: int, n_frames: int) -> torch.Tensor:
-    """(b, n) -> (b, n_frames, frame) with frames[:, i, j] = x[:, i*hop + j],
-    a strided view of x (dsc_tpu/models/stft.py:56-80); samples past the
-    end of x read as zeros."""
-    need = (n_frames - 1) * hop + frame
-    if x.shape[-1] < need:
-        with tracing.trace_op('frame_pad', 'plain;pipeline'):
-            x = torch.nn.functional.pad(x, (0, need - x.shape[-1]))
-    return x.unfold(-1, frame, hop)[:, :n_frames]
-
-
 def _overlap_add(frames: torch.Tensor, hop: int, off: int, out_n: int) -> torch.Tensor:
     """(b, n_frames, frame) -> (b, out_n): frame i added at sample
     off + i*hop. Frame i's piece c (samples c*hop ... c*hop + hop, the last
@@ -120,19 +114,22 @@ def _overlap_add(frames: torch.Tensor, hop: int, off: int, out_n: int) -> torch.
     return y[:, :out_n]
 
 
-def _stft_program(x: torch.Tensor, window: torch.Tensor, tables, frame: int, hop: int,
-                  n_frames: int, spec, fft_n: int) -> torch.Tensor:
-    """(b, n) float -> (b, n_frames, fft_n//2+1) complex: framing, analysis
-    window, the frame zero-padded to fft_n where it is not a power of two,
+def _stft_program(x: torch.Tensor, window: torch.Tensor, tables, hop: int, n_frames: int,
+                  spec, fft_n: int, mode: str = 'complex', eps: float = 0.0,
+                  start: int = 0) -> torch.Tensor:
+    """(b, n) float -> (b, n_frames, fft_n//2+1): the complex spectrogram, its
+    power or the log of its power plus ``eps`` (``mode``), frame i starting
+    at sample start + i*hop, samples outside the signal read as zeros, times
+    the analysis window, zero-padded to fft_n. One K12s launch where the
+    frames' batched rfft rides K12r, else the plain passes around the
     batched rfft."""
     b = x.shape[0]
-    frames = _frame_dense(x, frame, hop, n_frames)
-    with tracing.trace_op('window', 'plain;pipeline'):
-        fx = (frames * window).reshape(b * n_frames, frame)
-    if frame != fft_n:  # a frame that is not a power of two: zero-padded
-        with tracing.trace_op('pad', 'plain;pipeline'):
-            fx = torch.nn.functional.pad(fx, (0, fft_n - frame))
-    return fft_core.rfft_batched(fx, spec, tables, fft_n).reshape(b, n_frames, -1)
+    if config.batched_engine('r2c', x.dtype, b * n_frames, fft_n) == 'base':
+        out = base_fft.stft_base(x, start, n_frames, hop, window, *tables, mode, eps)
+    else:
+        out = base_fft.stft_plain(x, start, n_frames, hop, window, fft_n, mode, eps,
+                                  lambda fx: fft_core.rfft_batched(fx, spec, tables, fft_n))
+    return out.reshape(b, n_frames, -1)
 
 
 def _istft_program(z: torch.Tensor, window: torch.Tensor, inv_wsq: torch.Tensor, tables,
@@ -177,21 +174,14 @@ class STFT:
         n = x.shape[-1]
         if n < self.frame:
             raise RuntimeError(f'signal ({n}) shorter than frame ({self.frame})')
-        frame, fft_n = self.frame, self.fft_n
-        n_frames = 1 + (n - frame) // self.hop
+        fft_n = self.fft_n
+        n_frames = 1 + (n - self.frame) // self.hop
         data = x.torch if batched else x.torch[None, :]
         with tracing.trace_op('stft', 'op;pipeline', tracing.tensor_args(x=x)):
             spec, tables = fft_plan.get_plan(fft_n, 'real', torch.complex64)
             window = _placed(self._windows, self._window, data.device)
-            z = _stft_program(data, window, tables, frame, self.hop, n_frames, spec, fft_n)
-            if self.mode == 'complex':
-                out = z
-            else:
-                with tracing.trace_op('power', 'plain;pipeline'):
-                    out = z.real * z.real + z.imag * z.imag
-                if self.log_eps is not None:
-                    with tracing.trace_op('log', 'plain;pipeline'):
-                        out = torch.log(out + self.log_eps)
+            out = _stft_program(data, window, tables, self.hop, n_frames, spec, fft_n,
+                                self.mode, self.log_eps or 0.0)
             res = Tensor._from_torch(out if batched else out[0])
         return res
 

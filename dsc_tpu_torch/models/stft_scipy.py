@@ -25,10 +25,11 @@ from .. import tracing
 from ..fourier import core as fft_core
 from ..fourier import fftfreq, rfftfreq
 from ..fourier import plan as fft_plan
+from ..fourier.base_fft import frame_dense
 from ..tensor import Tensor, from_numpy
 from ..windows import design_window
 from .psd import _detrend_segs, _f32, _rows, _spectral_window
-from .stft import _device_array, _frame_dense, _istft_program
+from .stft import _device_array, _istft_program
 
 
 def _f64_window(window, nperseg: int) -> np.ndarray:
@@ -139,7 +140,7 @@ def stft(x: Tensor, fs: float = 1.0, window='hann', nperseg: int = 256,
             data = _pad_ext(data, bpad, bpad, _BOUNDARIES[boundary])
         if tail:
             data = torch.nn.functional.pad(data, (0, tail))
-        segs = _detrend_segs(_frame_dense(data, nperseg, hop, n_frames), nperseg, detrend)
+        segs = _detrend_segs(frame_dense(data, nperseg, hop, n_frames), nperseg, detrend)
         fx = (segs * _device_array(win, data)).reshape(-1, nperseg)
         if nperseg != nfft:
             fx = torch.nn.functional.pad(fx, (0, nfft - nperseg))

@@ -352,3 +352,143 @@ def test_irfft_launcher_refuses_a_lazy_conjugate():
     x = torch.empty((2, 513), dtype=torch.complex64, device='meta').conj()
     with pytest.raises(RuntimeError, match='lazy conjugate'):
         base_fft._launch_irfft(x, w, wu, 1)
+
+
+# -- K12s: the forward STFT in one launch ---------------------------------
+
+def _signal(batch, valid, seed, stride=None, offset=0):
+    """(batch, valid) float32 rows, ``stride`` floats apart and ``offset``
+    floats into a wider tensor where given: a strided view."""
+    stride = valid if stride is None else stride
+    wide = torch.from_numpy(
+        np.random.default_rng(seed).standard_normal(batch * stride + offset).astype(np.float32))
+    return wide[offset:offset + batch * stride].view(batch, stride)[:, :valid]
+
+
+def _stft_before(x, start, n_frames, hop, window, fft_n, mode, eps):
+    """The forward STFT as models/stft.py and griffin_lim.py composed it
+    before K12s: the centre's zeros padded at both ends (a negative start),
+    the strided frames with their zero tail, the window, the pad to fft_n,
+    the batched rfft, the power and the log."""
+    frame = window.shape[0]
+    pad = torch.nn.functional.pad
+    x = pad(x, (-start, -start)) if start < 0 else x[:, start:]
+    need = (n_frames - 1) * hop + frame
+    if x.shape[-1] < need:
+        x = pad(x, (0, need - x.shape[-1]))
+    frames = x.unfold(-1, frame, hop)[:, :n_frames]
+    fx = pad((frames * window).reshape(-1, frame), (0, fft_n - frame))
+    spec, tables = plan.get_plan(fft_n, 'real', torch.complex64, 'cpu')
+    z = core.rfft_batched(fx, spec, tables, fft_n)
+    if mode == 'complex':
+        return z
+    out = z.real * z.real + z.imag * z.imag
+    return out if mode == 'power' else torch.log(out + eps)
+
+
+# (batch, valid, row stride, offset, start, frames, hop, frame): the
+# spectrogram's framing; Griffin-Lim's centre (start -frame/2) on its cropped
+# view; frames that run past the signal's end; a frame shorter than fft_n;
+# an odd hop and start on a misaligned view
+STFT_CASES = {
+    'spectrogram': (3, 8192, None, 0, 0, 29, 256, 1024),
+    'centre_view': (2, 4000, 4512, 256, -512, 16, 256, 1024),
+    'past_the_end': (2, 3000, None, 0, 0, 11, 256, 1024),
+    'short_frame': (2, 5000, None, 0, 0, 17, 256, 1000),
+    'odd_hop_start': (3, 3001, 3010, 1, -3, 20, 125, 1000),
+}
+
+
+def _stft_case(name, seed=0):
+    batch, valid, stride, offset, start, n_frames, hop, frame = STFT_CASES[name]
+    x = _signal(batch, valid, seed + valid, stride, offset)
+    window = torch.from_numpy(np.hanning(frame).astype(np.float32))
+    return x, start, n_frames, hop, window
+
+
+@pytest.mark.parametrize('mode', ['complex', 'power', 'log'])
+@pytest.mark.parametrize('case', list(STFT_CASES))
+def test_stft_plain_is_the_composition_before_k12s(case, mode):
+    """K12s's plain version gives what the STFT's passes gave before K12s,
+    bit for bit, in every mode, on a negative start, frames past the
+    signal's end, a frame shorter than fft_n, an odd hop and start and a
+    strided view; the wrapper runs it for a CPU tensor."""
+    x, start, n_frames, hop, window = _stft_case(case)
+    fft_n = 1024
+    _, w, wu = _real_plan(fft_n, torch.complex64)
+    got = base_fft.stft_base_plain(x, start, n_frames, hop, window, w, wu, mode, 1e-10)
+    assert got.shape == (x.shape[0] * n_frames, fft_n // 2 + 1)
+    assert got.dtype == (torch.complex64 if mode == 'complex' else torch.float32)
+    want = _stft_before(x, start, n_frames, hop, window, fft_n, mode, 1e-10)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(
+        base_fft.stft_base(x, start, n_frames, hop, window, w, wu, mode, 1e-10).numpy(),
+        got.numpy())
+
+
+def _np_stft64(x, start, n_frames, hop, window, fft_n):
+    """The STFT in float64 by np.fft: frame i of a row from sample start +
+    i*hop, zeros outside the row."""
+    x = x.numpy().astype(np.float64)
+    frame = window.shape[0]
+    idx = start + hop * np.arange(n_frames)[:, None] + np.arange(frame)[None, :]
+    inside = (idx >= 0) & (idx < x.shape[-1])
+    frames = np.where(inside, x[:, np.clip(idx, 0, x.shape[-1] - 1)], 0.0)
+    spec = np.fft.rfft(frames * window.numpy().astype(np.float64), fft_n, axis=-1)
+    return spec.reshape(-1, fft_n // 2 + 1)
+
+
+@pytest.mark.parametrize('case', list(STFT_CASES))
+def test_stft_plain_against_numpy_in_float64(case):
+    """K12s's plain version in float32 against np.fft in float64: the
+    spectrum within 2e-6 of its largest value, the log power within 1e-3
+    where the power is above 1e-6 of its largest."""
+    x, start, n_frames, hop, window = _stft_case(case, seed=1)
+    _, w, wu = _real_plan(1024, torch.complex64)
+    want = _np_stft64(x, start, n_frames, hop, window, 1024)
+    got = base_fft.stft_base_plain(x, start, n_frames, hop, window, w, wu).numpy()
+    assert np.abs(got - want).max() / np.abs(want).max() < 2e-6
+    power = np.abs(want) ** 2
+    log = base_fft.stft_base_plain(x, start, n_frames, hop, window, w, wu, 'log', 1e-10).numpy()
+    loud = power > 1e-6 * power.max()
+    assert np.abs(log - np.log(power + 1e-10))[loud].max() < 1e-3
+
+
+@pytest.mark.parametrize('dtype,frame,takes', [
+    (torch.float32, 1024, True),       # the spectrogram and Griffin-Lim cells
+    (torch.float32, 1000, True),       # padded to 1024
+    (torch.float32, 512, True),
+    (torch.float32, 8192, True),
+    (torch.float32, 256, False),       # a half of 128 points: Stockham
+    (torch.float32, 250, False),
+    (torch.float32, 8193, False),      # fft_n 16384: the four-step
+    (torch.float64, 1024, False),
+    (torch.float16, 1024, False),
+])
+def test_which_stfts_ride_k12s(dtype, frame, takes):
+    """An STFT takes K12s where its frames' batched rfft rides K12r
+    (config.batched_engine 'r2c' says 'base': float32 frames whose fft_n is
+    512..8192); every other keeps the plain passes."""
+    fft_n = plan.next_pow2(frame)
+    engine = config.batched_engine('r2c', dtype, 64 * 858, fft_n)
+    assert (engine == 'base') == takes
+
+
+@pytest.mark.parametrize('kw,match', [
+    ({}, 'CUDA'),
+    ({'mode': 'abs'}, 'unknown mode'),
+    ({'hop': 0}, 'hop'),
+    ({'frame': 1025}, 'frame 1025'),
+    ({'fft_n': 16384}, 'one more than a power of two'),
+    ({'fft_n': 256}, 'one more than a power of two'),
+])
+def test_stft_wrapper_refuses_what_the_kernel_does_not_take(kw, match):
+    """Off the CPU the wrapper launches K12s or raises: a tensor on the meta
+    device, an unknown mode, a hop of 0, a frame longer than the transform
+    or a transform the kernel does not take is refused before any build."""
+    fft_n = kw.get('fft_n', 1024)
+    _, w, wu = _real_plan(fft_n, torch.complex64)
+    x = torch.empty((2, 4096), dtype=torch.float32, device='meta')
+    window = torch.ones(kw.get('frame', 1024))
+    with pytest.raises(RuntimeError, match=match):
+        base_fft.stft_base(x, 0, 13, kw.get('hop', 256), window, w, wu, kw.get('mode', 'log'))

@@ -282,8 +282,9 @@ def test_bad_settings_are_refused(kw):
 @pytest.mark.gpu
 def test_spans_on_the_card():
     """On the card one default call at the benchmark's STFT (frame 1024, hop 256) launches
-    K12r once an iteration and K12ir once an inverse: 32 base_rfft and 33 base_irfft, with
-    no plain entangle."""
+    K12s once an iteration and K12ir once an inverse: 32 base_stft and 33 base_irfft, with
+    no plain entangle, untangle or window, and the centre span only on the inverses'
+    crops."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
     from dsc_tpu_torch.kernels import build
@@ -308,11 +309,13 @@ def test_spans_on_the_card():
             tracing.clear_traces()
         assert counts[('api', 'griffin_lim')] == 1
         assert counts[('plain', 'project')] == 32
-        assert counts[('wrapper', 'base_rfft')] == 32
+        assert counts[('wrapper', 'base_stft')] == 32
         assert counts[('wrapper', 'base_irfft')] == 33
+        assert counts[('plain', 'center')] == 33
         assert ('plain', 'entangle') not in counts
         assert ('plain', 'untangle') not in counts
-        assert {k: v for k, v in build.launches.items() if v} == {'base_rfft': 32,
+        assert ('plain', 'window') not in counts
+        assert {k: v for k, v in build.launches.items() if v} == {'base_stft': 32,
                                                                    'base_irfft': 33}
     finally:
         dt.shutdown()

@@ -123,6 +123,81 @@ def test_base_rfft_empty_batch_and_misaligned_rows():
         base_fft.rfft_base(x, w, wu)
 
 
+# K12s against its plain version (the STFT's plain passes around K12r): the
+# same float32 products, row pass and untangle, so the spectrum and power
+# differ only where the compiler orders the row pass's sums differently
+STFT_REL = 3e-7
+STFT_LOG_ABS = 1e-5
+
+
+def _stft_launch(x, start, n_frames, hop, frame, mode):
+    """K12s and its plain version on the signal rows ``x`` with a periodic
+    Hann window of ``frame``; one launch of K12s and none of K12r."""
+    fft_n = plan.next_pow2(frame)
+    w, wu = plan.get_plan(fft_n, 'real', torch.complex64)[1]
+    window = torch.hann_window(frame, device='cuda')
+    before = dict(build.launches)
+    got = base_fft.stft_base(x, start, n_frames, hop, window, w, wu, mode, 1e-10)
+    assert build.launches['base_stft'] == before['base_stft'] + 1
+    assert build.launches['base_rfft'] == before['base_rfft']
+    want = base_fft.stft_base_plain(x, start, n_frames, hop, window, w, wu, mode, 1e-10)
+    assert got.shape == (x.shape[0] * n_frames, fft_n // 2 + 1)
+    assert got.dtype == want.dtype
+    return got, want
+
+
+def _held(got, want, mode):
+    if mode == 'log':  # the log of a bin near zero power: absolute error
+        assert float((got - want).abs().max()) < STFT_LOG_ABS
+    else:
+        assert _rel(got, want) < STFT_REL
+
+
+@pytest.mark.parametrize('mode', ['complex', 'power', 'log'])
+@pytest.mark.parametrize('cell', ['spectrogram', 'griffinlim'])
+def test_base_stft_kernel_cells(cell, mode):
+    """K12s at the benchmark cells' launches: 64 clips of 220,500 samples,
+    54,912 frames of 1024 every 256; Griffin-Lim's 55,168 frames of the
+    inverse's output cropped by a view, from sample -512."""
+    wide = _real_rows((64, 221440), 29)
+    if cell == 'spectrogram':
+        x, start, n_frames = wide[:, :220500].contiguous(), 0, 858
+    else:
+        x, start, n_frames = wide[:, 512:512 + 220500], -512, 862
+    _held(*_stft_launch(x, start, n_frames, 256, 1024, mode), mode)
+
+
+@pytest.mark.parametrize('mode', ['complex', 'power', 'log'])
+@pytest.mark.parametrize('frame', [512, 1000, 1024, 2048, 4096, 8192])
+def test_base_stft_kernel_sizes(frame, mode):
+    """K12s at every K12 half size, frames a quarter apart from sample
+    -frame/2 of 3 rows, a ragged last block; 1000 points padded to 1024."""
+    hop = frame // 4
+    x = _real_rows((3, 8 * frame + 6), frame)
+    n_frames = 1 + (8 * frame + 6) // hop
+    _held(*_stft_launch(x, -(frame // 2), n_frames, hop, frame, mode), mode)
+
+
+@pytest.mark.parametrize('mode', ['complex', 'log'])
+def test_base_stft_kernel_odd_geometry(mode):
+    """The scalar path: an odd start, hop, row stride and valid length on a
+    view 4 bytes off, frames past the row's end, a ragged last block."""
+    wide = _real_rows((3 * 5011 + 1,), 31)
+    x = wide[1:].view(3, 5011)[:, :4999]
+    _held(*_stft_launch(x, -3, 41, 125, 1000, mode), mode)
+
+
+def test_base_stft_empty_batch_launches_nothing():
+    w, wu = plan.get_plan(1024, 'real', torch.complex64)[1]
+    window = torch.hann_window(1024, device='cuda')
+    before = build.launches['base_stft']
+    for x, n_frames in ((torch.empty((0, 4096), device='cuda'), 13),
+                        (torch.empty((2, 4096), device='cuda'), 0)):
+        got = base_fft.stft_base(x, 0, n_frames, 256, window, w, wu, 'log', 1e-10)
+        assert got.shape == (0, 513) and got.is_cuda and got.dtype == torch.float32
+    assert build.launches['base_stft'] == before
+
+
 # K12ir's launch shapes (batch, nh): the griffinlim cell's 55,168 frames,
 # OverlapSave at fft_n = 8192 (521 and 1048 rows of nh = 4096), the ISTFT of
 # 4 x 2^18 (512 x 4084), istft of the scipy-style stft of 2^20 (512 x 2049)
@@ -222,8 +297,8 @@ def test_public_rfft_rows_ride_k12r(shape, kernels):
 
 
 def test_stft_spans_on_the_card():
-    """On the card the STFT's span tree is api/stft over plain/window,
-    wrapper/base_rfft, plain/power and plain/log: no untangle."""
+    """On the card the STFT's span tree is api/stft over wrapper/base_stft:
+    one K12s launch, no plain pass."""
     from dsc_tpu_torch import tracing
 
     stft = dt.models.STFT(frame=1024, hop=256, window='hann', mode='log')
@@ -243,8 +318,7 @@ def test_stft_spans_on_the_card():
         elif e['ph'] == 'E':
             depth -= 1
     tracing.clear_traces()
-    assert tree == [('api', 'stft', 0), ('plain', 'window', 1), ('wrapper', 'base_rfft', 1),
-                    ('plain', 'power', 1), ('plain', 'log', 1)]
+    assert tree == [('api', 'stft', 0), ('wrapper', 'base_stft', 1)]
 
 
 def test_base_fft_empty_batch_launches_nothing():

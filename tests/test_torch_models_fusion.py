@@ -197,6 +197,51 @@ def test_stft_frame_1024_rides_k12(monkeypatch):
     assert np.abs(got.numpy() - want).max() < 1e-3
 
 
+@pytest.mark.parametrize('mode', ['log', 'power', 'complex'])
+def test_stft_program_sends_riding_frames_to_k12s(mode, monkeypatch):
+    """An STFT whose frames ride K12r (frame 1024, float32) hands the signal
+    to K12s's wrapper with its mode and eps, once a call, on a CPU tensor
+    too; with the rule sending the frames to 'plain' it runs the plain
+    passes around the batched rfft instead: on a CPU tensor both give the
+    same numbers, bit for bit."""
+    from dsc_tpu_torch.fourier import config
+
+    calls = []
+    stft_base = base_fft.stft_base
+
+    def spy(x, start, n_frames, hop, window, w, wu, mode, eps):
+        calls.append((tuple(x.shape), start, n_frames, hop, window.shape, mode, eps))
+        return stft_base(x, start, n_frames, hop, window, w, wu, mode, eps)
+
+    monkeypatch.setattr(base_fft, 'stft_base', spy)
+    x = dt.from_numpy(_rand((2, 8192), 19))
+    got = tm.STFT(1024, 256, 'hann', mode=mode)(x)
+    eps = 1e-10 if mode == 'log' else 0.0
+    assert calls == [((2, 8192), 0, 29, 256, (1024,), mode, eps)]
+    monkeypatch.setattr(config, 'batched_engine', lambda *a: 'plain')
+    plain = tm.STFT(1024, 256, 'hann', mode=mode)(x)
+    assert len(calls) == 1
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())
+
+
+def test_griffin_lim_forward_reads_the_cropped_view(monkeypatch):
+    """Griffin-Lim's forward STFT hands K12s's wrapper the inverse's output
+    cropped by a view, no copy, with frame 0 at sample -frame/2 of it: the
+    centre's zeros are read, not written."""
+    calls = []
+    stft_base = base_fft.stft_base
+
+    def spy(x, start, *args):
+        calls.append((x.is_contiguous(), x.stride(0), tuple(x.shape), start))
+        return stft_base(x, start, *args)
+
+    monkeypatch.setattr(base_fft, 'stft_base', spy)
+    S = dt.Tensor(torch.rand(2, 20, 513, generator=torch.Generator().manual_seed(3)))
+    tm.GriffinLim(1024, 256, 'hann', n_iter=2)(S)
+    span = 19 * 256 + 1024
+    assert calls == [(False, span, (2, span - 1024), -512)] * 2
+
+
 def test_istft_round_trip():
     x = _rand((2, 4096), 17)
     Z = tm.STFT(256, 64, mode='complex')(dt.from_numpy(x))

@@ -253,6 +253,107 @@ def test_k12r_index_maps(nh, points):
     assert all((lengths == min(32, nh // 16)).all() for lengths in runs)
 
 
+def emulate_k12s_load(mem, offset, batch, row_stride, start, valid, n_frames, hop, window, nh,
+                      rows):
+    """base_stft_kernel's load over every block, ``rows`` rows a block: the
+    (batch * n_frames, 2nh) float32 rows it hands K12r's row pass, frame i
+    of signal row b read from ``mem`` (the signal's memory, float32) at
+    offset + b*row_stride + start + i*hop + j times window[j], zero outside
+    the frame and the row's ``valid`` samples; on an even geometry as float2
+    pairs, pair u of a thread read where lo <= u < hi (the kernel's range of
+    pairs inside the row and the frame), else as two floats tested each;
+    every read held inside the row and the window, every float2 read 8-byte
+    aligned (``mem`` is), and the runs of neighbouring float2 each warp's
+    signal reads make in frames that lie inside the signal."""
+    frame = window.shape[0]
+    pairs = not (offset | row_stride | start | valid | hop | frame) & 1
+    log2T = nh.bit_length() - 1 - LOG2_RADIX
+    tid = np.arange(rows << log2T)
+    r, t = tid >> log2T, tid & ((1 << log2T) - 1)
+    total = batch * n_frames
+    out = np.full((total, 2 * nh), np.nan, np.float32)
+    runs = []
+    for blk in range(-(-total // rows)):
+        row = blk * rows + r
+        live = row < total
+        b = row // n_frames
+        p0 = start + (row - b * n_frames) * hop
+        whole = live & (p0 >= 0) & (p0 + frame <= valid)
+        first = p0 + 2 * t   # the kernel's pair range: lo <= u < hi
+        step = 2 << log2T
+        lo = np.minimum(np.where(first >= 0, 0, (step - 1 - first) // step), RADIX)
+        left = np.minimum(valid - first, frame - 2 * t)
+        hi = np.where(live & (left > 0), np.minimum((left + step - 1) // step, RADIX), 0)
+        for q in range(RADIX):
+            j = 2 * (t + (q << log2T))
+            p = p0 + j
+            got = np.zeros((len(tid), 2), np.float32)
+            for half in (0, 1):
+                if pairs:
+                    inside = (lo <= q) & (q < hi)
+                else:
+                    inside = (live & (j + half < frame) & (p + half >= 0)
+                              & (p + half < valid))
+                addr = offset + b * row_stride + p + half
+                assert (p[inside] + half >= 0).all() and (p[inside] + half < valid).all()
+                assert (j[inside] + half < frame).all()
+                got[inside, half] = mem[addr[inside]] * window[j[inside] + half]
+            if pairs:  # one float2 read of the pair
+                inside = (lo <= q) & (q < hi)
+                assert ((offset + b * row_stride + p)[inside] % 2 == 0).all()
+                runs += warp_runs((offset + b * row_stride + p) // 2, inside & whole)
+            out[row[live], j[live]] = got[live, 0]
+            out[row[live], j[live] + 1] = got[live, 1]
+    return out, pairs, runs
+
+
+# (batch, valid, row stride, offset, start, frames, hop, frame): the
+# spectrogram's framing; Griffin-Lim's centre on its cropped view; frames
+# past the signal's end; a frame shorter than the transform; an odd hop,
+# start and row stride, and a misaligned view, on the scalar path
+K12S_CASES = [(3, 4096, 4096, 0, 0, 13, 256, 1024), (2, 4000, 4512, 256, -512, 15, 256, 1024),
+              (2, 3000, 3000, 0, 0, 11, 256, 1024), (2, 5000, 5000, 0, 0, 17, 256, 1000),
+              (3, 3001, 3010, 1, -3, 19, 125, 1000), (2, 2048, 2048, 0, -256, 9, 256, 512)]
+
+
+@pytest.mark.parametrize('case', K12S_CASES)
+def test_k12s_load(case):
+    """K12s's load gives, bit for bit, the windowed frames, zero-padded to
+    the transform, that its plain version hands the batched rfft, in a
+    ragged last block; on the pair path each warp reads the signal as one
+    run of 32 neighbouring float2, 16 where a row has 16 threads, except at
+    a frame's edges. The full K12s (this load, then K12r's emulated row
+    pass and untangle) against np.fft in float64."""
+    from dsc_tpu_torch.fourier import base_fft
+
+    batch, valid, stride, offset, start, n_frames, hop, frame = case
+    fft_n = plan.next_pow2(max(frame, 512))
+    nh = fft_n // 2
+    mem = np.random.default_rng(valid + frame).standard_normal(
+        offset + batch * stride).astype(np.float32)
+    window = np.hanning(frame).astype(np.float32)
+    rows = 4  # and a ragged last block: no case has a multiple of 4 frames
+    got, pairs, runs = emulate_k12s_load(mem, offset, batch, stride, start, valid, n_frames, hop,
+                                         window, nh, rows)
+    assert pairs == (case[4] % 2 == 0 and case[6] % 2 == 0 and case[3] % 2 == 0)
+    x = torch.from_numpy(mem)[offset:].as_strided((batch, valid), (stride, 1))
+    frames = []
+    base_fft.stft_plain(x, start, n_frames, hop, torch.from_numpy(window), fft_n, 'complex',
+                        0.0, lambda fx: frames.append(fx) or fx)
+    np.testing.assert_array_equal(got, frames[0].numpy())
+    # a warp's float2 reads of a whole frame: one run a row it covers, cut
+    # short only at the end of a frame shorter than the transform
+    full = min(32, nh // 16)
+    assert all(len(lengths) <= 32 // full and (lengths <= full).all() for lengths in runs)
+    assert frame < fft_n or all((lengths == full).all() for lengths in runs)
+    assert bool(runs) == pairs
+    spec, (w, wu) = plan.get_plan(fft_n, 'real', torch.complex64, 'cpu')
+    w, wu = (tab.numpy().astype(complex) for tab in (w, wu))
+    y, _ = emulate_k12r(got.astype(np.float64), w, wu, rows)
+    ref = np.fft.rfft(got.astype(np.float64), axis=1)
+    assert np.abs(y - ref).max() / np.abs(ref).max() < 1e-6
+
+
 def emulate_k12ir(x, w, wu, rows):
     """base_irfft_kernel over every block, ``rows`` rows a block: the (B,
     2nh) real rows of the half spectra ``x`` (B, nh + 1), every output

@@ -23,7 +23,7 @@ import dsc_tpu.models as jm  # noqa: E402
 import dsc_tpu.models.stft_scipy as jss  # noqa: E402
 import dsc_tpu_torch as dt  # noqa: E402
 import dsc_tpu_torch.models as tm  # noqa: E402
-from dsc_tpu_torch.fourier import plan  # noqa: E402
+from dsc_tpu_torch.fourier import base_fft, plan  # noqa: E402
 from dsc_tpu_torch.models import stft_scipy as tss  # noqa: E402
 
 # the modules by name: the packages' attribute ``stft`` is the function
@@ -123,7 +123,7 @@ def test_frame_dense(frame, hop, n_frames, n):
     """Frames of (b, n) with the zero tail when the last frame overruns,
     against the reference's slice-and-concatenate framing."""
     x = np.random.default_rng(2).standard_normal((2, n)).astype(np.float32)
-    got = tstft._frame_dense(torch.from_numpy(x), frame, hop, n_frames)
+    got = base_fft.frame_dense(torch.from_numpy(x), frame, hop, n_frames)
     ref = np.asarray(jstft._frame_dense(x, frame, hop, n_frames))
     assert got.shape == ref.shape
     np.testing.assert_array_equal(got.numpy(), ref)
